@@ -1,0 +1,397 @@
+"""Layer/DAG intermediate representation + receptive-field math (paper Eq. 2-5).
+
+A CNN (or transformer backbone) is a DAG of :class:`LayerSpec` vertices.
+PICO's cost model needs, per layer, the spatial mapping between an output
+*tile* and the input region required to compute it exactly:
+
+    in = (out - 1) * stride + kernel          (Eq. 3, backward)
+    out = (in + 2*pad - kernel) // stride + 1 (Eq. 5, forward)
+
+Layers with a *global* receptive field (fc, global-pool, full attention)
+require the full input extent for any output tile — the analogue of an
+infinitely large conv kernel (see DESIGN.md §6).
+
+Feature sizes are tracked as (w, h); 1-D sequence models use h == 1.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field, replace
+from functools import cached_property
+from typing import Callable, Iterable, Mapping, Sequence
+
+# Kinds with weights and/or meaningful FLOPs.  Everything else (add,
+# concat, input, output) is a connector with k=1, s=1 and ~zero FLOPs.
+COMPUTE_KINDS = frozenset(
+    {"conv", "pool", "fc", "dwconv", "attn", "swa", "conv1d", "ssd",
+     "ffn", "moe", "embed", "norm"}
+)
+CONNECTOR_KINDS = frozenset({"add", "concat", "input", "output", "identity"})
+# Kinds whose receptive field is the full input extent.
+GLOBAL_RF_KINDS = frozenset({"fc", "gpool", "attn"})
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One vertex of the model DAG.
+
+    kernel/stride/padding are (w, h) tuples.  ``in_channels`` is the
+    channel count of the (concatenated) input, ``out_channels`` of the
+    output.  ``flops_coeff`` overrides the per-output-element FLOPs when
+    the closed-form conv formula (Eq. 4) does not apply (attention, ssd,
+    ffn, ...).  ``param_bytes`` is the weight memory of the layer.
+    """
+
+    name: str
+    kind: str = "conv"
+    kernel: tuple[int, int] = (1, 1)
+    stride: tuple[int, int] = (1, 1)
+    padding: tuple[int, int] = (0, 0)
+    in_channels: int = 1
+    out_channels: int = 1
+    flops_coeff: float | None = None  # FLOPs per output spatial element
+    param_bytes: int = 0
+    global_rf: bool = False
+    # if True, tiling the output does NOT duplicate FLOPs even though the
+    # input must be fully gathered (true for attention: each query row is
+    # computed once regardless of the tile layout).
+    tile_independent_flops: bool = False
+
+    def __post_init__(self):
+        if self.kind in GLOBAL_RF_KINDS and not self.global_rf:
+            object.__setattr__(self, "global_rf", True)
+
+    # ---- spatial maps -------------------------------------------------
+    def out_size(self, in_size: tuple[int, int]) -> tuple[int, int]:
+        """Forward map (Eq. 5)."""
+        if self.global_rf:
+            return (1, 1) if self.kind in ("fc", "gpool") else in_size
+        w = (in_size[0] + 2 * self.padding[0] - self.kernel[0]) // self.stride[0] + 1
+        h = (in_size[1] + 2 * self.padding[1] - self.kernel[1]) // self.stride[1] + 1
+        return (max(w, 1), max(h, 1))
+
+    def in_size_for(self, out_size: tuple[int, int],
+                    full_in: tuple[int, int]) -> tuple[int, int]:
+        """Backward map (Eq. 3): input extent needed for an output tile.
+
+        ``full_in`` caps the halo at the real feature boundary and is the
+        answer for global-RF layers.
+        """
+        if self.global_rf:
+            return full_in
+        if out_size[0] == 0 or out_size[1] == 0:
+            return (0, 0)
+        w = (out_size[0] - 1) * self.stride[0] + self.kernel[0]
+        h = (out_size[1] - 1) * self.stride[1] + self.kernel[1]
+        return (min(w, full_in[0]), min(h, full_in[1]))
+
+    # ---- cost ----------------------------------------------------------
+    def flops(self, out_size: tuple[int, int]) -> float:
+        """FLOPs to produce an output tile of ``out_size`` (Eq. 4)."""
+        w, h = out_size
+        if self.flops_coeff is not None:
+            return self.flops_coeff * w * h
+        if self.kind == "conv":
+            return (self.kernel[0] * self.kernel[1] * self.in_channels
+                    * w * h * self.out_channels)
+        if self.kind == "dwconv":
+            return self.kernel[0] * self.kernel[1] * w * h * self.out_channels
+        if self.kind == "fc":
+            return float(self.in_channels) * self.out_channels
+        if self.kind in ("pool", "gpool"):
+            return 0.25 * self.kernel[0] * self.kernel[1] * w * h * self.out_channels
+        return 0.0
+
+
+@dataclass
+class Graph:
+    """A DAG of layers.  Edges are (producer, consumer) name pairs."""
+
+    layers: dict[str, LayerSpec] = field(default_factory=dict)
+    edges: list[tuple[str, str]] = field(default_factory=list)
+
+    # -- construction ---------------------------------------------------
+    def add(self, spec: LayerSpec, inputs: Sequence[str] = ()) -> str:
+        if spec.name in self.layers:
+            raise ValueError(f"duplicate layer {spec.name!r}")
+        self.layers[spec.name] = spec
+        for src in inputs:
+            if src not in self.layers:
+                raise ValueError(f"unknown input {src!r} for {spec.name!r}")
+            self.edges.append((src, spec.name))
+        self._invalidate()
+        return spec.name
+
+    def _invalidate(self):
+        for attr in ("preds", "succs", "topo_order"):
+            self.__dict__.pop(attr, None)
+
+    # -- structure -------------------------------------------------------
+    @cached_property
+    def preds(self) -> dict[str, list[str]]:
+        p: dict[str, list[str]] = {n: [] for n in self.layers}
+        for u, v in self.edges:
+            p[v].append(u)
+        return p
+
+    @cached_property
+    def succs(self) -> dict[str, list[str]]:
+        s: dict[str, list[str]] = {n: [] for n in self.layers}
+        for u, v in self.edges:
+            s[u].append(v)
+        return s
+
+    @cached_property
+    def topo_order(self) -> list[str]:
+        indeg = {n: len(self.preds[n]) for n in self.layers}
+        # stable Kahn: preserves insertion order for deterministic output
+        ready = [n for n in self.layers if indeg[n] == 0]
+        out: list[str] = []
+        while ready:
+            n = ready.pop(0)
+            out.append(n)
+            for m in self.succs[n]:
+                indeg[m] -= 1
+                if indeg[m] == 0:
+                    ready.append(m)
+        if len(out) != len(self.layers):
+            raise ValueError("graph has a cycle")
+        return out
+
+    def sources(self, nodes: Iterable[str] | None = None) -> list[str]:
+        nodes = set(nodes) if nodes is not None else set(self.layers)
+        return [n for n in self.topo_order if n in nodes
+                and not any(p in nodes for p in self.preds[n])]
+
+    def sinks(self, nodes: Iterable[str] | None = None) -> list[str]:
+        """Sink vertices of a segment (paper Definition 3): vertices with
+        at least one consumer *outside* the segment (or none at all).
+        Skip connections crossing the boundary make a mid-segment vertex
+        a sink too — its output must be shipped to a later stage."""
+        nodes = set(nodes) if nodes is not None else set(self.layers)
+        return [n for n in self.topo_order if n in nodes
+                and (not self.succs[n]
+                     or any(s not in nodes for s in self.succs[n]))]
+
+    @property
+    def n_compute_layers(self) -> int:
+        return sum(1 for l in self.layers.values() if l.kind in COMPUTE_KINDS)
+
+    def width(self) -> int:
+        """Dilworth width == max antichain == min chain cover (Def. 6).
+
+        Computed as the max, over topological 'levels', of concurrently
+        open paths; exact for our layered model graphs and cheap.
+        """
+        # longest-path level per node
+        level: dict[str, int] = {}
+        for n in self.topo_order:
+            level[n] = 1 + max((level[p] for p in self.preds[n]), default=-1)
+        counts: dict[int, int] = {}
+        for n, l in level.items():
+            counts[l] = counts.get(l, 0) + 1
+        return max(counts.values()) if counts else 0
+
+    # -- feature propagation (Eq. 2-5) ------------------------------------
+    def forward_sizes(self, input_size: tuple[int, int]) -> dict[str, tuple[int, int]]:
+        """Full (un-tiled) output feature size of every layer."""
+        out: dict[str, tuple[int, int]] = {}
+        for n in self.topo_order:
+            spec = self.layers[n]
+            ps = self.preds[n]
+            if not ps:
+                in_sz = input_size
+            else:
+                ws = [out[p][0] for p in ps]
+                hs = [out[p][1] for p in ps]
+                if spec.kind == "add":
+                    in_sz = (max(ws), max(hs))
+                else:  # concat & everything else: spatial dims must agree
+                    in_sz = (max(ws), max(hs))
+            out[n] = spec.out_size(in_sz) if spec.kind not in CONNECTOR_KINDS \
+                else in_sz
+        return out
+
+    def required_sizes(
+        self,
+        nodes: frozenset[str] | set[str],
+        sink_tiles: Mapping[str, tuple[int, int]],
+        full_sizes: Mapping[str, tuple[int, int]],
+        input_size: tuple[int, int],
+    ) -> tuple[dict[str, tuple[int, int]], dict[str, tuple[int, int]]]:
+        """Backward pass over a segment (Eq. 2-3).
+
+        Given required output tiles at the segment's sink vertices,
+        returns (required_out, required_in) extents per layer.  Tiles are
+        capped at the true feature size.  ``full_sizes`` must come from
+        :meth:`forward_sizes` on the whole graph.
+        """
+        nodes = set(nodes)
+        req_out: dict[str, tuple[int, int]] = {}
+        req_in: dict[str, tuple[int, int]] = {}
+        order = [n for n in self.topo_order if n in nodes]
+        for n in reversed(order):
+            spec = self.layers[n]
+            demands = [req_in[s] for s in self.succs[n] if s in nodes]
+            if n in sink_tiles:
+                demands.append(tuple(sink_tiles[n]))
+            if not demands:  # sink with no explicit tile: full output
+                demands.append(full_sizes[n])
+            w = max(d[0] for d in demands)
+            h = max(d[1] for d in demands)
+            full_out = full_sizes[n]
+            req_out[n] = (min(w, full_out[0]), min(h, full_out[1]))
+            if spec.kind in CONNECTOR_KINDS:
+                req_in[n] = req_out[n]
+            else:
+                ps = self.preds[n]
+                full_in = full_sizes[ps[0]] if ps else input_size
+                req_in[n] = spec.in_size_for(req_out[n], full_in)
+        return req_out, req_in
+
+    def required_ranges(
+        self,
+        nodes: frozenset[str] | set[str],
+        sink_ranges: Mapping[str, tuple[int, int]],
+        full_sizes: Mapping[str, tuple[int, int]],
+        input_size: tuple[int, int],
+    ) -> tuple[dict[str, tuple[int, int]], dict[str, tuple[int, int]]]:
+        """Exact backward *range* propagation along the width dim.
+
+        Like :meth:`required_sizes` but positional: given half-open
+        output ranges ``[a, b)`` (in each sink's own output coordinates),
+        returns per-node (out_range, in_range) such that VALID execution
+        of the segment on the input ranges reproduces the monolithic
+        output ranges bit-for-bit.  Height is never tiled here.
+
+        Backward map (padding-aware): out [a, b) reads padded coords
+        [a*s, (b-1)*s + k), i.e. real input coords
+        [a*s - p, (b-1)*s + k - p), clamped to the real extent.  The
+        executor re-derives how much implicit zero padding each tile
+        needs on each side from the same arithmetic, so SAME-padded
+        models tile exactly.  Global-RF layers need the full input range.
+        """
+        nodes = set(nodes)
+        req_out: dict[str, tuple[int, int]] = {}
+        req_in: dict[str, tuple[int, int]] = {}
+        order = [n for n in self.topo_order if n in nodes]
+        for n in reversed(order):
+            spec = self.layers[n]
+            demands = [req_in[s] for s in self.succs[n] if s in nodes]
+            if n in sink_ranges:
+                demands.append(tuple(sink_ranges[n]))
+            if not demands:
+                demands.append((0, full_sizes[n][0]))
+            a = min(d[0] for d in demands)
+            b = max(d[1] for d in demands)
+            full_w = full_sizes[n][0]
+            a, b = max(0, a), min(b, full_w)
+            req_out[n] = (a, b)
+            ps = self.preds[n]
+            full_in_w = (full_sizes[ps[0]] if ps else input_size)[0]
+            if spec.kind in CONNECTOR_KINDS:
+                req_in[n] = (a, b)
+            elif spec.global_rf:
+                req_in[n] = (0, full_in_w)
+            else:
+                ia = a * spec.stride[0] - spec.padding[0]
+                ib = (b - 1) * spec.stride[0] + spec.kernel[0] - spec.padding[0]
+                ia = max(0, min(ia, full_in_w))
+                ib = max(ia, min(ib, full_in_w))  # all-padding tile -> empty
+                req_in[n] = (ia, ib)
+        return req_out, req_in
+
+    def tile_padding(self, name: str, out_range: tuple[int, int],
+                     full_in_w: int) -> tuple[int, int]:
+        """Implicit zero padding (left, right) along W that a tile with
+        output range ``out_range`` needs — nonzero only where the tile
+        touches the real feature boundary of a padded layer."""
+        spec = self.layers[name]
+        a, b = out_range
+        ia = a * spec.stride[0] - spec.padding[0]
+        ib = (b - 1) * spec.stride[0] + spec.kernel[0] - spec.padding[0]
+        return (max(0, -ia), max(0, ib - full_in_w))
+
+    # -- segment utilities -------------------------------------------------
+    def segment_flops(
+        self,
+        nodes: Iterable[str],
+        req_out: Mapping[str, tuple[int, int]],
+    ) -> float:
+        total = 0.0
+        for n in nodes:
+            total += self.layers[n].flops(req_out[n])
+        return total
+
+    def segment_params(self, nodes: Iterable[str]) -> int:
+        return sum(self.layers[n].param_bytes for n in nodes)
+
+    def subset_diameter(self, nodes: frozenset[str]) -> int:
+        """Longest path (edge count) between any two vertices inside ``nodes``."""
+        longest: dict[str, int] = {}
+        best = 0
+        for n in self.topo_order:
+            if n not in nodes:
+                continue
+            l = 0
+            for p in self.preds[n]:
+                if p in nodes:
+                    l = max(l, longest[p] + 1)
+            longest[n] = l
+            best = max(best, l)
+        return best
+
+
+def tile_widths(total: int, parts: int) -> list[int]:
+    """Split ``total`` into ``parts`` near-equal positive widths."""
+    parts = min(parts, total)
+    base, extra = divmod(total, parts)
+    return [base + (1 if i < extra else 0) for i in range(parts)]
+
+
+def proportional_widths(total: int, weights: Sequence[float]) -> list[int]:
+    """Split ``total`` proportionally to ``weights``.
+
+    Weights <= 0 get width 0 (the device sits the stage out — an empty
+    tile, not a 1-column sliver).  Among the positive weights, parts are
+    >= 1 when total >= their count; otherwise the ``total``
+    largest-weight parts get 1 and the rest 0 (a feature narrower than
+    the device group: surplus devices idle, as in the paper's CE note).
+    """
+    assert len(weights) > 0
+    pos = [i for i, w in enumerate(weights) if w > 0]
+    if not pos:
+        raise ValueError("proportional_widths: all weights are <= 0")
+    if len(pos) < len(weights):
+        inner = proportional_widths(total, [weights[i] for i in pos])
+        out = [0] * len(weights)
+        for i, w in zip(pos, inner):
+            out[i] = w
+        return out
+    if total < len(weights):
+        order = sorted(range(len(weights)), key=lambda i: -weights[i])
+        out = [0] * len(weights)
+        for i in order[:total]:
+            out[i] = 1
+        return out
+    ideal = [max(w, 1e-12) / sum(max(w, 1e-12) for w in weights) * total
+             for w in weights]
+    out = [max(1, int(math.floor(x))) for x in ideal]
+    # distribute the remainder to the largest fractional parts
+    rem = total - sum(out)
+    order = sorted(range(len(weights)), key=lambda i: ideal[i] - math.floor(ideal[i]),
+                   reverse=True)
+    i = 0
+    while rem > 0:
+        out[order[i % len(out)]] += 1
+        rem -= 1
+        i += 1
+    while rem < 0:  # floor+max(1,..) overshoot
+        j = max(range(len(out)), key=lambda k: out[k])
+        if out[j] > 1:
+            out[j] -= 1
+            rem += 1
+        else:
+            break
+    return out

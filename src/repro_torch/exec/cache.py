@@ -1,0 +1,142 @@
+"""Cache of compiled stage segments.
+
+Keyed on (segment signature, tile shapes, boundary dtypes, backend) —
+NOT on model object identity — so a re-plan that reproduces the same
+stage structure, or a rebuilt but identical model, reuses the existing
+:class:`CompiledStage`.  The key has the JAX package's shape
+(``repro/exec/cache.py``), with the donation slot always False: PyTorch
+has no buffer donation.  Bounded LRU: past ``maxsize`` the
+least-recently-used entry is dropped.
+
+Observability: every probe emits a ``cache.lookup`` instant (and every
+miss a ``compile`` span with its build wall-time) into the active
+tracer (:func:`repro_torch.obs.trace.current`), and the
+hit/miss/eviction counters are published as ``exec.cache.*`` into the
+process-default metrics registry by a registered collector — hot paths
+only bump plain ints.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Mapping, Sequence
+
+from .compiler import CompiledStage, segment_signature
+from ..obs import trace as obs_trace
+from ..obs.metrics import default_registry
+from ..pipeline.halo import tile_signature
+
+
+@dataclass
+class CacheStats:
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+
+    @property
+    def entries(self) -> int:
+        return len(_CACHE)
+
+    def snapshot(self) -> "CacheStats":
+        """Frozen copy, for windowed accounting (``since``)."""
+        return CacheStats(self.hits, self.misses, self.evictions)
+
+    def since(self, mark: "CacheStats") -> "CacheStats":
+        """Counter deltas accumulated after ``mark``."""
+        return CacheStats(self.hits - mark.hits, self.misses - mark.misses,
+                          self.evictions - mark.evictions)
+
+
+_CACHE: "OrderedDict[tuple, CompiledStage]" = OrderedDict()
+_STATS = CacheStats()
+_MAXSIZE = 256
+
+
+def _publish_stats(reg) -> None:
+    """Collector: mirror the cache counters into a metrics registry at
+    snapshot time (the hot path only bumps the plain ints above)."""
+    reg.gauge("exec.cache.hits").set(_STATS.hits)
+    reg.gauge("exec.cache.misses").set(_STATS.misses)
+    reg.gauge("exec.cache.evictions").set(_STATS.evictions)
+    reg.gauge("exec.cache.entries").set(len(_CACHE))
+
+
+default_registry().register_collector(_publish_stats)
+
+
+def cache_stats() -> CacheStats:
+    return _STATS
+
+
+def clear_cache() -> None:
+    _CACHE.clear()
+    _STATS.hits = _STATS.misses = _STATS.evictions = 0
+
+
+def set_cache_size(n: int) -> int:
+    """Bound the cache; returns the previous bound so a scoped caller
+    can restore it.  The cache is process-global, so the bound is
+    last-write-wins across deployments."""
+    global _MAXSIZE
+    prev = _MAXSIZE
+    _MAXSIZE = max(1, int(n))
+    while len(_CACHE) > _MAXSIZE:
+        _CACHE.popitem(last=False)
+        _STATS.evictions += 1
+    return prev
+
+
+def static_stage_key(model, nodes, plans, needs) -> tuple:
+    """The per-call-invariant part of a stage's cache key.  Callers on a
+    hot path (StageExecutor) compute this once and pass it back via
+    ``static_key=`` so the signature sort is not re-done per frame."""
+    return (segment_signature(model.graph, nodes, model.input_size),
+            tile_signature(plans), tuple(needs))
+
+
+def stage_cache_key(model, nodes, plans, needs, *, backend, relu,
+                    boundary: Mapping, static_key: tuple | None = None,
+                    fuse: bool = True) -> tuple:
+    shapes = tuple((k, tuple(boundary[k].shape), str(boundary[k].dtype))
+                   for k in needs)
+    if static_key is None:
+        static_key = static_stage_key(model, nodes, plans, needs)
+    return (*static_key, backend, relu, False, bool(fuse), shapes)
+
+
+def compiled_stage(model, nodes, plans, needs: Sequence, sinks: Sequence,
+                   *, backend: str | None, relu: bool, boundary: Mapping,
+                   static_key: tuple | None = None,
+                   fuse: bool = True) -> CompiledStage:
+    """Fetch-or-build the compiled stage for one stage + boundary shapes."""
+    key = stage_cache_key(model, nodes, plans, needs, backend=backend,
+                          relu=relu, boundary=boundary,
+                          static_key=static_key, fuse=fuse)
+    hit = _CACHE.get(key)
+    tr = obs_trace.current()
+    if hit is not None:
+        _STATS.hits += 1
+        _CACHE.move_to_end(key)
+        if tr:
+            tr.instant("cache.lookup", _time.perf_counter() - tr.epoch,
+                       hit=True)
+        return hit
+    _STATS.misses += 1
+    if tr:
+        tr.instant("cache.lookup", _time.perf_counter() - tr.epoch,
+                   hit=False)
+    t0 = _time.perf_counter()
+    cs = CompiledStage(model, nodes, plans, needs, sinks, backend=backend,
+                       relu=relu, fuse=fuse)
+    build_s = _time.perf_counter() - t0
+    default_registry().histogram("exec.compile.build_s").observe(build_s)
+    if tr:
+        tr.emit("compile", t0 - tr.epoch, build_s,
+                n_nodes=len(nodes), backend=backend or "default")
+    _CACHE[key] = cs
+    while len(_CACHE) > _MAXSIZE:
+        _CACHE.popitem(last=False)
+        _STATS.evictions += 1
+    return cs

@@ -1,0 +1,311 @@
+"""Graph-defined, executable CNNs over torch tensors.
+
+A :class:`CNNDef` couples the PICO :class:`~repro_torch.core.graph.Graph`
+(used by the planner/cost model) with parameter initialization and an
+executable forward over any *segment* of the graph — which is what the
+pipeline executes per stage, on halo-extended input tiles.  The layout
+is the JAX package's: activations NHWC, conv weights HWIO, params
+``{layer: {"w", "b"}}``, so its parameters carry over through numpy
+with no transposes (:func:`params_from_numpy`).
+
+Only layer kinds that change feature geometry or carry weights are
+vertices (conv/pool/fc/add/concat); norm/activation are fused into the
+conv vertex (the paper ignores them for the same reason, §2.3).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ...core.graph import Graph, LayerSpec
+from ...exec.backends import apply_conv, apply_layer
+
+
+@dataclass
+class CNNDef:
+    name: str
+    graph: Graph
+    input_size: tuple[int, int]      # (W, H)
+    in_channels: int = 3
+    blocks: list[list[str]] = field(default_factory=list)  # block structure
+    backend: str | None = None       # conv lowering (exec.backends); None
+    #                                  = the registry default ("cuda")
+
+    # ---------------- parameters ----------------
+    def init(self, generator: torch.Generator | None = None,
+             device: str | torch.device = "cuda",
+             dtype: torch.dtype = torch.float32) -> dict[str, dict]:
+        """Seeded weights with the JAX package's shapes and scales
+        (normal / sqrt(fan_in), zero bias).  Drawn on the CPU from
+        ``generator`` (default: seed 0), then moved to ``device``, so a
+        seed gives the same weights on every device."""
+        g = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        params: dict[str, dict] = {}
+        for n, spec in self.graph.layers.items():
+            if spec.kind == "conv":
+                fan_in = spec.kernel[0] * spec.kernel[1] * spec.in_channels
+                shape = (spec.kernel[1], spec.kernel[0], spec.in_channels,
+                         spec.out_channels)
+                w = torch.randn(shape, generator=g, dtype=dtype) \
+                    / math.sqrt(fan_in)
+            elif spec.kind == "fc":
+                w = torch.randn((spec.in_channels, spec.out_channels),
+                                generator=g, dtype=dtype) \
+                    / math.sqrt(spec.in_channels)
+            else:
+                continue
+            params[n] = {"w": w.to(device),
+                         "b": torch.zeros((spec.out_channels,), dtype=dtype,
+                                          device=device)}
+        return params
+
+    # ---------------- geometry ----------------
+    @property
+    def full_sizes(self):
+        fs = getattr(self, "_full_sizes", None)
+        if fs is None:
+            fs = self.graph.forward_sizes(self.input_size)
+            self._full_sizes = fs
+        return fs
+
+    def segment_ranges(self, nodes, sink_ranges):
+        """Exact (out_range, in_range) per node for a width-tiled segment."""
+        return self.graph.required_ranges(frozenset(nodes), sink_ranges,
+                                          self.full_sizes, self.input_size)
+
+    # ---------------- execution ----------------
+    def boundary_needs(self, nodes) -> list[tuple[str, str | None]]:
+        """(node, outside-pred) pairs the segment needs fed from outside.
+
+        A node with no predecessors at all needs the graph input,
+        reported as (node, None).
+        """
+        nodes = set(nodes)
+        g = self.graph
+        needs: list[tuple[str, str | None]] = []
+        for n in g.topo_order:
+            if n not in nodes:
+                continue
+            ps = g.preds[n]
+            if not ps:
+                needs.append((n, None))
+            else:
+                needs.extend((n, p) for p in ps if p not in nodes)
+        return needs
+
+    def run_segment(
+        self,
+        params: Mapping[str, dict],
+        nodes: frozenset[str] | set[str] | Sequence[str],
+        inputs: Mapping[tuple[str, str | None], torch.Tensor],
+        ranges: tuple[Mapping[str, tuple[int, int]],
+                      Mapping[str, tuple[int, int]]] | None = None,
+        relu: bool = True,
+        backend: str | None = None,
+        fusion: Mapping[str, str] | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """Execute the sub-DAG ``nodes`` on (halo-extended) width tiles.
+
+        ``inputs[(n, p)]`` is the (N, H, W, C) tile of outside-predecessor
+        ``p`` feeding node ``n`` (``p`` None = graph input), covering
+        exactly ``ranges[1][n]`` along W.  ``ranges`` is the
+        (req_out, req_in) pair from :meth:`segment_ranges`; None means
+        full-width (monolithic) execution.  Convs run VALID — padding is
+        represented in the graph as explicit geometry, which is what
+        makes tiled execution equal to the monolithic run.
+
+        ``backend`` selects the conv lowering (``exec.backends``); None
+        uses the model's own ``self.backend``.
+
+        ``fusion`` maps conv -> pool pairs (from
+        :func:`repro_torch.exec.compiler.fusable_chains`) to lower as one
+        fused kernel call; a pair whose tile ranges do not line up on
+        the pool grid executes unfused instead.
+
+        Returns {sink: tile covering ranges[0][sink] along W}.
+        """
+        backend = backend or self.backend
+        fusion = fusion or {}
+        nodes = set(nodes)
+        g = self.graph
+        if ranges is None:
+            req_out = {n: (0, self.full_sizes[n][0]) for n in nodes}
+            req_in = {}
+            for n in nodes:
+                ps = g.preds[n]
+                w_in = (self.full_sizes[ps[0]] if ps else self.input_size)[0]
+                req_in[n] = (0, w_in)
+        else:
+            req_out, req_in = ranges
+
+        def pred_slice(p: str, n: str) -> torch.Tensor:
+            """Slice producer p's tile down to consumer n's input range."""
+            a, b = req_in[n]
+            pa, _ = req_out[p]
+            lo = a - pa
+            return vals[p][:, :, lo: lo + (b - a), :]
+
+        def fused_ranges_ok(conv: str, pool: str) -> bool:
+            """The fused kernel pools the conv tile in place, so the
+            conv tile must start on the pool grid and cover exactly the
+            pool's input; anything else runs unfused."""
+            kw_p = g.layers[pool].kernel[0]
+            ca, cb = req_out[conv]
+            pa, pb = req_out[pool]
+            return (req_in[pool] == req_out[conv]
+                    and ca == pa * kw_p
+                    and (cb - ca) // kw_p == pb - pa)
+
+        vals: dict[str, torch.Tensor] = {}
+        for n in g.topo_order:
+            if n not in nodes or n in vals:  # in vals: emitted by a fused conv
+                continue
+            spec = g.layers[n]
+            ps = g.preds[n]
+            if not ps:
+                xs = [inputs[(n, None)]]
+            else:
+                xs = [pred_slice(p, n) if p in nodes else inputs[(n, p)]
+                      for p in ps]
+            if spec.kind == "add":
+                vals[n] = sum(xs[1:], xs[0])
+                continue
+            if spec.kind == "concat":
+                vals[n] = torch.cat(xs, dim=-1)
+                continue
+            full_in_w = (self.full_sizes[ps[0]] if ps else self.input_size)[0]
+            pad_w = g.tile_padding(n, req_out[n], full_in_w) \
+                if spec.kind in ("conv", "pool", "dwconv") else (0, 0)
+            if spec.kind == "conv" and n in fusion \
+                    and fused_ranges_ok(n, fusion[n]):
+                vals[fusion[n]] = apply_conv(
+                    spec, params.get(n), xs[0], relu, pad_w, backend=backend,
+                    pool_spec=g.layers[fusion[n]])
+                continue
+            vals[n] = apply_layer(spec, params.get(n), xs[0], relu, pad_w,
+                                  backend=backend)
+        return {s: vals[s] for s in g.sinks(nodes)}
+
+    def forward(self, params, image: torch.Tensor, relu: bool = True,
+                backend: str | None = None):
+        """Monolithic forward over the whole graph (reference path)."""
+        srcs = self.graph.sources()
+        return self.run_segment(params, set(self.graph.layers),
+                                {(s, None): image for s in srcs}, relu=relu,
+                                backend=backend)
+
+
+def params_from_numpy(np_params: Mapping[str, Mapping[str, object]],
+                      device: str | torch.device = "cuda"
+                      ) -> dict[str, dict]:
+    """The JAX package's parameters (``{layer: {"w", "b"}}`` of arrays,
+    e.g. from ``repro``'s ``CNNDef.init``) as the port's: each leaf goes
+    through ``np.asarray`` and is copied to ``device``, same layout."""
+    return {n: {k: torch.tensor(np.array(v), device=device)
+                for k, v in p.items()}
+            for n, p in np_params.items()}
+
+
+# ---------------------------------------------------------------------------
+# builder helpers
+# ---------------------------------------------------------------------------
+
+class GB:
+    """Tiny fluent builder tracking channels automatically."""
+
+    def __init__(self, name: str, input_size=(224, 224), in_channels=3):
+        self.d = CNNDef(name, Graph(), input_size, in_channels)
+        self.ch: dict[str, int] = {}
+        self.sz: dict[str, tuple[int, int]] = {}  # (W, H) per vertex
+        self._n = 0
+
+    def _name(self, kind):
+        self._n += 1
+        return f"{kind}{self._n}"
+
+    def _src_size(self, src):
+        return self.sz[src] if src else self.d.input_size
+
+    def conv(self, src, cout, k=3, s=1, p=0, name=None):
+        """p may be an int or (pw, ph); 'same' means k//2."""
+        cin = self.ch[src] if src else self.d.in_channels
+        kk = k if isinstance(k, tuple) else (k, k)
+        ss = s if isinstance(s, tuple) else (s, s)
+        if p == "same":
+            p = (kk[0] // 2, kk[1] // 2)
+        pp = p if isinstance(p, tuple) else (p, p)
+        name = name or self._name("conv")
+        spec = LayerSpec(name, "conv", kk, ss, pp, cin, cout,
+                         param_bytes=4 * (kk[0] * kk[1] * cin * cout + cout))
+        self.d.graph.add(spec, [src] if src else [])
+        self.ch[name] = cout
+        self.sz[name] = spec.out_size(self._src_size(src))
+        return name
+
+    def pool(self, src, k=2, s=2, p=0, name=None):
+        cin = self.ch[src]
+        name = name or self._name("pool")
+        kk = k if isinstance(k, tuple) else (k, k)
+        ss = s if isinstance(s, tuple) else (s, s)
+        if p == "same":
+            p = (kk[0] // 2, kk[1] // 2)
+        pp = p if isinstance(p, tuple) else (p, p)
+        spec = LayerSpec(name, "pool", kk, ss, pp, cin, cin)
+        self.d.graph.add(spec, [src])
+        self.ch[name] = cin
+        self.sz[name] = spec.out_size(self._src_size(src))
+        return name
+
+    def gpool(self, src, name=None):
+        cin = self.ch[src]
+        name = name or self._name("gpool")
+        self.d.graph.add(LayerSpec(name, "gpool", (1, 1), (1, 1), (0, 0),
+                                   cin, cin), [src])
+        self.ch[name] = cin
+        self.sz[name] = (1, 1)
+        return name
+
+    def fc(self, src, cout, cin=None, name=None):
+        w, h = self._src_size(src)
+        cin = cin if cin is not None else self.ch[src] * w * h
+        name = name or self._name("fc")
+        self.d.graph.add(LayerSpec(name, "fc", (1, 1), (1, 1), (0, 0),
+                                   cin, cout,
+                                   param_bytes=4 * (cin * cout + cout)), [src])
+        self.ch[name] = cout
+        self.sz[name] = (1, 1)
+        return name
+
+    def add(self, srcs, name=None):
+        name = name or self._name("add")
+        c = self.ch[srcs[0]]
+        sizes = {self.sz[s] for s in srcs}
+        assert len(sizes) == 1, f"add branches disagree on geometry: {sizes}"
+        self.d.graph.add(LayerSpec(name, "add", (1, 1), (1, 1), (0, 0), c, c),
+                         list(srcs))
+        self.ch[name] = c
+        self.sz[name] = sizes.pop()
+        return name
+
+    def concat(self, srcs, name=None):
+        name = name or self._name("concat")
+        c = sum(self.ch[s] for s in srcs)
+        sizes = {self.sz[s] for s in srcs}
+        assert len(sizes) == 1, f"concat branches disagree on geometry: {sizes}"
+        self.d.graph.add(LayerSpec(name, "concat", (1, 1), (1, 1), (0, 0),
+                                   c, c), list(srcs))
+        self.ch[name] = c
+        self.sz[name] = sizes.pop()
+        return name
+
+    def block(self, nodes):
+        self.d.blocks.append(list(nodes))
+
+    def done(self) -> CNNDef:
+        return self.d

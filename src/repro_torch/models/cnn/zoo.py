@@ -1,0 +1,264 @@
+"""The CNNs used in the paper's evaluation, as PICO graphs.
+
+Padding is explicit geometry (SAME where the original models use it) and
+the range machinery makes halo-tiled execution bit-exact, including each
+tile's share of boundary zero padding.  Structure classes per the paper:
+chain (VGG16, YOLOv2), block (ResNet34, InceptionV3, SqueezeNet,
+MobileNetV3), graph (NASNet-style cells).
+
+``scale`` shrinks channel counts for fast CPU tests.  Same builders as
+the JAX package's ``repro.models.cnn.zoo``, emitting the same graphs.
+"""
+
+from __future__ import annotations
+
+from .builder import GB, CNNDef
+
+
+def _c(ch: int, scale: float) -> int:
+    return max(1, int(round(ch * scale)))
+
+
+# ---------------------------------------------------------------------------
+# chain structure
+# ---------------------------------------------------------------------------
+
+def vgg16(input_size=(224, 224), scale: float = 1.0,
+          head: bool = True) -> CNNDef:
+    b = GB("vgg16", input_size)
+    x = None
+    plan = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
+    for reps, ch in plan:
+        for _ in range(reps):
+            x = b.conv(x, _c(ch, scale), k=3, s=1, p=1)
+        x = b.pool(x, 2, 2)
+    if head:
+        x = b.gpool(x)
+        x = b.fc(x, _c(4096, scale))
+        x = b.fc(x, 1000)
+    return b.done()
+
+
+def yolov2(input_size=(448, 448), scale: float = 1.0) -> CNNDef:
+    """Darknet-19 trunk + detection convs: 23 conv, 5 pool (chain)."""
+    b = GB("yolov2", input_size)
+    x = b.conv(None, _c(32, scale), 3, p=1)
+    x = b.pool(x)
+    x = b.conv(x, _c(64, scale), 3, p=1)
+    x = b.pool(x)
+    for ch in (128, 64, 128):
+        x = b.conv(x, _c(ch, scale), 3 if ch != 64 else 1, p="same")
+    x = b.pool(x)
+    for ch in (256, 128, 256):
+        x = b.conv(x, _c(ch, scale), 3 if ch != 128 else 1, p="same")
+    x = b.pool(x)
+    for ch in (512, 256, 512, 256, 512):
+        x = b.conv(x, _c(ch, scale), 3 if ch != 256 else 1, p="same")
+    x = b.pool(x)
+    for ch in (1024, 512, 1024, 512, 1024):
+        x = b.conv(x, _c(ch, scale), 3 if ch != 512 else 1, p="same")
+    # detection head
+    x = b.conv(x, _c(1024, scale), 3, p=1)
+    x = b.conv(x, _c(1024, scale), 3, p=1)
+    x = b.conv(x, 425, 1)
+    return b.done()
+
+
+# ---------------------------------------------------------------------------
+# block structure
+# ---------------------------------------------------------------------------
+
+def resnet34(input_size=(224, 224), scale: float = 1.0,
+             head: bool = True) -> CNNDef:
+    b = GB("resnet34", input_size)
+    x = b.conv(None, _c(64, scale), 7, s=2, p=3)
+    x = b.pool(x, 3, 2, p=1)
+
+    def basic(x, ch, stride, project):
+        c1 = b.conv(x, ch, 3, s=stride, p=1)
+        c2 = b.conv(c1, ch, 3, s=1, p=1)
+        if project:  # 1x1 projection shortcut (stride/channel change)
+            sc = b.conv(x, ch, 1, s=stride, p=0)
+            out = b.add([c2, sc])
+            b.block([c1, c2, sc, out])
+        else:        # identity skip-connection
+            out = b.add([c2, x])
+            b.block([c1, c2, out])
+        return out
+
+    plan = [(3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)]
+    prev_ch = _c(64, scale)
+    for reps, ch, s0 in plan:
+        ch = _c(ch, scale)
+        for i in range(reps):
+            stride = s0 if i == 0 else 1
+            x = basic(x, ch, stride, project=(stride != 1 or ch != prev_ch))
+            prev_ch = ch
+    if head:
+        x = b.gpool(x)
+        x = b.fc(x, 1000)
+    return b.done()
+
+
+def inceptionv3(input_size=(299, 299), scale: float = 1.0,
+                head: bool = True) -> CNNDef:
+    """InceptionV3: stem + A blocks + reduction + C blocks (with the
+    unbalanced 1x7 / 7x1 kernels of Fig. 6) + reduction."""
+    b = GB("inceptionv3", input_size)
+    x = b.conv(None, _c(32, scale), 3, s=2, p=0)
+    x = b.conv(x, _c(32, scale), 3, p=0)
+    x = b.conv(x, _c(64, scale), 3, p=1)
+    x = b.pool(x, 3, 2, p=0)
+    x = b.conv(x, _c(80, scale), 1)
+    x = b.conv(x, _c(192, scale), 3, p=0)
+    x = b.pool(x, 3, 2, p=0)
+
+    def inception_a(x, pool_ch):
+        b1 = b.conv(x, _c(64, scale), 1)
+        b2 = b.conv(x, _c(48, scale), 1)
+        b2 = b.conv(b2, _c(64, scale), 5, p=2)
+        b3 = b.conv(x, _c(64, scale), 1)
+        b3 = b.conv(b3, _c(96, scale), 3, p=1)
+        b3 = b.conv(b3, _c(96, scale), 3, p=1)
+        b4 = b.pool(x, 3, 1, p=1)
+        b4 = b.conv(b4, _c(pool_ch, scale), 1)
+        return b.concat([b1, b2, b3, b4])
+
+    def inception_c(x, ch7):
+        # 4 branches; b2/b3 carry the unbalanced kernels of Fig. 6
+        c7 = _c(ch7, scale)
+        b1 = b.conv(x, _c(192, scale), 1)
+        b2 = b.conv(x, c7, 1)
+        b2 = b.conv(b2, c7, (7, 1), p=(3, 0))        # 1x7 (wide)
+        b2 = b.conv(b2, _c(192, scale), (1, 7), p=(0, 3))  # 7x1 (tall)
+        b3 = b.conv(x, c7, 1)
+        b3 = b.conv(b3, c7, (7, 1), p=(3, 0))
+        b3 = b.conv(b3, c7, (1, 7), p=(0, 3))
+        b3 = b.conv(b3, c7, (7, 1), p=(3, 0))
+        b3 = b.conv(b3, _c(192, scale), (1, 7), p=(0, 3))
+        b4 = b.pool(x, 3, 1, p=1)
+        b4 = b.conv(b4, _c(192, scale), 1)
+        return b.concat([b1, b2, b3, b4])
+
+    def reduction(x, ch):
+        r1 = b.conv(x, _c(ch, scale), 3, s=2, p=0)
+        r2 = b.conv(x, _c(ch // 2, scale), 1)
+        r2 = b.conv(r2, _c(ch, scale), 3, s=2, p=0)
+        p = b.pool(x, 3, 2, p=0)
+        return b.concat([r1, r2, p])
+
+    for pool_ch in (32, 64, 64):
+        x = inception_a(x, pool_ch)
+    x = reduction(x, 384)
+    for ch7 in (128, 160, 160, 192):
+        x = inception_c(x, ch7)
+    x = reduction(x, 192)
+    if head:
+        x = b.gpool(x)
+        x = b.fc(x, 1000)
+    return b.done()
+
+
+def squeezenet(input_size=(224, 224), scale: float = 1.0) -> CNNDef:
+    b = GB("squeezenet", input_size)
+    x = b.conv(None, _c(96, scale), 7, s=2, p=0)
+    x = b.pool(x, 3, 2)
+
+    def fire(x, s1, e1, e3):
+        sq = b.conv(x, _c(s1, scale), 1)
+        ex1 = b.conv(sq, _c(e1, scale), 1)
+        ex3 = b.conv(sq, _c(e3, scale), 3, p=1)
+        return b.concat([ex1, ex3])
+
+    for (s1, e1, e3) in [(16, 64, 64), (16, 64, 64), (32, 128, 128)]:
+        x = fire(x, s1, e1, e3)
+    x = b.pool(x, 3, 2)
+    for (s1, e1, e3) in [(32, 128, 128), (48, 192, 192), (48, 192, 192),
+                         (64, 256, 256)]:
+        x = fire(x, s1, e1, e3)
+    x = b.pool(x, 3, 2)
+    x = fire(x, 64, 256, 256)
+    x = b.conv(x, 1000, 1)
+    x = b.gpool(x)
+    return b.done()
+
+
+def mobilenetv3(input_size=(224, 224), scale: float = 1.0) -> CNNDef:
+    """MobileNetV3-large plan: inverted residual bottlenecks with
+    identity skip when stride == 1 and channels match."""
+    b = GB("mobilenetv3", input_size)
+    x = b.conv(None, _c(16, scale), 3, s=2, p=1)
+    cur = _c(16, scale)
+
+    def bneck(x, cur, exp, out, k, s):
+        e = b.conv(x, _c(exp, scale), 1)
+        d = b.conv(e, _c(exp, scale), k, s=s, p=k // 2)
+        p = b.conv(d, _c(out, scale), 1)
+        if s == 1 and _c(out, scale) == cur:
+            return b.add([p, x]), _c(out, scale)
+        return p, _c(out, scale)
+
+    plan = [
+        (16, 16, 3, 1), (64, 24, 3, 2), (72, 24, 3, 1),
+        (72, 40, 5, 2), (120, 40, 5, 1), (120, 40, 5, 1),
+        (240, 80, 3, 2), (200, 80, 3, 1), (184, 80, 3, 1), (184, 80, 3, 1),
+        (480, 112, 3, 1), (672, 112, 3, 1),
+        (672, 160, 5, 2), (960, 160, 5, 1), (960, 160, 5, 1),
+    ]
+    for exp, out, k, s in plan:
+        x, cur = bneck(x, cur, exp, out, k, s)
+    x = b.conv(x, _c(960, scale), 1)
+    x = b.gpool(x)
+    x = b.fc(x, 1000)
+    return b.done()
+
+
+# ---------------------------------------------------------------------------
+# graph structure (NASNet-style)
+# ---------------------------------------------------------------------------
+
+def nasnet_cells(n_cells: int = 6, input_size=(224, 224),
+                 scale: float = 1.0, width: int = 4,
+                 name: str = "nasnet") -> CNNDef:
+    """Synthetic NASNet-style graph: each cell combines the two previous
+    cells' outputs through ``width`` parallel separable branches — a
+    genuine graph structure (no clean block chain)."""
+    b = GB(name, input_size)
+    prev2 = b.conv(None, _c(44, scale), 3, s=2, p=1)
+    prev1 = b.conv(prev2, _c(44, scale), 3, s=1, p=1)
+    ch = _c(44, scale)
+    for ci in range(n_cells):
+        branches = []
+        for wi in range(width):
+            src = prev1 if wi % 2 == 0 else prev2
+            k = 3 if wi % 3 != 2 else 5
+            h = b.conv(src, ch, 1)
+            h = b.conv(h, ch, k, p=k // 2)
+            branches.append(h)
+        adds = []
+        for i in range(0, len(branches) - 1, 2):
+            adds.append(b.add([branches[i], branches[i + 1]]))
+        if len(branches) % 2:
+            adds.append(branches[-1])
+        cell = b.concat(adds) if len(adds) > 1 else adds[0]
+        cell = b.conv(cell, ch, 1)  # fit channels
+        prev2, prev1 = prev1, cell
+        if ci in (n_cells // 3, 2 * n_cells // 3):
+            prev1 = b.pool(prev1, 2, 2)
+            prev2 = b.pool(prev2, 2, 2)
+    return b.done()
+
+
+ZOO = {
+    "vgg16": vgg16,
+    "yolov2": yolov2,
+    "resnet34": resnet34,
+    "inceptionv3": inceptionv3,
+    "squeezenet": squeezenet,
+    "mobilenetv3": mobilenetv3,
+    "nasnet": nasnet_cells,
+}
+
+
+def build(name: str, **kw) -> CNNDef:
+    return ZOO[name](**kw)

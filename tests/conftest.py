@@ -23,3 +23,9 @@ def assert_trees_close(a, b, rtol=1e-5, atol=1e-5):
     for la, lb in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
         np.testing.assert_allclose(np.asarray(la), np.asarray(lb),
                                    rtol=rtol, atol=atol)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips where there is none "
+        "(run on the card: python -m pytest -m cuda tests/test_torch_*.py)")
