@@ -7,17 +7,25 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions.  No CUDA device: exit 1, no result;
-2. build of every kernel of the main path from the sources in the
-   checkout (``nvcc``, ``sm_90a``), with its build time;
+2. build of every kernel of the two paths from the sources in the
+   checkout (``nvcc``, ``sm_90a``; one ``nvcc`` per source, all started
+   together), with each build time;
 3. each kernel against its plain PyTorch version on the card, at every
-   shape the main path launches plus edge cases, with times for the
-   kernel, the plain version, one library call and the card's bound;
-4. the main path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
+   shape its path launches plus edge cases, with times for the kernel,
+   the plain version, one library call and the card's bound;
+4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
    then ``Deployment.run`` on one frame and on a list of 8 frames.  The
-   kernels' launch counters are reset just before and read just after;
-   the logits are checked for shape, finiteness and agreement with the
-   ``"torch"`` backend and the monolithic forward;
-5. one ``{"kernels": [...]}`` JSON line, the card line, and last
+   conv kernel's launch counter is reset just before and read just
+   after; the logits are checked for shape, finiteness and agreement
+   with the ``"torch"`` backend and the monolithic forward;
+5. the LM path: ``repro_torch.serving.lm.generate`` on full-width
+   Llama-3.2-1B (random weights from a seed), batch 4, a 512-token
+   prompt, 32 new greedy tokens, once in fp32 and once in bf16.  The
+   attention kernels' counters are reset just before each generate and
+   read just after (16 flash_prefill and 16 x 32 decode_attention
+   launches); prefill and decode times; agreement with
+   ``backend="torch"`` on the same weights (section LM below);
+6. one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -40,10 +48,31 @@ PEAK_FLOPS = {"float32": 67e12,        # fp32 FMA, outside the tensor cores
               "bfloat16": 989e12}      # bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 1e-4      # x max(1, max|ref|): fp32 sums in another order
-BF16_TOL = 2e-2      # x max|ref|: one bf16 rounding of the output
+# bf16, per element: |y - ref| <= BF16_TOL x (|ref| + rms(ref)).  The
+# |ref| term is the output's own rounding (one bf16 ulp is at most 2^-7
+# relative, on each side); the rms term is the probabilities rounded to
+# bf16 against another running max (flash vs plain softmax), noise of a
+# fraction of the output's scale that does not shrink with |ref|.  A
+# limit from the global max|ref| would let a fault of a few hundredths
+# pass wherever |ref| is small (late causal rows average over hundreds
+# of keys).
+BF16_TOL = 2 ** -6
 LOGIT_TOL = 1e-4     # x max|logit|: 13 fp32 convs summed in other orders
-REPLACES = "src/repro/kernels/conv2d/conv2d.py:110"
+REPLACES = {"conv2d_fused": "src/repro/kernels/conv2d/conv2d.py:110",
+            "flash_prefill":
+                "src/repro/kernels/attention/flash_prefill.py:87",
+            "decode_attention":
+                "src/repro/kernels/attention/decode_attn.py:71"}
 CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
+# LM: full-width Llama-3.2-1B (src/repro_torch/configs/llama3_2_1b.py)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "llama3.2-1b", 4, 512, 32
+# kernel path vs backend="torch" on the same weights, x max|logit| over
+# the real vocab.  fp32: only the attention differs (sums in another
+# order), through 16 layers.  bf16: both paths round the same tensors
+# to bf16, but a different fp32 sum can land one bf16 ulp (2^-8
+# relative) apart, and that carries through 16 layers: a logit band
+# only, and no token check
+LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -67,6 +96,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
+    """The card's least time for the work, and which side bounds it."""
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(t_ops_ms=t_ops * 1e3, t_bytes_ms=t_bytes * 1e3,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_close(y, y_ref, dtype):
+    """(max |error|, worst error over its limit, ok) of a kernel's output
+    against its plain version's, under FP32_TOL or BF16_TOL; fails on a
+    shape or dtype mismatch."""
+    import torch
+    if y.shape != y_ref.shape or y.dtype != y_ref.dtype:
+        fail(f"{tuple(y.shape)} {y.dtype} != plain {tuple(y_ref.shape)} "
+             f"{y_ref.dtype}")
+    err = (y.float() - y_ref.float()).abs()
+    ref = y_ref.float().abs()
+    if dtype == torch.float32:
+        limit = FP32_TOL * max(1.0, ref.max().item())
+    else:
+        limit = BF16_TOL * (ref + ref.square().mean().sqrt())
+    of_limit = (err / limit).max().item()
+    return (err.max().item(), of_limit,
+            of_limit <= 1.0 and bool(torch.isfinite(y).all()))
+
+
 def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
               bias=True, seed=0):
     """One kernel-vs-plain case on the card; returns a result dict."""
@@ -86,13 +143,7 @@ def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
     y = ops.conv2d_fused(x, w, b, **kw_args)
     y_ref = ref.conv2d_fused_ref(x, w, b, **kw_args)
     torch.cuda.synchronize()
-    if y.shape != y_ref.shape:
-        fail(f"shape {tuple(y.shape)} != plain {tuple(y_ref.shape)}")
-    err = (y.float() - y_ref.float()).abs().max().item()
-    scale = y_ref.float().abs().max().item()
-    tol = (FP32_TOL * max(1.0, scale) if dtype == torch.float32
-           else BF16_TOL * scale)
-    ok = err <= tol and bool(torch.isfinite(y).all())
+    err, of_limit, ok = check_close(y, y_ref, dtype)
 
     # library yardstick: one cuDNN conv (+ bias) on channels-last views
     # of the same memory; the ReLU and pool are not in it
@@ -108,50 +159,372 @@ def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
     flops = 2.0 * n * hp * ph * wp * pw * co * kh * kw * ci
     nbytes = sum(t.numel() * t.element_size()
                  for t in (x, w, b, y) if t is not None)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
     return dict(x=tuple(x_shape), w=tuple(w_shape), stride=tuple(stride),
-                pool=pool, dtype=dtype_name, err=err, tol=tol, ok=ok,
-                per_call=0,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                t_ops_ms=t_ops * 1e3, t_bytes_ms=t_bytes * 1e3,
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                pool=pool, dtype=dtype_name, err=err, of_limit=of_limit,
+                ok=ok, per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(flops, nbytes, dtype_name))
 
 
-def main() -> None:
-    # the port's package comes from this checkout; alone, the script
-    # stops here with an ImportError and prints nothing
+def prefill_case(shape, window, dtype_name, seed=0) -> dict:
+    """flash_prefill against its plain version at q shape (B, S, K, G, D);
+    the library call is SDPA (``enable_gqa``, causal or windowed mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    b, s, k, g, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    kk, vv = (torch.randn((b, s, k, d), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    y = ops.flash_prefill(q, kk, vv, sliding_window=window)
+    y_ref = ref.flash_prefill_ref(q, kk, vv, window)
+    torch.cuda.synchronize()
+    err, of_limit, ok = check_close(y, y_ref, dtype)
+
+    qh = q.reshape(b, s, k * g, d).transpose(1, 2)
+    kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
+    mask = None
+    if window:
+        pos = torch.arange(s, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+    ms = time_ms(lambda: ops.flash_prefill(q, kk, vv, sliding_window=window))
+    plain_ms = time_ms(lambda: ref.flash_prefill_ref(q, kk, vv, window))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    nbytes = 2 * (q.numel() + kk.numel()) * q.element_size()  # q, k, v, o
+    return dict(kernel="flash_prefill", shape=tuple(shape), window=window,
+                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok,
+                per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
+
+
+def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
+    """decode_attention against its plain version at q (B, K, G, D) and a
+    cache of W entries; the library call is SDPA (``enable_gqa``, mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    b, k, g, d = q_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
+    kk, vv = (torch.randn((b, w, k, d), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
+    y = ops.decode_attention(q, kk, vv, vl)
+    y_ref = ref.decode_attention_ref(q, kk, vv, vl)
+    torch.cuda.synchronize()
+    err, of_limit, ok = check_close(y, y_ref, dtype)
+
+    qh = q.reshape(b, k * g, 1, d)
+    kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
+    mask = (torch.arange(w, device="cuda") < vl)[None, None, None]
+    ms = time_ms(lambda: ops.decode_attention(q, kk, vv, vl))
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, kk, vv, vl))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    live = min(valid_len, w) if valid_len > 0 else w   # entries read
+    nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4
+    return dict(kernel="decode_attention", shape=(tuple(q_shape), w),
+                valid_len=valid_len, dtype=dtype_name, err=err,
+                of_limit=of_limit, ok=ok, per_call=0, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                **bound(4.0 * b * k * g * d * live, nbytes, dtype_name))
+
+
+def _print_cases(cases) -> None:
+    for r in cases:
+        shape = (f"q{r['shape']} w{r['window']}" if "window" in r else
+                 f"q{r['shape'][0]} W{r['shape'][1]} vl{r['valid_len']}")
+        print(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']} {shape} "
+              f"{r['dtype']} x{r['per_call']} | {r['err']:.3g} "
+              f"({r['of_limit']:.2f} of limit) | {r['ms']:.4f} / "
+              f"{r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
+              f"{r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+
+
+def _lm_agreement(cfg, params, prompt, toks, dtype_name) -> None:
+    """Prefill and each teacher-forced decode step of the kernel path
+    against ``backend="torch"`` on the same weights, fed the kernel
+    path's tokens.  fp32: logits within LM_LOGIT_TOL x max|logit|, and
+    the kernel path's greedy token equal to the plain path's wherever
+    the plain path's top-2 gap exceeds twice that; bf16: the band only.
+    """
+    import torch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    rel = LM_LOGIT_TOL[dtype_name]
+    V = cfg.vocab_size
+    (lc, cc), (lt, ct) = (lm.prefill_prompt(cfg, params, prompt, LM_NEW,
+                                            backend=be)
+                          for be in ("cuda", "torch"))
+    worst, n_differ = 0.0, 0
+    for i in range(LM_NEW + 1):
+        lc, lt = lc[:, :V].float(), lt[:, :V].float()
+        if not bool(torch.isfinite(lc).all()):
+            fail(f"{dtype_name} logits not finite at step {i}")
+        tol = rel * lt.abs().max().item()
+        diff = (lc - lt).abs().max().item()
+        worst = max(worst, diff / tol)
+        if diff > tol:
+            fail(f"{dtype_name} {'prefill' if i == 0 else f'decode {i}'} "
+                 f"logits differ by {diff:.3g} > {tol:.3g} from the torch "
+                 f"backend")
+        if i and dtype_name == "float32":
+            top2 = lt.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            same = lt.argmax(dim=-1) == toks[:, i - 1].long()
+            if bool((sure & ~same).any()):
+                fail(f"greedy token of decode step {i} differs from the "
+                     f"torch backend where its top-2 gap exceeds 2 x tol")
+            n_differ += int((~same).sum())
+        if i == LM_NEW:
+            break
+        tok = prompt[:, -1] if i == 0 else toks[:, i - 1]
+        (lc, cc), (lt, ct) = (
+            M.decode_step(cfg, params, c, {"token": tok}, backend=be)
+            for c, be in ((cc, "cuda"), (ct, "torch")))
+    print(f"[slice] {dtype_name} logits vs torch backend: prefill and "
+          f"{LM_NEW} teacher-forced decode steps within {rel:g} x "
+          f"max|logit| (worst {worst:.3f} of the limit)"
+          + (f"; greedy tokens: {n_differ} of {LM_BATCH * LM_NEW} "
+             f"differ from the plain path's, none where its top-2 gap "
+             f"exceeds 2 x tol"
+             if dtype_name == "float32" else "; bf16: logit band only"))
+
+
+def _decode_profile(cfg, params, prompt, dtype_name, steps: int = 4
+                    ) -> None:
+    """Where a decode step's time goes: ``torch.profiler`` over a few
+    steps; kernels launched per step, the card's busy time and the top
+    kernels by time.  A diagnostic: nothing here is checked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
+    tok = prompt[:, -1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = M.decode_step(cfg, params, cache, {"token": tok})
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if busy_ms <= 0:
+        print(f"[profile] {dtype_name} decode step: the profiler saw no "
+              f"device time; busy share not measured")
+        return
+    launches = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"[profile] {dtype_name} decode step (torch.profiler, {steps} "
+          f"steps): {launches:.0f} kernels per step, device busy "
+          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f} ms"
+              for e in top))
+
+
+def run_lm() -> list[dict]:
+    """Phases 3 and 5 for the attention kernels: the LM serving path."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.attention import ops
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    cfg = configs.get(LM_ARCH)
+    L = cfg.n_layers
+    # the same draws (seed 0) in both dtypes: bf16 is the fp32 set rounded
+    params = {dt: M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        dtype=getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+    prompt = torch.randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    print(f"[lm] {cfg.name}: {L} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} q-heads, {cfg.n_kv_heads} kv-heads, hd {cfg.hd}, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.vocab_padded}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{LM_NEW} new tokens, greedy")
+
+    # shapes the LM path gives the kernels: one warm-up generate per dtype
+    # with recording wrappers (these launches are not counted)
+    launched: dict[tuple, int] = {}
+    real_prefill, real_decode = ops.flash_prefill, ops.decode_attention
+
+    def rec_prefill(q, k, v, *, sliding_window=0):
+        key = ("flash_prefill", tuple(q.shape), sliding_window,
+               str(q.dtype).removeprefix("torch."))
+        launched[key] = launched.get(key, 0) + 1
+        return real_prefill(q, k, v, sliding_window=sliding_window)
+
+    def rec_decode(q, k, v, valid_len):
+        key = ("decode_attention", (tuple(q.shape), k.shape[1]),
+               int(valid_len), str(q.dtype).removeprefix("torch."))
+        launched[key] = launched.get(key, 0) + 1
+        return real_decode(q, k, v, valid_len)
+
+    ops.flash_prefill, ops.decode_attention = rec_prefill, rec_decode
+    try:
+        for p in params.values():
+            lm.generate(cfg, p, prompt, LM_NEW)
+    finally:
+        ops.flash_prefill, ops.decode_attention = real_prefill, real_decode
+    torch.cuda.synchronize()
+
+    # -- 3. kernel vs plain on the card ----------------------------------
+    cases = []
+    for (name, shape, arg, dt), cnt in sorted(launched.items()):
+        r = (prefill_case(shape, arg, dt) if name == "flash_prefill"
+             else decode_case(shape[0], shape[1], arg, dt))
+        r["per_call"] = cnt
+        cases.append(r)
+    b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.hd
+    w = LM_PROMPT + LM_NEW
+    for shape, window, dt in [
+            ((2, 37, k, g, d), 0, "float32"),          # S no tile divides
+            ((2, 200, k, g, d), 32, "float32"),        # sliding window
+            ((2, 200, k, g, d), 32, "bfloat16"),
+            ((2, 256, 16, 1, d), 0, "float32"),        # G = 1
+            ((1, 256, 8, 8, 128), 0, "float32"),       # D = 128
+            ((1, 256, 8, 8, 128), 0, "bfloat16")]:
+        cases.append(prefill_case(shape, window, dt))
+    for q_shape, cache_w, vl, dt in [
+            ((b, k, g, d), w, 1, "float32"),           # valid_len = 1
+            ((b, k, g, d), w, w, "float32"),           # valid_len = W
+            ((b, k, g, d), w, w, "bfloat16"),
+            ((2, 16, 1, d), 300, 257, "float32"),      # G = 1
+            ((1, 8, 8, 128), 1000, 999, "float32"),    # D = 128
+            ((1, 8, 8, 128), 1000, 999, "bfloat16")]:
+        cases.append(decode_case(q_shape, cache_w, vl, dt))
+    print(f"[kernel] {len(cases)} attention cases: shape, dtype, launches "
+          f"per generate | max_abs_err (worst error / its limit) | ms kernel "
+          f"/ plain / library (SDPA) / bound")
+    _print_cases(cases)
+    bad = [r for r in cases if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} attention kernel case(s) disagree with the plain "
+             f"version")
+
+    # -- 5. the LM path, counted, per dtype -------------------------------
+    want = {"flash_prefill": L, "decode_attention": L * LM_NEW}
+    launches = {}      # per dtype: the counts of its counted generate
+    tokens = {}
+    for dt, p in params.items():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = lm.generate(cfg, p, prompt, LM_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        got = {n: ops.launch_count(n) for n in want}
+        print(f"[slice] {dt} generate: flash_prefill launches "
+              f"{got['flash_prefill']} (want {want['flash_prefill']}), "
+              f"decode_attention launches {got['decode_attention']} "
+              f"(want {L} x {LM_NEW} = {want['decode_attention']})")
+        if got != want:
+            fail(f"{dt} generate launched {got}, want {want}")
+        launches[dt] = got
+        if tuple(toks.shape) != (LM_BATCH, LM_NEW) or \
+                int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            fail(f"{dt} tokens: shape {tuple(toks.shape)}, range "
+                 f"{int(toks.min())}..{int(toks.max())}")
+        tokens[dt] = toks
+        reps = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            lm.prefill_prompt(cfg, p, prompt, LM_NEW)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) / reps * 1e3
+        dec_ms = (gen_s * 1e3 - pre_ms) / LM_NEW
+        print(f"[slice] {dt}: generate {gen_s * 1e3:.1f} ms "
+              f"({LM_BATCH * LM_NEW / gen_s:.1f} new tokens/s); prefill of "
+              f"{LM_PROMPT - 1} tokens x {LM_BATCH} {pre_ms:.2f} ms (mean of "
+              f"{reps}); decode {dec_ms:.3f} ms per step of {LM_BATCH} "
+              f"tokens (generate less prefill, over {LM_NEW} steps; host "
+              f"clock around synchronized runs)")
+
+    # -- 5b. agreement with the plain path; where a decode step goes ------
+    for dt, p in params.items():
+        _lm_agreement(cfg, p, prompt, tokens[dt], dt)
+        _decode_profile(cfg, p, prompt, dt)
+
+    # -- the kernels' entries: one fp32 generate ---------------------------
+    print("[kernels] flash_prefill, decode_attention: launches of the "
+          "counted fp32 generate, and ms, plain_ms, bound_ms, library_ms "
+          "summed over those launches; max_abs_err over the fp32 path "
+          "shapes (the bf16 generate's launches are in its [slice] line)")
+    out = []
+    for name, src in (("flash_prefill", "flash_prefill.cu"),
+                      ("decode_attention", "decode_attn.cu")):
+        path = [r for r in cases if r["kernel"] == name and r["per_call"]
+                and r["dtype"] == "float32"]
+        bf = [r for r in cases if r["kernel"] == name and r["per_call"]
+              and r["dtype"] == "bfloat16"]
+        t_ops = sum(r["t_ops_ms"] * r["per_call"] for r in path)
+        t_bytes = sum(r["t_bytes_ms"] * r["per_call"] for r in path)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/attention/csrc/{src}",
+            "replaces": REPLACES[name],
+            "launches": launches["float32"][name],
+            "max_abs_err": max(r["err"] for r in path),
+            **{key: sum(r[key] * r["per_call"] for r in path)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        out.append(entry)
+        print(f"[kernels] {name} bf16, one generate: ms "
+              f"{sum(r['ms'] * r['per_call'] for r in bf):.4f}, plain "
+              f"{sum(r['plain_ms'] * r['per_call'] for r in bf):.4f}, "
+              f"library {sum(r['library_ms'] * r['per_call'] for r in bf):.4f}"
+              f", bound {sum(r['bound_ms'] * r['per_call'] for r in bf):.5f}")
+    return out
+
+
+def build_all(sources) -> None:
+    """Phase 2: one ``nvcc`` per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(_build.build, sources))
+    print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f} s "
+          f"wall (parallel nvcc)")
+    for lib_path in paths:
+        build_s, log = _build.BUILD_LOG[lib_path.name]
+        print(f"[build] {lib_path.name}: {build_s:.1f} s nvcc")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}")
+
+
+def run_cnn() -> dict:
+    """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
+    kernel's entry of the ``kernels`` line."""
     import torch
     import repro_torch
     from repro_torch.api.specs import ExecSpec, PlanSpec
     from repro_torch.core import make_pi_cluster
-    from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d import ops
     from repro_torch.models.cnn import zoo
-
-    # -- 1. the card ---------------------------------------------------
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs "
-             "the GPU and does not fall back to the CPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[card] {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
-
-    # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path = _build.build(ops.SOURCE)
-    build_s, log = _build.BUILD_LOG[lib_path.name]
-    print(f"[build] {lib_path.name}: {build_s:.1f} s nvcc "
-          f"({time.perf_counter() - t0:.1f} s with the cache check)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
 
     # -- 4a. the deployment (planned before phase 3: its shapes) --------
     model = zoo.vgg16(input_size=(224, 224), scale=1.0, head=True)
@@ -219,12 +592,14 @@ def main() -> None:
              "bfloat16")]:
         cases.append(conv_case(xs, ws, st, pool, dt))
     print(f"[kernel] {len(cases)} cases: x, w, stride, pool, dtype | "
-          f"max_abs_err (tol) | ms kernel / plain / library / bound")
+          f"max_abs_err (worst error / its limit) | ms kernel / plain / "
+          f"library / bound")
     for r in cases:
         print(f"  {'ok ' if r['ok'] else 'BAD'} x{r['x']} w{r['w']} "
               f"s{r['stride']} p{r['pool']} {r['dtype']} | {r['err']:.3g} "
-              f"({r['tol']:.3g}) | {r['ms']:.4f} / {r['plain_ms']:.4f} / "
-              f"{r['library_ms']:.4f} / {r['bound_ms']:.4f} "
+              f"({r['of_limit']:.2f} of limit) | {r['ms']:.4f} / "
+              f"{r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
+              f"{r['bound_ms']:.4f} "
               f"({r['bound_by']})")
     bad = [r for r in cases if not r["ok"]]
     if bad:
@@ -277,14 +652,16 @@ def main() -> None:
     if not (d_t <= tol and d_m <= tol and d_1 <= tol):
         fail("logits disagree")
 
-    # -- 5. result lines -------------------------------------------------
     path = [r for r in cases if r["per_call"]]
     t_ops = sum(r["t_ops_ms"] * r["per_call"] for r in path)
     t_bytes = sum(r["t_bytes_ms"] * r["per_call"] for r in path)
-    kernel = {
+    print("[kernels] conv2d_fused: ms, plain_ms, bound_ms, library_ms "
+          "summed over the launches of one single-frame runner call; "
+          "max_abs_err over those shapes")
+    return {
         "name": "conv2d_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/conv2d/csrc/conv2d_fused.cu",
-        "replaces": REPLACES, "launches": launches,
+        "replaces": REPLACES["conv2d_fused"], "launches": launches,
         "max_abs_err": max(r["err"] for r in path),
         "ms": sum(r["ms"] * r["per_call"] for r in path),
         "plain_ms": sum(r["plain_ms"] * r["per_call"] for r in path),
@@ -292,10 +669,41 @@ def main() -> None:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": sum(r["library_ms"] * r["per_call"] for r in path),
     }
-    print("[kernels] ms, plain_ms, bound_ms, library_ms: summed over the "
-          "launches of one single-frame runner call; max_abs_err over "
-          "those shapes")
-    print(json.dumps({"kernels": [kernel]}))
+
+
+def main() -> None:
+    # the port's package comes from this checkout; alone, the script
+    # stops here with an ImportError and prints nothing
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.conv2d import ops as conv_ops
+
+    # -- 1. the card ---------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs "
+             "the GPU and does not fall back to the CPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
+
+    # -- 2. build --------------------------------------------------------
+    build_all([conv_ops.SOURCE, *attn_ops.SOURCES.values()])
+
+    # -- 3./4. the CNN path, then the LM path -----------------------------
+    t0 = time.perf_counter()
+    kernels = [run_cnn()]
+    print(f"[time] CNN phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += run_lm()
+    print(f"[time] LM phases {time.perf_counter() - t0:.1f} s")
+
+    # -- 6. result lines -------------------------------------------------
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

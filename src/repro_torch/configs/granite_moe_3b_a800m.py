@@ -1,0 +1,12 @@
+"""granite-moe-3b-a800m [moe] — 40 experts top-8 (assignment primary
+spec; the bracket note's 32-expert reading is a one-line change)
+[hf:ibm-granite/granite-3.0-1b-a400m-base]."""
+from ..models.transformer.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-3b-a800m", family="moe",
+    n_layers=32, d_model=1536, n_heads=24, n_kv_heads=8, head_dim=64,
+    d_ff=512, vocab_size=49155,
+    n_experts=40, moe_top_k=8,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+)

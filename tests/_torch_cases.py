@@ -72,3 +72,83 @@ def image(m, seed=1, n=1):
     return rng.standard_normal(
         (n, m.input_size[1], m.input_size[0], m.in_channels)
     ).astype(np.float32)
+
+
+# attention kernel cases.  flash-prefill: (B, S, K, G, D, sliding window);
+# the first four are tests/test_kernels.py's sweep, then S that no tile
+# divides, with and without a window, and a G that does not divide 64
+PREFILL_CASES = {
+    "s64": (1, 64, 2, 2, 16, 0),
+    "s128_g4": (2, 128, 1, 4, 32, 0),
+    "s256_g1_d64": (1, 256, 2, 1, 64, 0),
+    "s128_w32": (1, 128, 2, 2, 16, 32),
+    "s37": (2, 37, 2, 2, 16, 0),
+    "s37_g3_w8": (1, 37, 2, 3, 8, 8),
+}
+# flash-decode: (B, K, G, D, cache W, valid_len), tests/test_kernels.py's
+# sweep plus a cache that no tile divides, filled to one entry
+DECODE_CASES = {
+    "w64": (2, 2, 4, 16, 64, 64),
+    "w128_vl100": (1, 8, 1, 32, 128, 100),
+    "w256_vl7": (2, 1, 8, 64, 256, 7),
+    "w32": (3, 4, 2, 8, 32, 32),
+    "w512_vl511_d128": (1, 2, 2, 128, 512, 511),
+    "w37_vl1": (2, 2, 4, 64, 37, 1),
+}
+
+
+def prefill_inputs(b, s, k, g, d, seed=0):
+    """q (B, S, K, G, D), k and v (B, S, K, D), fp32 standard normal."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, k, g, d)).astype(np.float32),
+            rng.standard_normal((b, s, k, d)).astype(np.float32),
+            rng.standard_normal((b, s, k, d)).astype(np.float32))
+
+
+def decode_inputs(b, k, g, d, w, seed=0):
+    """q (B, K, G, D), k and v (B, W, K, D), fp32 standard normal."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, k, g, d)).astype(np.float32),
+            rng.standard_normal((b, w, k, d)).astype(np.float32),
+            rng.standard_normal((b, w, k, d)).astype(np.float32))
+
+
+# LM configs of the parity tests: an arch reduced as the serve launcher's
+# --reduced does (2 layers, d_model 128), or explicit ArchConfig fields;
+# "window" swaps in the sliding-window variant
+LM_CASES = {
+    "llama": dict(arch="llama3.2-1b"),
+    "qwen_bias": dict(arch="qwen1.5-0.5b"),
+    "llama_swa16": dict(arch="llama3.2-1b", window=16),
+    "gqa_bias": dict(fields=dict(name="gqa", n_layers=2, d_model=64,
+                                 n_heads=4, n_kv_heads=2, d_ff=128,
+                                 vocab_size=500, qkv_bias=True)),
+}
+LM_BATCH, LM_PROMPT = 2, 24     # the prompt is longer than the window
+
+
+def lm_config(configs, case):
+    """``case``'s config from either package's ``configs`` module."""
+    spec = LM_CASES[case]
+    if "fields" in spec:
+        cfg = configs.ArchConfig(**spec["fields"])
+    else:
+        cfg = configs.get(spec["arch"]).reduced(n_layers=2, d_model=128)
+    return cfg.with_sliding_window(spec["window"]) if "window" in spec \
+        else cfg
+
+
+def lm_tokens(cfg, n=LM_PROMPT, batch=LM_BATCH, seed=2):
+    """(batch, n) int32 token ids below the config's vocab size."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (batch, n)).astype(np.int32)
+
+
+def qkv_biases(cfg, seed=3):
+    """Nonzero (L, width) QKV biases for a config with ``qkv_bias`` (the
+    reference initialises them to zero, which would test nothing)."""
+    rng = np.random.default_rng(seed)
+    L, hd = cfg.n_layers, cfg.hd
+    return {name: (0.1 * rng.standard_normal((L, n * hd))).astype(np.float32)
+            for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads))}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held to its plain version.
+"""The port's CUDA kernels on the card, held to their plain versions.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 The file imports neither ``jax`` nor ``repro``, so it runs on the GPU
@@ -16,10 +16,17 @@ import torch
 
 import repro_torch
 from repro_torch.core import make_pi_cluster
+from repro_torch import configs
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.conv2d import ops, ref
 from repro_torch.models.cnn import params_from_numpy, zoo
+from repro_torch.models.transformer import model as M
+from repro_torch.serving import lm
 
-from _torch_cases import CONV_CASES, conv_inputs, image, np_params
+from _torch_cases import (CONV_CASES, DECODE_CASES, PREFILL_CASES,
+                          conv_inputs, decode_inputs, image, lm_config,
+                          lm_tokens, np_params, prefill_inputs)
 
 
 @pytest.fixture
@@ -97,3 +104,95 @@ def test_deployment_runs_through_the_kernel(cuda):
     for k in want:
         np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+def _assert_attn_close(got, want, dtype):
+    """fp32: |error| <= 1e-4 x max(1, max|ref|), sums in another order.
+    bf16, per element: |error| <= 2^-6 x (|ref| + rms(ref)): the output's
+    own rounding (one bf16 ulp, at most 2^-7 relative, on each side) and
+    the probabilities rounded against another running max, noise of a
+    fraction of the output's scale that does not shrink with |ref|."""
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    if dtype == torch.float32:
+        limit = 1e-4 * max(1.0, ref.max().item())
+    else:
+        limit = 2 ** -6 * (ref + ref.square().mean().sqrt())
+    assert bool((err <= limit).all()), (err / limit).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES) + ["s130_d128"])
+def test_flash_prefill_kernel_matches_plain_version(case, dtype, cuda):
+    b, s, k, g, d, w = PREFILL_CASES.get(case, (1, 130, 2, 2, 128, 0))
+    q, kk, vv = (_t(a, cuda).to(dtype) for a in prefill_inputs(b, s, k, g, d))
+    before = attn_ops.launch_count("flash_prefill")
+    got = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count("flash_prefill") == before + 1
+    want = attn_ref.flash_prefill_ref(q, kk, vv, w)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES) + ["vl_0", "vl_past_w"])
+def test_decode_kernel_matches_plain_version(case, dtype, cuda):
+    b, k, g, d, w, vl = DECODE_CASES.get(
+        case, (2, 2, 4, 64, 70, 0 if case == "vl_0" else 100))
+    q, kk, vv = (_t(a, cuda).to(dtype) for a in decode_inputs(b, k, g, d, w))
+    vl = torch.tensor(vl, dtype=torch.int32, device=cuda)
+    before = attn_ops.launch_count("decode_attention")
+    got = attn_ops.decode_attention(q, kk, vv, vl)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count("decode_attention") == before + 1
+    want = attn_ref.decode_attention_ref(q, kk, vv, vl)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q, kk, vv = (_t(a, cuda) for a in prefill_inputs(1, 8, 2, 2, 16))
+    for args in [(q.double(), kk.double(), vv.double()),
+                 (q.transpose(1, 2), kk, vv), (q, kk.cpu(), vv),
+                 (q[..., :12].contiguous(), kk[..., :12].contiguous(),
+                  vv[..., :12].contiguous())]:
+        with pytest.raises(ValueError):
+            attn_ops.flash_prefill(*args)
+    q, kk, vv = (_t(a, cuda) for a in decode_inputs(1, 2, 2, 16, 8))
+    for vl in (torch.tensor(3, dtype=torch.int32),          # on the CPU
+               torch.tensor(3, device=cuda)):               # int64
+        with pytest.raises(ValueError):
+            attn_ops.decode_attention(q, kk, vv, vl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa_bias", "llama_swa16"])
+def test_generate_runs_through_the_attention_kernels(case, cuda):
+    """A reduced LM on the card: one flash_prefill per layer, one
+    decode_attention per layer and token, and logits along the same
+    tokens within 1e-4 x max|logit| of the plain path on the CPU."""
+    cfg = lm_config(configs, case)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = M.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    prompt = torch.tensor(lm_tokens(cfg))
+    n_new = 5
+    attn_ops.reset_launches()
+    toks = lm.generate(cfg, gpu, prompt.to(cuda), n_new)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count("flash_prefill") == cfg.n_layers
+    assert attn_ops.launch_count("decode_attention") == cfg.n_layers * n_new
+    caches = [lm.prefill_prompt(cfg, p, prompt.to(p["embed"].device),
+                                n_new)[1] for p in (gpu, cpu)]
+    tok = prompt[:, -1]
+    for i in range(n_new):
+        (lg, caches[0]), (lc, caches[1]) = (
+            M.decode_step(cfg, p, c, {"token": tok.to(p["embed"].device)})
+            for p, c in zip((gpu, cpu), caches))
+        lg, lc = lg[:, :cfg.vocab_size].cpu(), lc[:, :cfg.vocab_size]
+        err = (lg - lc).abs().max().item()
+        assert err <= 1e-4 * lc.abs().max().item(), i
+        tok = toks[:, i].cpu()
