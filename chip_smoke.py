@@ -7,7 +7,7 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions.  No CUDA device: exit 1, no result;
-2. build of every kernel of the two paths from the sources in the
+2. build of every kernel of the paths from the sources in the
    checkout (``nvcc``, ``sm_90a``; one ``nvcc`` per source, all started
    together), with each build time;
 3. each kernel against its plain PyTorch version on the card, at every
@@ -18,15 +18,20 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    conv kernel's launch counter is reset just before and read just
    after; the logits are checked for shape, finiteness and agreement
    with the ``"torch"`` backend and the monolithic forward;
-5. the LM path: ``repro_torch.serving.lm.generate`` on full-width
-   Llama-3.2-1B (random weights from a seed), batch 4, a 512-token
-   prompt, 32 new greedy tokens, once in fp32 and once in bf16.  The
-   attention kernels' counters are reset just before each generate and
-   read just after (16 flash_prefill and 16 x 32 decode_attention
-   launches); prefill and decode times; agreement with
-   ``backend="torch"`` on the same weights (section LM below);
-6. one ``{"kernels": [...]}`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
+   random weights from a seed, batch 4, a 512-token prompt, 32 new
+   greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
+   (attention kernels), mamba2-370m (``ssd_chunk``) and
+   granite-moe-3b-a800m (``moe_gemm`` and the attention kernels at
+   G = 3), each model freed before the next.  The kernels' counters are
+   reset just before each generate and read just after (Llama: 16
+   flash_prefill and 16 x 32 decode_attention; mamba2: 48 ssd_chunk;
+   granite: 32 flash_prefill, 32 x 32 decode_attention and
+   3 x 32 x (1 + 32) moe_gemm); prefill and decode times; agreement with
+   ``backend="torch"`` on the same weights (``_lm_agreement``, and for
+   granite each MoE layer on shared inputs, ``_moe_agreement``);
+6. one ``{"kernels": [...]}`` JSON line (five kernels), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
 IEEE fp32.  The script imports neither ``jax`` nor the JAX package.
@@ -62,15 +67,24 @@ REPLACES = {"conv2d_fused": "src/repro/kernels/conv2d/conv2d.py:110",
             "flash_prefill":
                 "src/repro/kernels/attention/flash_prefill.py:87",
             "decode_attention":
-                "src/repro/kernels/attention/decode_attn.py:71"}
+                "src/repro/kernels/attention/decode_attn.py:71",
+            "ssd_chunk": "src/repro/kernels/ssd/ssd_chunk.py:54",
+            "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:48"}
 CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
-# LM: full-width Llama-3.2-1B (src/repro_torch/configs/llama3_2_1b.py)
-LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "llama3.2-1b", 4, 512, 32
+# LMs, all at full width (src/repro_torch/configs/): each arch's serving
+# path and the kernels it launches.  Llama-3.2-1B's attention kernels
+# give the flash_prefill / decode_attention entries of the kernels line.
+LM_ARCH, SSM_ARCH, MOE_ARCH = ("llama3.2-1b", "mamba2-370m",
+                               "granite-moe-3b-a800m")
+LM_FAMILIES = {LM_ARCH: ("flash_prefill", "decode_attention"),
+               SSM_ARCH: ("ssd_chunk",),
+               MOE_ARCH: ("flash_prefill", "decode_attention", "moe_gemm")}
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
 # kernel path vs backend="torch" on the same weights, x max|logit| over
-# the real vocab.  fp32: only the attention differs (sums in another
-# order), through 16 layers.  bf16: both paths round the same tensors
+# the real vocab.  fp32: only the kernels differ (sums in another
+# order), through every layer.  bf16: both paths round the same tensors
 # to bf16, but a different fp32 sum can land one bf16 ulp (2^-8
-# relative) apart, and that carries through 16 layers: a logit band
+# relative) apart, and that carries through the layers: a logit band
 # only, and no token check
 LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
@@ -196,7 +210,7 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
         qh, kh, vh, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     nbytes = 2 * (q.numel() + kk.numel()) * q.element_size()  # q, k, v, o
-    return dict(kernel="flash_prefill", shape=tuple(shape), window=window,
+    return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window}",
                 dtype=dtype_name, err=err, of_limit=of_limit, ok=ok,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
@@ -230,31 +244,208 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
         qh, kh, vh, attn_mask=mask, enable_gqa=True))
     live = min(valid_len, w) if valid_len > 0 else w   # entries read
     nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4
-    return dict(kernel="decode_attention", shape=(tuple(q_shape), w),
-                valid_len=valid_len, dtype=dtype_name, err=err,
+    return dict(kernel="decode_attention",
+                desc=f"q{tuple(q_shape)} W{w} vl{valid_len}",
+                dtype=dtype_name, err=err,
                 of_limit=of_limit, ok=ok, per_call=0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 **bound(4.0 * b * k * g * d * live, nbytes, dtype_name))
 
 
+def ssd_case(shape, dtype_name, seed=0) -> dict:
+    """ssd_chunk against its plain version at (BC, Q, H, P, N), with the
+    model's ranges: dt the softplus of a normal around the init's
+    ``dt_bias``, A from -1 to -16 (so cum falls to about -10^3 over
+    Q = 511).  No single PyTorch call computes the function: no library
+    time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    bc, q, h, p, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device="cuda")
+
+    dt_bias = torch.log(torch.expm1(torch.linspace(1e-3, 0.1, h,
+                                                   device="cuda")))
+    x = randn(bc, q, h, p).to(dtype)
+    dt = F.softplus(randn(bc, q, h) + dt_bias).to(dtype)
+    A = (-torch.linspace(1.0, 16.0, h, device="cuda")).to(dtype)
+    Bm, Cm = randn(bc, q, n).to(dtype), randn(bc, q, n).to(dtype)
+    y, st = ops.ssd_chunk(x, dt, A, Bm, Cm)
+    y_ref, st_ref = ref.ssd_chunk_ref(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    checks = [check_close(y, y_ref, dtype), check_close(st, st_ref, dtype)]
+
+    ms = time_ms(lambda: ops.ssd_chunk(x, dt, A, Bm, Cm))
+    plain_ms = time_ms(lambda: ref.ssd_chunk_ref(x, dt, A, Bm, Cm))
+    pairs = q * (q + 1) // 2          # causal (i, j) pairs of a chunk
+    flops = (2.0 * bc * pairs * n          # C B^T, once per chunk
+             + 2.0 * bc * h * pairs * p    # M @ x
+             + 2.0 * bc * h * q * p * n)   # the state
+    nbytes = (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
+              + st.numel()) * x.element_size()
+    return dict(kernel="ssd_chunk", desc=f"(BC,Q,H,P,N){tuple(shape)}",
+                dtype=dtype_name, err=max(c[0] for c in checks),
+                of_limit=max(c[1] for c in checks),
+                ok=all(c[2] for c in checks), per_call=0, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **bound(flops, nbytes, dtype_name))
+
+
+def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
+    """moe_gemm against its plain version at x (E, C, D), w (E, D, F);
+    the library call is ``torch.bmm`` on the same tensors."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    e, c, d = x_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    y = ops.moe_gemm(x, w)
+    y_ref = ref.moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    err, of_limit, ok = check_close(y, y_ref, dtype)
+    ms = time_ms(lambda: ops.moe_gemm(x, w))
+    plain_ms = time_ms(lambda: ref.moe_gemm_ref(x, w))
+    library_ms = time_ms(lambda: torch.bmm(x, w))
+    nbytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
+    return dict(kernel="moe_gemm", desc=f"x{tuple(x_shape)} F{f}",
+                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok,
+                per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(2.0 * e * c * d * f, nbytes, dtype_name))
+
+
 def _print_cases(cases) -> None:
     for r in cases:
-        shape = (f"q{r['shape']} w{r['window']}" if "window" in r else
-                 f"q{r['shape'][0]} W{r['shape'][1]} vl{r['valid_len']}")
-        print(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']} {shape} "
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']} {r['desc']} "
               f"{r['dtype']} x{r['per_call']} | {r['err']:.3g} "
               f"({r['of_limit']:.2f} of limit) | {r['ms']:.4f} / "
-              f"{r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
-              f"{r['bound_ms']:.5f} "
+              f"{r['plain_ms']:.4f} / {lib} / {r['bound_ms']:.5f} "
               f"({r['bound_by']})")
 
 
-def _lm_agreement(cfg, params, prompt, toks, dtype_name) -> None:
+# -- the LM paths ---------------------------------------------------------
+
+def _kernel_ops() -> dict:
+    """Each LM kernel's wrapper module, by kernel name."""
+    from repro_torch.kernels.attention import ops as attn
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.ssd import ops as ssd
+    return {"flash_prefill": attn, "decode_attention": attn,
+            "ssd_chunk": ssd, "moe_gemm": moe}
+
+
+def _reset_counts() -> None:
+    for mod in set(_kernel_ops().values()):
+        mod.reset_launches()
+
+
+def _record_key(name, args, kwargs):
+    """(shape, argument) of one wrapper call, as its case function takes
+    them."""
+    if name == "flash_prefill":
+        return tuple(args[0].shape), kwargs.get("sliding_window", 0)
+    if name == "decode_attention":
+        q, k, _, valid_len = args
+        return (tuple(q.shape), k.shape[1]), int(valid_len)
+    if name == "ssd_chunk":
+        return (*args[0].shape, args[3].shape[-1]), None
+    return (tuple(args[0].shape), args[1].shape[-1]), None      # moe_gemm
+
+
+CASES = {
+    "flash_prefill": lambda shape, arg, dt: prefill_case(shape, arg, dt),
+    "decode_attention": lambda shape, arg, dt: decode_case(shape[0],
+                                                           shape[1], arg, dt),
+    "ssd_chunk": lambda shape, arg, dt: ssd_case(shape, dt),
+    "moe_gemm": lambda shape, arg, dt: moe_case(shape[0], shape[1], dt),
+}
+
+
+def _record_shapes(names, fn) -> dict:
+    """Run ``fn()`` with recording wrappers around the kernels ``names``;
+    returns {(name, shape, argument, dtype): launches}.  These launches
+    are not the counted run's."""
+    import torch
+
+    ops = _kernel_ops()
+    real = {n: getattr(ops[n], n) for n in names}
+    launched: dict[tuple, int] = {}
+
+    def recording(n):
+        def rec(*args, **kwargs):
+            key = (n, *_record_key(n, args, kwargs),
+                   str(args[0].dtype).removeprefix("torch."))
+            launched[key] = launched.get(key, 0) + 1
+            return real[n](*args, **kwargs)
+        return rec
+
+    for n in names:
+        setattr(ops[n], n, recording(n))
+    try:
+        fn()
+    finally:
+        for n in names:
+            setattr(ops[n], n, real[n])
+    torch.cuda.synchronize()
+    return launched
+
+
+def _want_launches(cfg, names) -> dict:
+    """Launches of one generate (prefill of LM_PROMPT - 1 tokens, LM_NEW
+    decode steps) by construction of the model."""
+    L = cfg.n_layers
+    per = {"flash_prefill": L, "decode_attention": L * LM_NEW,
+           "ssd_chunk": L, "moe_gemm": 3 * L * (1 + LM_NEW)}
+    return {n: per[n] for n in names}
+
+
+def _extra_cases(cfg) -> list[dict]:
+    """Kernel cases beyond the path's own shapes: edge cases of the
+    attention kernels (with Llama) and a longer Mamba2 prompt."""
+    cases = []
+    if cfg.name == LM_ARCH:
+        b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,\
+            cfg.hd
+        w = LM_PROMPT + LM_NEW
+        for shape, window, dt in [
+                ((2, 37, k, g, d), 0, "float32"),      # S no tile divides
+                ((2, 200, k, g, d), 32, "float32"),    # sliding window
+                ((2, 200, k, g, d), 32, "bfloat16"),
+                ((2, 256, 16, 1, d), 0, "float32"),    # G = 1
+                ((1, 256, 8, 8, 128), 0, "float32"),   # D = 128
+                ((1, 256, 8, 8, 128), 0, "bfloat16")]:
+            cases.append(prefill_case(shape, window, dt))
+        for q_shape, cache_w, vl, dt in [
+                ((b, k, g, d), w, 1, "float32"),       # valid_len = 1
+                ((b, k, g, d), w, w, "float32"),       # valid_len = W
+                ((b, k, g, d), w, w, "bfloat16"),
+                ((2, 16, 1, d), 300, 257, "float32"),  # G = 1
+                ((1, 8, 8, 128), 1000, 999, "float32"),   # D = 128
+                ((1, 8, 8, 128), 1000, 999, "bfloat16")]:
+            cases.append(decode_case(q_shape, cache_w, vl, dt))
+    if cfg.is_ssm:      # a 1024-token prompt: Q = 256, four chunks each
+        shape = (LM_BATCH * 4, 256, cfg.ssm_heads, cfg.ssm_head_dim,
+                 cfg.ssm_state)
+        cases += [ssd_case(shape, dt) for dt in ("float32", "bfloat16")]
+    return cases
+
+
+def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True) -> None:
     """Prefill and each teacher-forced decode step of the kernel path
     against ``backend="torch"`` on the same weights, fed the kernel
     path's tokens.  fp32: logits within LM_LOGIT_TOL x max|logit|, and
     the kernel path's greedy token equal to the plain path's wherever
     the plain path's top-2 gap exceeds twice that; bf16: the band only.
+    With ``hold`` false the band is printed, not enforced.
     """
     import torch
     from repro_torch.models.transformer import model as M
@@ -273,7 +464,7 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name) -> None:
         tol = rel * lt.abs().max().item()
         diff = (lc - lt).abs().max().item()
         worst = max(worst, diff / tol)
-        if diff > tol:
+        if diff > tol and hold:
             fail(f"{dtype_name} {'prefill' if i == 0 else f'decode {i}'} "
                  f"logits differ by {diff:.3g} > {tol:.3g} from the torch "
                  f"backend")
@@ -281,7 +472,7 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name) -> None:
             top2 = lt.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
             same = lt.argmax(dim=-1) == toks[:, i - 1].long()
-            if bool((sure & ~same).any()):
+            if hold and bool((sure & ~same).any()):
                 fail(f"greedy token of decode step {i} differs from the "
                      f"torch backend where its top-2 gap exceeds 2 x tol")
             n_differ += int((~same).sum())
@@ -291,13 +482,107 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name) -> None:
         (lc, cc), (lt, ct) = (
             M.decode_step(cfg, params, c, {"token": tok}, backend=be)
             for c, be in ((cc, "cuda"), (ct, "torch")))
-    print(f"[slice] {dtype_name} logits vs torch backend: prefill and "
-          f"{LM_NEW} teacher-forced decode steps within {rel:g} x "
-          f"max|logit| (worst {worst:.3f} of the limit)"
+    held = "within" if hold else "not held; worst"
+    print(f"[slice] {cfg.name} {dtype_name} logits vs torch backend: "
+          f"prefill and {LM_NEW} teacher-forced decode steps, {held} "
+          f"{rel:g} x max|logit| (worst {worst:.3f} of the limit)"
           + (f"; greedy tokens: {n_differ} of {LM_BATCH * LM_NEW} "
-             f"differ from the plain path's, none where its top-2 gap "
-             f"exceeds 2 x tol"
+             f"differ from the plain path's"
+             + (", none where its top-2 gap exceeds 2 x tol" if hold
+                else "")
              if dtype_name == "float32" else "; bf16: logit band only"))
+
+
+def _gated_terms(moe, p, x, top_k, capacity_factor):
+    """sum_k gate_k |y_k| for each output element of the plain MoE layer:
+    the layer run with its last expert product (w2) taken in absolute
+    value, so the combine adds magnitudes."""
+    from repro_torch.kernels.moe_gemm import ref as moe_ref
+
+    plain, calls = moe_ref.moe_gemm_ref, [0]
+
+    def abs_w2(xe, w):
+        calls[0] += 1
+        y = plain(xe, w)
+        return y.abs() if calls[0] == 3 else y   # w1, w3, then w2
+
+    moe_ref.moe_gemm_ref = abs_w2
+    try:
+        return moe(p, x, top_k, capacity_factor, backend="torch")[0]
+    finally:
+        moe_ref.moe_gemm_ref = plain
+
+
+def _moe_agreement(cfg, params, prompt, toks, dtype_name) -> None:
+    """granite: each MoE layer of the kernel path against the plain
+    version on the same input (router, top-k and dispatch are shared;
+    only the expert GEMMs differ), over the prefill and every
+    teacher-forced decode step; then the logits end to end, with the
+    routing decisions (a token's top-k set in a layer) that differ
+    between the two backends counted.
+
+    fp32: FP32_TOL x max(1, max|ref|).  bf16, per element:
+    |out - ref| <= BF16_TOL x (sum_k gate_k |y_k| + rms(ref)).  Each
+    output sums k gated expert rows, each rounded to bf16 (and to bf16
+    again after the gate) in both paths from fp32 sums taken in other
+    orders: a one-ulp flip (2^-7 relative at most) of a term as large as
+    the terms' own magnitude, which can cancel to a small |ref|; the rms
+    term is an ulp flip of h or u carried through the w2 product.
+
+    Top-k routing is discrete: a one-ulp difference in an expert output
+    can move a near-tie of the router in a later layer, and then that
+    token's whole MoE output differs.  In fp32 the logits are held to
+    LM_LOGIT_TOL all the same.  In bf16 the ulp is 2^-8 and near-ties
+    move often; the end-to-end difference is then a count of flipped
+    routes and not a tolerance, so it is printed and not held: the
+    per-layer check above is the kernel's test.
+    """
+    import torch
+    from repro_torch.models.transformer import model as M
+
+    real = M.moe
+    routes = {"cuda": [], "torch": []}
+    per_layer = {"n": 0, "bad": 0, "worst": 0.0, "err": 0.0}
+
+    def checking(p, x, top_k, capacity_factor=1.25, backend="cuda"):
+        out, aux = real(p, x, top_k, capacity_factor, backend=backend)
+        probs = torch.softmax((x @ p.router).float(), dim=-1)
+        routes[backend].append(
+            torch.topk(probs, top_k, dim=-1).indices.sort(dim=-1).values)
+        if backend == "cuda":
+            plain, _ = real(p, x, top_k, capacity_factor, backend="torch")
+            if x.dtype == torch.float32:
+                err, of_limit, ok = check_close(out, plain, x.dtype)
+            else:
+                diff = (out.float() - plain.float()).abs()
+                limit = BF16_TOL * (
+                    _gated_terms(real, p, x, top_k, capacity_factor).float()
+                    + plain.float().square().mean().sqrt())
+                err, of_limit = diff.max().item(), (diff / limit).max().item()
+                ok = of_limit <= 1.0 and bool(torch.isfinite(out).all())
+            per_layer["n"] += 1
+            per_layer["bad"] += not ok
+            per_layer["worst"] = max(per_layer["worst"], of_limit)
+            per_layer["err"] = max(per_layer["err"], err)
+        return out, aux
+
+    M.moe = checking
+    try:
+        _lm_agreement(cfg, params, prompt, toks, dtype_name,
+                      hold=dtype_name == "float32")
+    finally:
+        M.moe = real
+    flips = sum(int((a != b).any(dim=-1).sum())
+                for a, b in zip(routes["cuda"], routes["torch"]))
+    total = sum(a.shape[0] * a.shape[1] for a in routes["cuda"])
+    print(f"[slice] {cfg.name} {dtype_name} MoE layers, kernel vs plain "
+          f"expert GEMMs on the same inputs: {per_layer['n']} calls, max "
+          f"|error| {per_layer['err']:.3g} (worst {per_layer['worst']:.3f} "
+          f"of the limit); routing decisions that differ between the two "
+          f"backends end to end: {flips} of {total}")
+    if per_layer["bad"]:
+        fail(f"{per_layer['bad']} {dtype_name} MoE layer call(s) disagree "
+             f"with the plain expert GEMMs")
 
 
 def _decode_profile(cfg, params, prompt, dtype_name, steps: int = 4
@@ -325,29 +610,42 @@ def _decode_profile(cfg, params, prompt, dtype_name, steps: int = 4
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if busy_ms <= 0:
-        print(f"[profile] {dtype_name} decode step: the profiler saw no "
-              f"device time; busy share not measured")
+        print(f"[profile] {cfg.name} {dtype_name} decode step: the profiler "
+              f"saw no device time; busy share not measured")
         return
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"[profile] {dtype_name} decode step (torch.profiler, {steps} "
-          f"steps): {launches:.0f} kernels per step, device busy "
+    print(f"[profile] {cfg.name} {dtype_name} decode step (torch.profiler, "
+          f"{steps} steps): {launches:.0f} kernels per step, device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f} ms"
               for e in top))
 
 
-def run_lm() -> list[dict]:
-    """Phases 3 and 5 for the attention kernels: the LM serving path."""
+def _describe(cfg) -> str:
+    if cfg.is_ssm:
+        return (f"{cfg.n_layers} Mamba2 layers, d {cfg.d_model}, d_inner "
+                f"{cfg.d_inner}, N {cfg.ssm_state}, {cfg.ssm_heads} heads of "
+                f"{cfg.ssm_head_dim}, conv {cfg.ssm_conv}")
+    moe = (f", {cfg.n_experts} experts of ff {cfg.d_ff}, top-"
+           f"{cfg.moe_top_k}" if cfg.is_moe else f", ff {cfg.d_ff}")
+    return (f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+            f"q-heads, {cfg.n_kv_heads} kv-heads, hd {cfg.hd}{moe}")
+
+
+def run_lm(arch: str) -> dict[str, dict]:
+    """Phases 3 and 5 for one LM: the serving path of ``arch`` at full
+    width.  Returns the ``kernels`` entries of its kernels, summed over
+    its counted fp32 generate."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels.attention import ops
     from repro_torch.models.transformer import model as M
     from repro_torch.serving import lm
 
-    cfg = configs.get(LM_ARCH)
-    L = cfg.n_layers
+    cfg = configs.get(arch)
+    names = LM_FAMILIES[arch]
+    ops = _kernel_ops()
     # the same draws (seed 0) in both dtypes: bf16 is the fp32 set rounded
     params = {dt: M.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
@@ -355,90 +653,54 @@ def run_lm() -> list[dict]:
     prompt = torch.randint(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(1))
-    print(f"[lm] {cfg.name}: {L} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads} q-heads, {cfg.n_kv_heads} kv-heads, hd {cfg.hd}, "
-          f"ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
-          f"{cfg.vocab_padded}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
-          f"{LM_NEW} new tokens, greedy")
+    print(f"[lm] {cfg.name}: {_describe(cfg)}, vocab {cfg.vocab_size} "
+          f"padded to {cfg.vocab_padded}, {cfg.param_count() / 1e9:.2f} G "
+          f"params; batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} new "
+          f"tokens, greedy")
 
-    # shapes the LM path gives the kernels: one warm-up generate per dtype
-    # with recording wrappers (these launches are not counted)
-    launched: dict[tuple, int] = {}
-    real_prefill, real_decode = ops.flash_prefill, ops.decode_attention
-
-    def rec_prefill(q, k, v, *, sliding_window=0):
-        key = ("flash_prefill", tuple(q.shape), sliding_window,
-               str(q.dtype).removeprefix("torch."))
-        launched[key] = launched.get(key, 0) + 1
-        return real_prefill(q, k, v, sliding_window=sliding_window)
-
-    def rec_decode(q, k, v, valid_len):
-        key = ("decode_attention", (tuple(q.shape), k.shape[1]),
-               int(valid_len), str(q.dtype).removeprefix("torch."))
-        launched[key] = launched.get(key, 0) + 1
-        return real_decode(q, k, v, valid_len)
-
-    ops.flash_prefill, ops.decode_attention = rec_prefill, rec_decode
-    try:
-        for p in params.values():
-            lm.generate(cfg, p, prompt, LM_NEW)
-    finally:
-        ops.flash_prefill, ops.decode_attention = real_prefill, real_decode
-    torch.cuda.synchronize()
+    # shapes the path gives the kernels: one warm-up generate per dtype
+    launched = _record_shapes(names, lambda: [
+        lm.generate(cfg, p, prompt, LM_NEW) for p in params.values()])
 
     # -- 3. kernel vs plain on the card ----------------------------------
+    vls = sorted({a for (n, _, a, _) in launched if n == "decode_attention"})
+    # Llama holds every valid length; granite the first, every eighth and
+    # the last
+    held_vl = set(vls if arch == LM_ARCH else vls[::8] + vls[-1:])
     cases = []
     for (name, shape, arg, dt), cnt in sorted(launched.items()):
-        r = (prefill_case(shape, arg, dt) if name == "flash_prefill"
-             else decode_case(shape[0], shape[1], arg, dt))
+        if name == "decode_attention" and arg not in held_vl:
+            continue
+        r = CASES[name](shape, arg, dt)
         r["per_call"] = cnt
         cases.append(r)
-    b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
-        cfg.hd
-    w = LM_PROMPT + LM_NEW
-    for shape, window, dt in [
-            ((2, 37, k, g, d), 0, "float32"),          # S no tile divides
-            ((2, 200, k, g, d), 32, "float32"),        # sliding window
-            ((2, 200, k, g, d), 32, "bfloat16"),
-            ((2, 256, 16, 1, d), 0, "float32"),        # G = 1
-            ((1, 256, 8, 8, 128), 0, "float32"),       # D = 128
-            ((1, 256, 8, 8, 128), 0, "bfloat16")]:
-        cases.append(prefill_case(shape, window, dt))
-    for q_shape, cache_w, vl, dt in [
-            ((b, k, g, d), w, 1, "float32"),           # valid_len = 1
-            ((b, k, g, d), w, w, "float32"),           # valid_len = W
-            ((b, k, g, d), w, w, "bfloat16"),
-            ((2, 16, 1, d), 300, 257, "float32"),      # G = 1
-            ((1, 8, 8, 128), 1000, 999, "float32"),    # D = 128
-            ((1, 8, 8, 128), 1000, 999, "bfloat16")]:
-        cases.append(decode_case(q_shape, cache_w, vl, dt))
-    print(f"[kernel] {len(cases)} attention cases: shape, dtype, launches "
-          f"per generate | max_abs_err (worst error / its limit) | ms kernel "
-          f"/ plain / library (SDPA) / bound")
+    cases += _extra_cases(cfg)
+    print(f"[kernel] {cfg.name}: {len(cases)} cases of {', '.join(names)}: "
+          f"shape, dtype, launches per generate | max_abs_err (worst error "
+          f"/ its limit) | ms kernel / plain / library / bound"
+          + (f"; decode_attention held at valid lengths {sorted(held_vl)} "
+             f"of {len(vls)}" if len(held_vl) < len(vls) else ""))
     _print_cases(cases)
     bad = [r for r in cases if not r["ok"]]
     if bad:
-        fail(f"{len(bad)} attention kernel case(s) disagree with the plain "
+        fail(f"{len(bad)} {cfg.name} kernel case(s) disagree with the plain "
              f"version")
 
-    # -- 5. the LM path, counted, per dtype -------------------------------
-    want = {"flash_prefill": L, "decode_attention": L * LM_NEW}
-    launches = {}      # per dtype: the counts of its counted generate
-    tokens = {}
+    # -- 5. the path, counted, per dtype ----------------------------------
+    want = _want_launches(cfg, names)
+    launches, tokens = {}, {}
     for dt, p in params.items():
-        ops.reset_launches()
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = lm.generate(cfg, p, prompt, LM_NEW)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        got = {n: ops.launch_count(n) for n in want}
-        print(f"[slice] {dt} generate: flash_prefill launches "
-              f"{got['flash_prefill']} (want {want['flash_prefill']}), "
-              f"decode_attention launches {got['decode_attention']} "
-              f"(want {L} x {LM_NEW} = {want['decode_attention']})")
+        got = {n: ops[n].launch_count(n) for n in names}
+        print(f"[slice] {cfg.name} {dt} generate: " + ", ".join(
+            f"{n} launches {got[n]} (want {want[n]})" for n in names))
         if got != want:
-            fail(f"{dt} generate launched {got}, want {want}")
+            fail(f"{cfg.name} {dt} generate launched {got}, want {want}")
         launches[dt] = got
         if tuple(toks.shape) != (LM_BATCH, LM_NEW) or \
                 int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -453,7 +715,7 @@ def run_lm() -> list[dict]:
         torch.cuda.synchronize()
         pre_ms = (time.perf_counter() - t0) / reps * 1e3
         dec_ms = (gen_s * 1e3 - pre_ms) / LM_NEW
-        print(f"[slice] {dt}: generate {gen_s * 1e3:.1f} ms "
+        print(f"[slice] {cfg.name} {dt}: generate {gen_s * 1e3:.1f} ms "
               f"({LM_BATCH * LM_NEW / gen_s:.1f} new tokens/s); prefill of "
               f"{LM_PROMPT - 1} tokens x {LM_BATCH} {pre_ms:.2f} ms (mean of "
               f"{reps}); decode {dec_ms:.3f} ms per step of {LM_BATCH} "
@@ -462,39 +724,47 @@ def run_lm() -> list[dict]:
 
     # -- 5b. agreement with the plain path; where a decode step goes ------
     for dt, p in params.items():
-        _lm_agreement(cfg, p, prompt, tokens[dt], dt)
+        if cfg.is_moe:
+            _moe_agreement(cfg, p, prompt, tokens[dt], dt)
+        else:
+            _lm_agreement(cfg, p, prompt, tokens[dt], dt)
         _decode_profile(cfg, p, prompt, dt)
+    del params
+    torch.cuda.empty_cache()
 
     # -- the kernels' entries: one fp32 generate ---------------------------
-    print("[kernels] flash_prefill, decode_attention: launches of the "
-          "counted fp32 generate, and ms, plain_ms, bound_ms, library_ms "
-          "summed over those launches; max_abs_err over the fp32 path "
-          "shapes (the bf16 generate's launches are in its [slice] line)")
-    out = []
-    for name, src in (("flash_prefill", "flash_prefill.cu"),
-                      ("decode_attention", "decode_attn.cu")):
+    out = {}
+    for name in names:
         path = [r for r in cases if r["kernel"] == name and r["per_call"]
                 and r["dtype"] == "float32"]
         bf = [r for r in cases if r["kernel"] == name and r["per_call"]
               and r["dtype"] == "bfloat16"]
-        t_ops = sum(r["t_ops_ms"] * r["per_call"] for r in path)
-        t_bytes = sum(r["t_bytes_ms"] * r["per_call"] for r in path)
-        entry = {
+
+        def total(rows, key):
+            if any(r[key] is None for r in rows):
+                return None
+            return sum(r[key] * r["per_call"] for r in rows)
+
+        t_ops, t_bytes = total(path, "t_ops_ms"), total(path, "t_bytes_ms")
+        out[name] = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/attention/csrc/{src}",
+            "source": str(ops[name].SOURCES[name].relative_to(ROOT)),
             "replaces": REPLACES[name],
             "launches": launches["float32"][name],
             "max_abs_err": max(r["err"] for r in path),
-            **{key: sum(r[key] * r["per_call"] for r in path)
+            **{key: total(path, key)
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
-        out.append(entry)
-        print(f"[kernels] {name} bf16, one generate: ms "
-              f"{sum(r['ms'] * r['per_call'] for r in bf):.4f}, plain "
-              f"{sum(r['plain_ms'] * r['per_call'] for r in bf):.4f}, "
-              f"library {sum(r['library_ms'] * r['per_call'] for r in bf):.4f}"
-              f", bound {sum(r['bound_ms'] * r['per_call'] for r in bf):.5f}")
+        held = sum(r["per_call"] for r in path)
+        lib = total(bf, "library_ms")
+        print(f"[kernels] {cfg.name} {name}: fp32 over {held} of "
+              f"{launches['float32'][name]} launches: ms "
+              f"{out[name]['ms']:.4f}, bound {out[name]['bound_ms']:.5f}; "
+              f"bf16 ms {total(bf, 'ms'):.4f}, plain "
+              f"{total(bf, 'plain_ms'):.4f}, library "
+              f"{'-' if lib is None else f'{lib:.4f}'}, bound "
+              f"{total(bf, 'bound_ms'):.5f}")
     return out
 
 
@@ -675,7 +945,6 @@ def main() -> None:
     # the port's package comes from this checkout; alone, the script
     # stops here with an ImportError and prints nothing
     import torch
-    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.conv2d import ops as conv_ops
 
     # -- 1. the card ---------------------------------------------------
@@ -692,15 +961,26 @@ def main() -> None:
           f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
 
     # -- 2. build --------------------------------------------------------
-    build_all([conv_ops.SOURCE, *attn_ops.SOURCES.values()])
+    lm_sources = {mod.SOURCES[n] for n, mod in _kernel_ops().items()}
+    build_all([conv_ops.SOURCE, *sorted(lm_sources)])
 
-    # -- 3./4. the CNN path, then the LM path -----------------------------
+    # -- 3./4./5. the CNN path, then each LM path ------------------------
     t0 = time.perf_counter()
     kernels = [run_cnn()]
     print(f"[time] CNN phases {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    kernels += run_lm()
-    print(f"[time] LM phases {time.perf_counter() - t0:.1f} s")
+    entries = {}
+    for arch in LM_FAMILIES:
+        t0 = time.perf_counter()
+        got = run_lm(arch)
+        # the attention kernels' entries stay Llama's (comparable with
+        # earlier runs); granite's attention launches are in its lines
+        entries.update({n: e for n, e in got.items() if n not in entries})
+        print(f"[time] {arch} phases {time.perf_counter() - t0:.1f} s")
+    kernels += [entries[n] for n in ("flash_prefill", "decode_attention",
+                                     "ssd_chunk", "moe_gemm")]
+    print("[kernels] ssd_chunk: library_ms null: no single PyTorch call "
+          "computes the intra-chunk SSD; moe_gemm: library_ms is torch.bmm "
+          "on the same (E, C, D) x (E, D, F)")
 
     # -- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@ compiled at first use, for Hopper (``sm_90a``), from the source in the
 checkout into ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), under a name keyed by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is not.
+:class:`Launchers` binds a set of them and counts their launches.
 Nothing here runs at import time: this module imports on machines with
 no CUDA toolkit.
 """
@@ -17,6 +18,8 @@ import os
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,3 +71,49 @@ def library(src: Path) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[src] = ctypes.CDLL(str(build(src)))
     return lib
+
+
+#: the dtype code each launcher takes as its first argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Launchers:
+    """The ``extern "C"`` launchers ``<name>_launch`` of a set of kernel
+    sources, bound with ctypes at first use, each with a count of its
+    launches.
+
+    A launcher takes a dtype code (:data:`DTYPE_CODES`), its own
+    arguments, then the stream, and returns a ``cudaError_t``.
+    ``argtypes[name]`` is its whole ctypes signature: a pointer passed
+    where none is declared is cut to 32 bits, so it must follow the C
+    prototype one for one.
+    """
+
+    def __init__(self, sources: dict[str, Path],
+                 argtypes: dict[str, list]):
+        self.sources, self.argtypes = sources, argtypes
+        self.counts = dict.fromkeys(sources, 0)
+        self._fns: dict = {}
+
+    def launch(self, name: str, like: torch.Tensor, *args) -> None:
+        """Launch kernel ``name`` for ``like``'s dtype on the current
+        stream of ``like``'s device; raise if the runtime refuses it."""
+        fn = self._fns.get(name)
+        if fn is None:
+            fn = getattr(library(self.sources[name]), f"{name}_launch")
+            fn.argtypes = self.argtypes[name]
+            fn.restype = ctypes.c_int
+            self._fns[name] = fn
+        err = fn(DTYPE_CODES[like.dtype], *args,
+                 torch.cuda.current_stream(like.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+        self.counts[name] += 1
+
+    def launch_count(self, name: str) -> int:
+        """Launches of kernel ``name`` since creation or :meth:`reset`."""
+        return self.counts[name]
+
+    def reset(self) -> None:
+        for name in self.counts:
+            self.counts[name] = 0

@@ -12,18 +12,16 @@ layout or head dim the kernel does not take is an error.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
 
-from .._build import library
+from .._build import DTYPE_CODES, Launchers
 from .ref import decode_attention_ref, flash_prefill_ref
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"flash_prefill": CSRC / "flash_prefill.cu",
            "decode_attention": CSRC / "decode_attn.cu"}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest query-group size G (query heads per kv head) a block holds
 MAX_GROUP = 64
 #: ctypes signatures of the ``extern "C"`` launchers, one for one
@@ -36,32 +34,17 @@ ARGTYPES = {
                          + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
 
-_launches = dict.fromkeys(SOURCES, 0)
-
-
-def launch_count(name: str) -> int:
-    """Launches of kernel ``name`` (a key of :data:`SOURCES`) since
-    process start or :func:`reset_launches`."""
-    return _launches[name]
-
-
-def reset_launches() -> None:
-    for name in _launches:
-        _launches[name] = 0
-
-
-@functools.cache
-def _kernel(name: str):
-    fn = getattr(library(SOURCES[name]), f"{name}_launch")
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNELS = Launchers(SOURCES, ARGTYPES)
+#: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
+#: start or :func:`reset_launches`
+launch_count = _KERNELS.launch_count
+reset_launches = _KERNELS.reset
 
 
 def _check_cuda(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
-    if q.dtype not in _DTYPES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (kernel "
-                         f"takes {sorted(map(str, _DTYPES))})")
+                         f"takes {sorted(map(str, DTYPE_CODES))})")
     for t in (q, *others):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
@@ -76,15 +59,6 @@ def _check_cuda(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     if g > MAX_GROUP:
         raise ValueError(f"{name}: {g} query heads per kv head, kernel "
                          f"takes at most {MAX_GROUP}")
-
-
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args
-            ) -> None:
-    err = _kernel(name)(_DTYPES[dtype], *args,
-                        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    _launches[name] += 1
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -113,8 +87,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    _launch("flash_prefill", q.dtype, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), B, S, K, G, D, sliding_window)
+    _KERNELS.launch("flash_prefill", q, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), B, S, K, G, D,
+                    sliding_window)
     return o
 
 
@@ -152,7 +127,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    _launch("decode_attention", q.dtype, q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), valid_len.data_ptr(), o.data_ptr(),
-            B, k.shape[1], K, G, D)
+    _KERNELS.launch("decode_attention", q, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), valid_len.data_ptr(), o.data_ptr(), B,
+                    k.shape[1], K, G, D)
     return o

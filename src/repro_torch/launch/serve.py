@@ -5,9 +5,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --reduced --device cpu                              # CPU, small
 
-Weights are random from ``--seed``, as in the JAX package's launcher.
-Families the port lacks yet (MoE, Mamba2, hybrid, embeddings input)
-stop with ``NotImplementedError``.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m
+
+Dense, MoE (granite, mixtral) and Mamba2 archs run.  Weights are random
+from ``--seed``, as in the JAX package's launcher.  What the port lacks
+yet (zamba2's shared block, the embeddings input of llava and musicgen)
+stops with a message naming ROADMAP Queue 1, item 10d.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
         cfg = cfg.reduced(n_layers=2, d_model=128)
     if cfg.input_mode != "tokens":
         raise SystemExit(f"{args.arch} takes embeddings, which the port "
-                         f"does not serve yet")
+                         f"does not serve yet (ROADMAP Queue 1, item 10d)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "

@@ -1,4 +1,5 @@
-"""Decoder LM substrate of the port (dense attention family)."""
+"""Decoder LM substrate of the port: the dense attention, MoE and Mamba2
+families."""
 
 from .config import ArchConfig
 from . import layers, model

@@ -11,14 +11,15 @@ from ..models.transformer.config import ArchConfig
 def prefill_prompt(cfg: ArchConfig, params, prompt: torch.Tensor,
                    n_new: int, backend: str = "cuda"
                    ) -> tuple[torch.Tensor, dict]:
-    """Prefill all but the last prompt token, and give the cache room
+    """Prefill all but the last prompt token, and give a k/v cache room
     for the ``n_new`` tokens to come (+1 for the fed-back last prompt
-    token).  A sliding-window cache is a ring buffer and keeps its size.
+    token).  A sliding-window cache is a ring buffer and keeps its size,
+    and a Mamba2 cache (conv and ssm states) has none to grow.
     Returns (the prefill's last logits, the cache).
     """
     logits, cache = M.prefill(cfg, params, {"tokens": prompt[:, :-1]},
                               backend=backend)
-    if not cfg.sliding_window:
+    if not cfg.sliding_window and "k" in cache:
         for key in ("k", "v"):
             c = cache[key]
             room = c.new_zeros((*c.shape[:2], n_new + 1, *c.shape[3:]))

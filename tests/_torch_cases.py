@@ -3,6 +3,9 @@ numpy from a seed so that both packages get the same numbers.  Imports
 neither ``jax`` nor ``torch``: the ``cuda``-marked tests run on a
 machine without JAX."""
 
+import ctypes
+import re
+
 import numpy as np
 
 # the JAX package's tiny zoo sizes (tests/test_exec_equivalence.py)
@@ -113,9 +116,51 @@ def decode_inputs(b, k, g, d, w, seed=0):
             rng.standard_normal((b, w, k, d)).astype(np.float32))
 
 
+# SSD intra-chunk cases: (BC, Q, H, P, N); tests/test_kernels.py's sweep,
+# then chunk lengths that no 64-row tile divides
+SSD_CASES = {
+    "q16": (2, 16, 2, 16, 8),
+    "q64": (1, 64, 4, 32, 16),
+    "q32_n128": (3, 32, 1, 8, 128),
+    "q128_p64": (2, 128, 2, 64, 64),
+    "q37": (2, 37, 2, 16, 8),
+    "q73": (1, 73, 3, 16, 32),
+}
+# grouped expert GEMM cases: (E, C, D, F); tests/test_kernels.py's sweep,
+# then the capacities of a granite decode (C = 4) and prefill (C = 508)
+MOE_GEMM_CASES = {
+    "e4": (4, 16, 32, 64),
+    "e8_c128": (8, 128, 64, 128),
+    "e3_d512": (3, 8, 512, 16),
+    "e40": (40, 4, 24, 8),
+    "c4": (6, 4, 64, 32),
+    "c508": (2, 508, 32, 16),
+}
+
+
+def ssd_inputs(bc, q, h, p, n, seed=0):
+    """x, dt (softplus of a normal), A (< 0), B and C for one SSD chunk
+    batch, fp32, scaled as in tests/test_kernels.py's sweep."""
+    rng = np.random.default_rng(seed)
+    x = 0.5 * rng.standard_normal((bc, q, h, p))
+    dt = np.logaddexp(rng.standard_normal((bc, q, h)), 0.0)
+    A = -np.exp(0.3 * rng.standard_normal(h))
+    B = 0.3 * rng.standard_normal((bc, q, n))
+    C = 0.3 * rng.standard_normal((bc, q, n))
+    return tuple(a.astype(np.float32) for a in (x, dt, A, B, C))
+
+
+def moe_gemm_inputs(e, c, d, f, seed=0):
+    """x (E, C, D) standard normal and w (E, D, F) / sqrt(D), fp32."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((e, c, d)).astype(np.float32),
+            (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32))
+
+
 # LM configs of the parity tests: an arch reduced as the serve launcher's
 # --reduced does (2 layers, d_model 128), or explicit ArchConfig fields;
-# "window" swaps in the sliding-window variant
+# "window" swaps in the sliding-window variant; "prefill" sets the
+# prefilled length (default: LM_PROMPT tokens in all)
 LM_CASES = {
     "llama": dict(arch="llama3.2-1b"),
     "qwen_bias": dict(arch="qwen1.5-0.5b"),
@@ -123,6 +168,11 @@ LM_CASES = {
     "gqa_bias": dict(fields=dict(name="gqa", n_layers=2, d_model=64,
                                  n_heads=4, n_kv_heads=2, d_ff=128,
                                  vocab_size=500, qkv_bias=True)),
+    "mamba2": dict(arch="mamba2-370m"),
+    "granite_moe": dict(arch="granite-moe-3b-a800m"),
+    # 512 prefilled tokens: ssd_chunked takes Q = 256, two chunks, so the
+    # inter-chunk scan runs through the model
+    "mamba2_q256": dict(arch="mamba2-370m", prefill=512),
 }
 LM_BATCH, LM_PROMPT = 2, 24     # the prompt is longer than the window
 
@@ -152,3 +202,15 @@ def qkv_biases(cfg, seed=3):
     return {name: (0.1 * rng.standard_normal((L, n * hd))).astype(np.float32)
             for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads))}
+
+
+def c_argtypes(source, name):
+    """The ctypes signature that the ``extern "C"`` prototype of
+    ``<name>_launch`` in ``source`` (a path) calls for: c_void_p for each
+    pointer, c_int for each int.  ctypes checks only the argument count
+    of a foreign call, and a pointer passed as a C int is cut to 32 bits,
+    so each wrapper's argtypes must equal this, one for one."""
+    proto = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)',
+                      source.read_text())
+    return [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in proto.group(1).split(",")]

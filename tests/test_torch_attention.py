@@ -2,9 +2,6 @@
 kernels (Pallas in interpret mode) and its blockwise attention, on the
 same inputs; and the wrappers' CPU path and checks."""
 
-import ctypes
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +14,8 @@ from repro.kernels.attention.flash_prefill import (
 from repro.models.transformer import layers as RL
 from repro_torch.kernels.attention import ops, ref
 
-from _torch_cases import (DECODE_CASES, PREFILL_CASES, decode_inputs,
-                          prefill_inputs)
+from _torch_cases import (DECODE_CASES, PREFILL_CASES, c_argtypes,
+                          decode_inputs, prefill_inputs)
 
 # fp32: sums in another order than XLA's (the band of
 # tests/test_kernels.py's flash-prefill sweep); bf16: the `TOL` band of
@@ -126,11 +123,4 @@ def test_cuda_checks_refuse_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize("name", sorted(ops.SOURCES))
 def test_ctypes_signature_matches_the_c_prototype(name):
-    """ctypes checks only the argument count of a foreign call, and a
-    pointer passed as a C int is cut to 32 bits: each wrapper's argtypes
-    must follow the ``extern "C"`` prototype in its source, one for one."""
-    src = ops.SOURCES[name].read_text()
-    proto = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src)
-    params = [p.strip() for p in proto.group(1).split(",")]
-    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    assert ops.ARGTYPES[name] == want
+    assert ops.ARGTYPES[name] == c_argtypes(ops.SOURCES[name], name)

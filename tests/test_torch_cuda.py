@@ -20,13 +20,19 @@ from repro_torch import configs
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.conv2d import ops, ref
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.kernels.moe_gemm import ref as moe_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.cnn import params_from_numpy, zoo
 from repro_torch.models.transformer import model as M
 from repro_torch.serving import lm
 
-from _torch_cases import (CONV_CASES, DECODE_CASES, PREFILL_CASES,
-                          conv_inputs, decode_inputs, image, lm_config,
-                          lm_tokens, np_params, prefill_inputs)
+from _torch_cases import (CONV_CASES, DECODE_CASES, MOE_GEMM_CASES,
+                          PREFILL_CASES, SSD_CASES, conv_inputs,
+                          decode_inputs, image, lm_config, lm_tokens,
+                          moe_gemm_inputs, np_params, prefill_inputs,
+                          ssd_inputs)
 
 
 @pytest.fixture
@@ -185,6 +191,90 @@ def test_generate_runs_through_the_attention_kernels(case, cuda):
     torch.cuda.synchronize()
     assert attn_ops.launch_count("flash_prefill") == cfg.n_layers
     assert attn_ops.launch_count("decode_attention") == cfg.n_layers * n_new
+    caches = [lm.prefill_prompt(cfg, p, prompt.to(p["embed"].device),
+                                n_new)[1] for p in (gpu, cpu)]
+    tok = prompt[:, -1]
+    for i in range(n_new):
+        (lg, caches[0]), (lc, caches[1]) = (
+            M.decode_step(cfg, p, c, {"token": tok.to(p["embed"].device)})
+            for p, c in zip((gpu, cpu), caches))
+        lg, lc = lg[:, :cfg.vocab_size].cpu(), lc[:, :cfg.vocab_size]
+        err = (lg - lc).abs().max().item()
+        assert err <= 1e-4 * lc.abs().max().item(), i
+        tok = toks[:, i].cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["q511_h32", "q256_p128"])
+def test_ssd_chunk_kernel_matches_plain_version(case, dtype, cuda):
+    """The sweep, a full-width mamba2-370m chunk of 511 positions (no tile
+    divides it) and P = 128, under the attention kernels' limits."""
+    shape = SSD_CASES.get(case) or {"q511_h32": (2, 511, 32, 64, 128),
+                                    "q256_p128": (1, 256, 2, 128, 64)}[case]
+    x, dt, A, Bm, Cm = (_t(a, cuda).to(dtype) for a in ssd_inputs(*shape))
+    before = ssd_ops.launch_count("ssd_chunk")
+    y, st = ssd_ops.ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_ops.launch_count("ssd_chunk") == before + 1
+    want_y, want_st = ssd_ref.ssd_chunk_ref(x, dt, A, Bm, Cm)
+    for got, want in ((y, want_y), (st, want_st)):
+        assert got.shape == want.shape and got.dtype == dtype
+        _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MOE_GEMM_CASES) + ["granite_decode"])
+def test_moe_gemm_kernel_matches_plain_version(case, dtype, cuda):
+    shape = MOE_GEMM_CASES.get(case, (40, 4, 1536, 512))
+    x, w = (_t(a, cuda).to(dtype) for a in moe_gemm_inputs(*shape))
+    before = moe_ops.launch_count("moe_gemm")
+    got = moe_ops.moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert moe_ops.launch_count("moe_gemm") == before + 1
+    want = moe_ref.moe_gemm_ref(x, w)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_and_moe_kernels_refuse_what_they_do_not_take(cuda):
+    x, dt, A, Bm, Cm = (_t(a, cuda) for a in ssd_inputs(*SSD_CASES["q16"]))
+    for args in [(x.double(), dt.double(), A.double(), Bm.double(),
+                  Cm.double()),
+                 (x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm,
+                  Cm),
+                 (x, dt, A.cpu(), Bm, Cm)]:
+        with pytest.raises(ValueError):
+            ssd_ops.ssd_chunk(*args)
+    x, w = (_t(a, cuda) for a in moe_gemm_inputs(*MOE_GEMM_CASES["e4"]))
+    for args in [(x.double(), w.double()), (x, w.cpu()),
+                 (x, w.transpose(1, 2).contiguous().transpose(1, 2))]:
+        with pytest.raises(ValueError):
+            moe_ops.moe_gemm(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mamba2", "granite_moe"])
+def test_generate_runs_through_the_ssd_and_moe_kernels(case, cuda):
+    """A reduced Mamba2 / MoE LM on the card: one ssd_chunk per layer of
+    the prefill; three moe_gemm per layer of the prefill and of every
+    decode step; logits along the same tokens within 1e-4 x max|logit|
+    of the plain path on the CPU."""
+    cfg = lm_config(configs, case)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = M.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    prompt = torch.tensor(lm_tokens(cfg))
+    n_new = 5
+    ssd_ops.reset_launches()
+    moe_ops.reset_launches()
+    toks = lm.generate(cfg, gpu, prompt.to(cuda), n_new)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert ssd_ops.launch_count("ssd_chunk") == (L if cfg.is_ssm else 0)
+    assert moe_ops.launch_count("moe_gemm") == \
+        (3 * L * (1 + n_new) if cfg.is_moe else 0)
     caches = [lm.prefill_prompt(cfg, p, prompt.to(p["embed"].device),
                                 n_new)[1] for p in (gpu, cpu)]
     tok = prompt[:, -1]

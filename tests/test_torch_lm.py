@@ -1,10 +1,12 @@
 """The port's LM serving path (prefill -> decode_step -> generate) against
-the JAX package's, on reduced configs with the reference's parameters.
+the JAX package's, on reduced configs with the reference's parameters:
+dense attention, MoE (granite) and Mamba2.
 
-On the CPU the port's attention wrappers run their plain versions; the
-reference runs its own (XLA) attention.  Tolerance rtol/atol 2e-4, the
-band tests/test_transformer.py uses between prefill and decode: fp32
-sums in another order, through two layers.
+On the CPU the port's kernel wrappers run their plain versions; the
+reference runs its own (XLA) attention, expert einsums and SSD.
+Tolerance rtol/atol 2e-4, the band tests/test_transformer.py uses
+between prefill and decode: fp32 sums in another order, through two
+layers.
 """
 
 import dataclasses
@@ -20,11 +22,13 @@ from repro.models.transformer import model as RM
 from repro.serving.lm import generate as ref_generate
 from repro_torch import configs
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models.transformer import model as M
 from repro_torch.serving import lm
 
-from _torch_cases import LM_CASES, lm_config, lm_tokens, qkv_biases
+from _torch_cases import LM_CASES, LM_PROMPT, lm_config, lm_tokens, qkv_biases
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 N_STEPS = 6
@@ -47,11 +51,22 @@ def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _state_keys(cache):
+    """The per-layer entries of a cache of either package: k/v, or the
+    Mamba2 conv and ssm states."""
+    return [key for key in cache if key != "len"]
+
+
+def _prefill_len(case):
+    return LM_CASES[case].get("prefill", LM_PROMPT)
+
+
 def _grow(cache, n, ref: bool):
     """Room for ``n`` more tokens in a full-attention cache, as
-    ``generate`` makes it (the reference pads, the port concatenates)."""
+    ``generate`` makes it (the reference pads, the port concatenates); a
+    Mamba2 cache stays as it is."""
     out = dict(cache)
-    for key in ("k", "v"):
+    for key in ("k", "v") if "k" in cache else ():
         c = cache[key]
         if ref:
             pads = [(0, 0)] * c.ndim
@@ -77,13 +92,17 @@ def test_configs_match_the_reference(case):
 @pytest.mark.parametrize("case", sorted(LM_CASES))
 def test_prefill_then_teacher_forced_decode_match_the_reference(case):
     rcfg, rparams, cfg, params = _setup(case)
-    toks = lm_tokens(cfg, n=rcfg.sliding_window + 8 if rcfg.sliding_window
-                     else 24)
+    if "prefill" in LM_CASES[case]:
+        n = _prefill_len(case) + N_STEPS
+    else:
+        n = rcfg.sliding_window + 8 if rcfg.sliding_window else LM_PROMPT
+    toks = lm_tokens(cfg, n=n)
     prompt, fed = toks[:, :-N_STEPS], toks[:, -N_STEPS:]
     rlogits, rcache = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(prompt)})
     logits, cache = M.prefill(cfg, params, {"tokens": torch.tensor(prompt)})
     _close(logits, rlogits)
-    for key in ("k", "v"):
+    assert _state_keys(cache) == _state_keys(rcache)
+    for key in _state_keys(rcache):
         _close(cache[key], rcache[key])
     assert int(cache["len"]) == int(rcache["len"]) == prompt.shape[1]
     if not cfg.sliding_window:
@@ -96,7 +115,7 @@ def test_prefill_then_teacher_forced_decode_match_the_reference(case):
         logits, cache = M.decode_step(cfg, params, cache,
                                       {"token": torch.tensor(fed[:, i])})
         _close(logits, rlogits)
-        for key in ("k", "v"):
+        for key in _state_keys(rcache):
             _close(cache[key], rcache[key])
         assert int(cache["len"]) == int(rcache["len"])
 
@@ -107,14 +126,20 @@ def test_generate_matches_the_reference(case):
     step whose reference top-2 logit gap is within 2 x the tolerance
     (there a tie may break either way, and the runs part)."""
     rcfg, rparams, cfg, params = _setup(case)
-    prompt = lm_tokens(cfg)
+    prompt = lm_tokens(cfg, n=_prefill_len(case) + 1
+                       if "prefill" in LM_CASES[case] else LM_PROMPT)
     n_new = 8
     want = np.asarray(ref_generate(rcfg, rparams, jnp.asarray(prompt),
                                    n_new))
     ops.reset_launches()
+    moe_ops.reset_launches()
+    ssd_ops.reset_launches()
     got = lm.generate(cfg, params, torch.tensor(prompt), n_new)
     assert got.shape == (prompt.shape[0], n_new) and got.dtype == torch.int32
-    assert ops.launch_count("decode_attention") == 0   # CPU: plain versions
+    # CPU: the plain versions, no kernel
+    assert ops.launch_count("decode_attention") == 0
+    assert moe_ops.launch_count("moe_gemm") == 0
+    assert ssd_ops.launch_count("ssd_chunk") == 0
 
     # the reference's logits along its own tokens, for the gaps
     _, rcache = RM.prefill(rcfg, rparams,
@@ -222,8 +247,7 @@ def test_params_from_numpy_reads_bf16_trees():
         np.asarray(tree["layers"]["attn"].wq, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "granite-moe-3b-a800m",
-                                  "zamba2-2.7b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "musicgen-medium"])
 def test_families_not_ported_yet_are_refused(arch):
     cfg = configs.get(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -236,3 +260,43 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert tuple(toks.shape) == (2, 3)
     out = capsys.readouterr().out
     assert "llama3.2-1b-smoke" in out and "generated (2, 3)" in out
+
+
+@pytest.mark.parametrize("case", ["mamba2", "granite_moe"])
+def test_init_params_and_cache_match_the_reference_for_moe_and_mamba2(case):
+    """Same tree and shapes as the reference's init, the reference's fixed
+    Mamba2 ``dt_bias`` and ``A_log``, the same cache layout, and the same
+    parameter count."""
+    rcfg, cfg = lm_config(ref_configs, case), lm_config(configs, case)
+    p = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rp = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    assert _shapes(p) == _shapes(rp)
+    assert sum(t.numel() for t in _leaves(p)) == \
+        sum(np.asarray(t).size for t in _leaves(rp))
+    if cfg.is_ssm:
+        for name in ("dt_bias", "A_log"):
+            np.testing.assert_allclose(
+                getattr(p["layers"]["mamba"], name).numpy(),
+                np.asarray(getattr(rp["layers"]["mamba"], name)),
+                rtol=1e-6, atol=1e-6)
+    else:
+        std = p["layers"]["moe"].w1.std().item()
+        assert abs(std * cfg.d_model ** 0.5 - 1) < 0.1
+    assert _shapes(M.init_cache(cfg, 3, 40, device="cpu")) == \
+        _shapes(RM.init_cache(rcfg, 3, 40))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "granite-moe-3b-a800m"])
+def test_serve_launcher_runs_moe_and_mamba2_on_cpu(arch, capsys):
+    toks = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "6",
+                       "--new-tokens", "3"])
+    assert tuple(toks.shape) == (2, 3)
+    assert f"{arch}-smoke" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llava-next-34b"])
+def test_serve_launcher_refuses_what_is_not_ported(arch):
+    with pytest.raises((NotImplementedError, SystemExit),
+                       match="ROADMAP Queue 1, item 10d"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
