@@ -9,10 +9,13 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    versions.  No CUDA device: exit 1, no result;
 2. build of every kernel of the paths from the sources in the
    checkout (``nvcc``, ``sm_90a``; one ``nvcc`` per source, all started
-   together), with each build time;
+   together), with each build time and, per kernel entry, its
+   registers, static shared memory and spills;
 3. each kernel against its plain PyTorch version on the card, at every
    shape its path launches plus edge cases, with times for the kernel,
    the plain version, one library call and the card's bound;
+   ``flash_prefill`` and ``moe_gemm`` also called twice, which must give
+   the same bits, and each ``moe_gemm`` case names its variant;
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
    then ``Deployment.run`` on one frame and on a list of 8 frames.  The
    conv kernel's launch counter is reset just before and read just
@@ -27,9 +30,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    reset just before each generate and read just after (Llama: 16
    flash_prefill and 16 x 32 decode_attention; mamba2: 48 ssd_chunk;
    granite: 32 flash_prefill, 32 x 32 decode_attention and
-   3 x 32 x (1 + 32) moe_gemm); prefill and decode times; agreement with
+   3 x 32 x (1 + 32) moe_gemm, the 96 prefill ones through the wgmma
+   (bf16) or simt (fp32) variant and the 3072 decode ones through
+   stream); prefill and decode times; agreement with
    ``backend="torch"`` on the same weights (``_lm_agreement``, and for
-   granite each MoE layer on shared inputs, ``_moe_agreement``);
+   granite each MoE layer on shared inputs, ``_moe_agreement``); a
+   profiled decode step (with granite, moe_gemm's time inside it);
 6. one ``{"kernels": [...]}`` JSON line (five kernels), the card line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -108,6 +114,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` a call: the kernels' own durations as
+    ``torch.profiler`` records them (host time between launches not
+    counted; ``time_ms`` counts it when the host is the slower).  Each
+    kernel's mean over the launches the profiler caught, times its
+    launches a call (the profiler can miss the first few of a window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / e.count
+               * max(1, round(e.count / iters))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.count) / 1e3
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
@@ -193,9 +220,11 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
     kk, vv = (torch.randn((b, s, k, d), generator=gen, device="cuda")
               .to(dtype) for _ in range(2))
     y = ops.flash_prefill(q, kk, vv, sliding_window=window)
+    y2 = ops.flash_prefill(q, kk, vv, sliding_window=window)
     y_ref = ref.flash_prefill_ref(q, kk, vv, window)
     torch.cuda.synchronize()
     err, of_limit, ok = check_close(y, y_ref, dtype)
+    same = torch.equal(y, y2)      # two calls, the same bits
 
     qh = q.reshape(b, s, k * g, d).transpose(1, 2)
     kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
@@ -206,13 +235,22 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
         mask = (diff >= 0) & (diff < window)
     ms = time_ms(lambda: ops.flash_prefill(q, kk, vv, sliding_window=window))
     plain_ms = time_ms(lambda: ref.flash_prefill_ref(q, kk, vv, window))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    library_ms = time_ms(sdpa)
+    dev = (device_ms(lambda: ops.flash_prefill(q, kk, vv,
+                                               sliding_window=window)),
+           device_ms(sdpa))
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     nbytes = 2 * (q.numel() + kk.numel()) * q.element_size()  # q, k, v, o
-    return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window}",
-                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok,
+    return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE"),
+                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok and same,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dev_ms=dev[0], library_dev_ms=dev[1],
                 **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
 
 
@@ -308,28 +346,39 @@ def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
     x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((e, d, f), generator=gen, device="cuda")
          / d ** 0.5).to(dtype)
+    before = dict(ops.variant_counts)
     y = ops.moe_gemm(x, w)
+    variant = next(v for v in ops.VARIANTS
+                   if ops.variant_counts[v] != before[v])
+    y2 = ops.moe_gemm(x, w)
     y_ref = ref.moe_gemm_ref(x, w)
     torch.cuda.synchronize()
     err, of_limit, ok = check_close(y, y_ref, dtype)
+    same = torch.equal(y, y2)      # two calls, the same bits
     ms = time_ms(lambda: ops.moe_gemm(x, w))
     plain_ms = time_ms(lambda: ref.moe_gemm_ref(x, w))
     library_ms = time_ms(lambda: torch.bmm(x, w))
+    dev = (device_ms(lambda: ops.moe_gemm(x, w)),
+           device_ms(lambda: torch.bmm(x, w)))
     nbytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
-    return dict(kernel="moe_gemm", desc=f"x{tuple(x_shape)} F{f}",
-                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok,
+    return dict(kernel="moe_gemm", desc=f"x{tuple(x_shape)} F{f} {variant}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE"), variant=variant,
+                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok and same,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dev_ms=dev[0], library_dev_ms=dev[1],
                 **bound(2.0 * e * c * d * f, nbytes, dtype_name))
 
 
 def _print_cases(cases) -> None:
     for r in cases:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        dev = (f" | device {r['dev_ms']:.4f} / {r['library_dev_ms']:.4f}"
+               if "dev_ms" in r else "")
         print(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']} {r['desc']} "
               f"{r['dtype']} x{r['per_call']} | {r['err']:.3g} "
               f"({r['of_limit']:.2f} of limit) | {r['ms']:.4f} / "
               f"{r['plain_ms']:.4f} / {lib} / {r['bound_ms']:.5f} "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}){dev}")
 
 
 # -- the LM paths ---------------------------------------------------------
@@ -408,9 +457,26 @@ def _want_launches(cfg, names) -> dict:
     return {n: per[n] for n in names}
 
 
+def _check_variants(cfg, dtype_name, counts) -> None:
+    """granite's counted generate: every prefill expert GEMM (3 a layer,
+    C = 508) through the prefill variant of its dtype (wgmma for bf16,
+    simt for fp32) and every decode one (C = 4) through stream."""
+    L = cfg.n_layers
+    want = dict.fromkeys(counts, 0)
+    want["wgmma" if dtype_name == "bfloat16" else "simt"] = 3 * L
+    want["stream"] = 3 * L * LM_NEW
+    print(f"[slice] {cfg.name} {dtype_name} moe_gemm variants: "
+          + ", ".join(f"{v} {n}" for v, n in counts.items())
+          + f" (want {want})")
+    if dict(counts) != want:
+        fail(f"{cfg.name} {dtype_name} moe_gemm variants {dict(counts)}, "
+             f"want {want}")
+
+
 def _extra_cases(cfg) -> list[dict]:
     """Kernel cases beyond the path's own shapes: edge cases of the
-    attention kernels (with Llama) and a longer Mamba2 prompt."""
+    attention kernels (with Llama), of moe_gemm's variants (with
+    granite) and a longer Mamba2 prompt."""
     cases = []
     if cfg.name == LM_ARCH:
         b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,\
@@ -422,7 +488,14 @@ def _extra_cases(cfg) -> list[dict]:
                 ((2, 200, k, g, d), 32, "bfloat16"),
                 ((2, 256, 16, 1, d), 0, "float32"),    # G = 1
                 ((1, 256, 8, 8, 128), 0, "float32"),   # D = 128
-                ((1, 256, 8, 8, 128), 0, "bfloat16")]:
+                ((1, 256, 8, 8, 128), 0, "bfloat16"),
+                # the bf16 wgmma kernel's edges: D padded to 16 and to
+                # 64, G = 3 at S = 511 (63 of 64 rows), G = 64, S = 37
+                ((2, 300, k, g, 8), 0, "bfloat16"),
+                ((2, 300, k, g, 40), 0, "bfloat16"),
+                ((b, 511, k, 3, d), 0, "bfloat16"),
+                ((1, 130, 2, 64, 32), 0, "bfloat16"),
+                ((2, 37, k, g, d), 0, "bfloat16")]:
             cases.append(prefill_case(shape, window, dt))
         for q_shape, cache_w, vl, dt in [
                 ((b, k, g, d), w, 1, "float32"),       # valid_len = 1
@@ -432,6 +505,16 @@ def _extra_cases(cfg) -> list[dict]:
                 ((1, 8, 8, 128), 1000, 999, "float32"),   # D = 128
                 ((1, 8, 8, 128), 1000, 999, "bfloat16")]:
             cases.append(decode_case(q_shape, cache_w, vl, dt))
+    if cfg.is_moe:
+        # moe_gemm's variants at their edges: the C tail of 128-row tiles
+        # at granite's D, a D tail inside one expert, F = 8, D and F not
+        # a multiple of 8 (general in bf16), C = 12 with D split, and
+        # granite's decode through the stream variant's other row count
+        for x_shape, f in [((2, 508, 1536), 64), ((3, 40, 40), 64),
+                           ((2, 32, 64), 8), ((2, 24, 30), 12),
+                           ((4, 12, 1024), 256), ((40, 16, 1536), 512)]:
+            cases += [moe_case(x_shape, f, dt)
+                      for dt in ("float32", "bfloat16")]
     if cfg.is_ssm:      # a 1024-token prompt: Q = 256, four chunks each
         shape = (LM_BATCH * 4, 256, cfg.ssm_heads, cfg.ssm_head_dim,
                  cfg.ssm_state)
@@ -585,11 +668,13 @@ def _moe_agreement(cfg, params, prompt, toks, dtype_name) -> None:
              f"with the plain expert GEMMs")
 
 
-def _decode_profile(cfg, params, prompt, dtype_name, steps: int = 4
-                    ) -> None:
+def _decode_profile(cfg, params, prompt, dtype_name, alone_ms=None,
+                    steps: int = 4) -> None:
     """Where a decode step's time goes: ``torch.profiler`` over a few
     steps; kernels launched per step, the card's busy time and the top
-    kernels by time.  A diagnostic: nothing here is checked."""
+    kernels by time; with ``alone_ms`` (moe_gemm's mean device time a
+    decode launch, timed alone) also moe_gemm's device time inside the step
+    beside it.  A diagnostic: nothing here is checked."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import model as M
@@ -621,6 +706,16 @@ def _decode_profile(cfg, params, prompt, dtype_name, steps: int = 4
           f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f} ms"
               for e in top))
+    if alone_ms is not None:
+        moe = [e for e in kernels if "moe_gemm" in e.key]
+        n = sum(e.count for e in moe)
+        in_ms = sum(e.self_device_time_total for e in moe) / 1e3
+        if n:
+            print(f"[profile] {cfg.name} {dtype_name} moe_gemm inside the "
+                  f"decode step: {in_ms / steps:.3f} ms a step over "
+                  f"{n / steps:.0f} launches, {1e3 * in_ms / n:.2f} us a "
+                  f"launch; alone (warm L2, device time, profiler) "
+                  f"{1e3 * alone_ms:.2f} us a launch")
 
 
 def _describe(cfg) -> str:
@@ -677,7 +772,9 @@ def run_lm(arch: str) -> dict[str, dict]:
     cases += _extra_cases(cfg)
     print(f"[kernel] {cfg.name}: {len(cases)} cases of {', '.join(names)}: "
           f"shape, dtype, launches per generate | max_abs_err (worst error "
-          f"/ its limit) | ms kernel / plain / library / bound"
+          f"/ its limit) | ms kernel / plain / library / bound (CUDA "
+          f"events around 20 calls); flash_prefill and moe_gemm also | "
+          f"device ms kernel / library (torch.profiler, kernels only)"
           + (f"; decode_attention held at valid lengths {sorted(held_vl)} "
              f"of {len(vls)}" if len(held_vl) < len(vls) else ""))
     _print_cases(cases)
@@ -701,6 +798,8 @@ def run_lm(arch: str) -> dict[str, dict]:
             f"{n} launches {got[n]} (want {want[n]})" for n in names))
         if got != want:
             fail(f"{cfg.name} {dt} generate launched {got}, want {want}")
+        if "moe_gemm" in names:
+            _check_variants(cfg, dt, ops["moe_gemm"].variant_counts)
         launches[dt] = got
         if tuple(toks.shape) != (LM_BATCH, LM_NEW) or \
                 int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -728,7 +827,12 @@ def run_lm(arch: str) -> dict[str, dict]:
             _moe_agreement(cfg, p, prompt, tokens[dt], dt)
         else:
             _lm_agreement(cfg, p, prompt, tokens[dt], dt)
-        _decode_profile(cfg, p, prompt, dt)
+        dec = [r for r in cases if r["kernel"] == "moe_gemm"
+               and r["per_call"] and r["dtype"] == dt
+               and r["desc"].startswith(f"x({cfg.n_experts}, {LM_BATCH},")]
+        alone = (sum(r["dev_ms"] * r["per_call"] for r in dec)
+                 / sum(r["per_call"] for r in dec)) if dec else None
+        _decode_profile(cfg, p, prompt, dt, alone)
     del params
     torch.cuda.empty_cache()
 
@@ -765,11 +869,78 @@ def run_lm(arch: str) -> dict[str, dict]:
               f"{total(bf, 'plain_ms'):.4f}, library "
               f"{'-' if lib is None else f'{lib:.4f}'}, bound "
               f"{total(bf, 'bound_ms'):.5f}")
+        if all("dev_ms" in r for r in path + bf):
+            print(f"[kernels] {cfg.name} {name} device time (profiler) "
+                  f"over the same launches: fp32 {total(path, 'dev_ms'):.4f}"
+                  f", library {total(path, 'library_dev_ms'):.4f}; bf16 "
+                  f"{total(bf, 'dev_ms'):.4f}, library "
+                  f"{total(bf, 'library_dev_ms'):.4f}")
+        if name == "moe_gemm":      # the split by variant, per dtype
+            for dt, rows in (("float32", path), ("bfloat16", bf)):
+                for v in sorted({r["variant"] for r in rows}):
+                    vr = [r for r in rows if r["variant"] == v]
+                    lib = total(vr, "library_ms")
+                    print(f"[kernels] {cfg.name} moe_gemm {dt} {v}: "
+                          f"{sum(r['per_call'] for r in vr)} launches, ms "
+                          f"{total(vr, 'ms'):.4f}, library "
+                          f"{'-' if lib is None else f'{lib:.4f}'}, bound "
+                          f"{total(vr, 'bound_ms'):.5f}; device "
+                          f"{total(vr, 'dev_ms'):.4f}, library "
+                          f"{total(vr, 'library_dev_ms'):.4f}")
+    return out
+
+
+def _entry_name(mangled: str) -> str:
+    """A readable name for a mangled kernel entry: the function's name
+    and its template arguments (types and ints), e.g.
+    ``moe_gemm_stream<bf16,4>``."""
+    import re
+    rest = mangled.removeprefix("_ZN").removeprefix("_Z")
+    name = mangled
+    while m := re.match(r"(\d+)", rest):
+        n, k = int(m.group(1)), len(m.group(1))
+        name, rest = rest[k:k + n], rest[k + n:]
+        if not name.startswith("_GLOBAL__N"):   # skip the unnamed namespace
+            break
+    if not rest.startswith("I"):
+        return name
+    args = []
+    for tok in re.finditer(r"Li(-?\d+)E|13__nv_bfloat16|f(?=[LE1])", rest):
+        args.append(tok.group(1) if tok.group(1) is not None
+                    else "bf16" if "bfloat16" in tok.group(0) else "float")
+        if rest[tok.end():].startswith("EE"):
+            break
+    return f"{name}<{','.join(args)}>"
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """One line per kernel entry from ``nvcc -Xptxas -v``'s output:
+    registers, shared memory (static) and spill bytes."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _entry_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)} / {m.group(2)} bytes"
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{m.group(2) or 0} bytes static smem, "
+                       f"{spill or 'spills not reported'}")
+            name, spill = None, ""
     return out
 
 
 def build_all(sources) -> None:
-    """Phase 2: one ``nvcc`` per source, all started together."""
+    """Phase 2: one ``nvcc`` per source, all started together; one
+    ``[build]`` line per kernel entry with its registers, static shared
+    memory and spills (``-Xptxas -v``)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
 
@@ -781,9 +952,8 @@ def build_all(sources) -> None:
     for lib_path in paths:
         build_s, log = _build.BUILD_LOG[lib_path.name]
         print(f"[build] {lib_path.name}: {build_s:.1f} s nvcc")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {line.strip()}")
+        for line in _ptxas_summary(log):
+            print(f"[build]   {line}")
 
 
 def run_cnn() -> dict:

@@ -22,6 +22,9 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: headers shared by the kernels (``#include "hopper.cuh"``); part of every
+#: build's hash, so editing one rebuilds every kernel
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,8 +46,10 @@ def build(src: Path) -> Path:
     """Compile ``src`` into a shared library unless a build of the same
     source and flags exists; returns the library's path."""
     src = Path(src)
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
         BUILD_LOG.setdefault(out.name, (0.0, ""))
@@ -52,7 +57,8 @@ def build(src: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
+                           "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

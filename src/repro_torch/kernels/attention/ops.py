@@ -84,6 +84,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, K, G, D = q.shape
     if B * K > 65535:
         raise ValueError(f"flash_prefill: B * K = {B * K} > 65535")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_prefill: bf16 q, k and v must be 16-byte "
+                         "aligned (the kernel loads them by TMA and in "
+                         "16-byte vectors)")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

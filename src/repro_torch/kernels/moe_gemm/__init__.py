@@ -6,7 +6,9 @@ Hopper counterpart of ``src/repro/kernels/moe_gemm/``.
 * :mod:`.ref` — the plain PyTorch version (oracle, CPU path).
 """
 
-from .ops import launch_count, moe_gemm, reset_launches
+from .ops import (launch_count, moe_gemm, reset_launches,
+                  variant_counts)
 from .ref import moe_gemm_ref
 
-__all__ = ["launch_count", "moe_gemm", "moe_gemm_ref", "reset_launches"]
+__all__ = ["launch_count", "moe_gemm", "moe_gemm_ref", "reset_launches",
+           "variant_counts"]

@@ -79,7 +79,11 @@ def image(m, seed=1, n=1):
 
 # attention kernel cases.  flash-prefill: (B, S, K, G, D, sliding window);
 # the first four are tests/test_kernels.py's sweep, then S that no tile
-# divides, with and without a window, and a G that does not divide 64
+# divides, with and without a window, and a G that does not divide 64;
+# then the bf16 kernel's edges: the head dim padded (D = 8 to 16, D = 40
+# to 64) or in two 64-column atoms (D = 128), granite's G = 3 at S = 511
+# (63 live rows of 64), a window at Llama's G and D, and G = 64 (one
+# position a block)
 PREFILL_CASES = {
     "s64": (1, 64, 2, 2, 16, 0),
     "s128_g4": (2, 128, 1, 4, 32, 0),
@@ -87,6 +91,12 @@ PREFILL_CASES = {
     "s128_w32": (1, 128, 2, 2, 16, 32),
     "s37": (2, 37, 2, 2, 16, 0),
     "s37_g3_w8": (1, 37, 2, 3, 8, 8),
+    "s70_d8": (1, 70, 2, 2, 8, 0),
+    "s80_d40": (1, 80, 2, 2, 40, 0),
+    "s96_d128": (1, 96, 1, 2, 128, 0),
+    "s511_g3": (1, 511, 1, 3, 64, 0),
+    "s200_g4_w32": (1, 200, 2, 4, 64, 32),
+    "s40_g64": (1, 40, 1, 64, 32, 0),
 }
 # flash-decode: (B, K, G, D, cache W, valid_len), tests/test_kernels.py's
 # sweep plus a cache that no tile divides, filled to one entry
@@ -127,7 +137,13 @@ SSD_CASES = {
     "q73": (1, 73, 3, 16, 32),
 }
 # grouped expert GEMM cases: (E, C, D, F); tests/test_kernels.py's sweep,
-# then the capacities of a granite decode (C = 4) and prefill (C = 508)
+# then the capacities of a granite decode (C = 4) and prefill (C = 508),
+# then the variants' edges: C = 508 at granite's D (the C tail of
+# 128-row tiles), a D tail inside one expert (D = 40, between experts of
+# nonzero data), F = 8 at prefill, D or F not a multiple of 8 (the
+# general variant in bf16), a decode at granite's width, C = 12 with D
+# split sixteen ways (fp32), and a decode whose D TMA cannot address
+# (general in bf16)
 MOE_GEMM_CASES = {
     "e4": (4, 16, 32, 64),
     "e8_c128": (8, 128, 64, 128),
@@ -135,6 +151,36 @@ MOE_GEMM_CASES = {
     "e40": (40, 4, 24, 8),
     "c4": (6, 4, 64, 32),
     "c508": (2, 508, 32, 16),
+    "c508_d1536": (2, 508, 1536, 64),
+    "d40": (3, 40, 40, 64),
+    "f8": (2, 32, 64, 8),
+    "d30_f12": (2, 24, 30, 12),
+    "d36_c20": (2, 20, 36, 16),
+    "c4_f12": (3, 4, 32, 12),
+    "granite_c4": (40, 4, 1536, 512),
+    "c12_d1024": (4, 12, 1024, 256),
+    "c4_d36": (3, 4, 36, 16),
+}
+# the variant of ops.moe_gemm that each case takes, fp32 then bf16:
+# stream for C <= 16, wgmma (bf16) or simt (fp32) above, where the rows
+# hold whole 16-byte vectors (bf16: D and F multiples of 8); general for
+# the rest
+MOE_GEMM_VARIANTS = {
+    "e4": ("stream", "stream"),
+    "e8_c128": ("simt", "wgmma"),
+    "e3_d512": ("stream", "stream"),
+    "e40": ("stream", "stream"),
+    "c4": ("stream", "stream"),
+    "c508": ("simt", "wgmma"),
+    "c508_d1536": ("simt", "wgmma"),
+    "d40": ("simt", "wgmma"),
+    "f8": ("simt", "wgmma"),
+    "d30_f12": ("general", "general"),
+    "d36_c20": ("simt", "general"),
+    "c4_f12": ("stream", "general"),
+    "granite_c4": ("stream", "stream"),
+    "c12_d1024": ("stream", "stream"),
+    "c4_d36": ("stream", "general"),
 }
 
 

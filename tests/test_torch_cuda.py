@@ -29,7 +29,8 @@ from repro_torch.models.transformer import model as M
 from repro_torch.serving import lm
 
 from _torch_cases import (CONV_CASES, DECODE_CASES, MOE_GEMM_CASES,
-                          PREFILL_CASES, SSD_CASES, conv_inputs,
+                          MOE_GEMM_VARIANTS, PREFILL_CASES, SSD_CASES,
+                          conv_inputs,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
                           ssd_inputs)
@@ -227,15 +228,47 @@ def test_ssd_chunk_kernel_matches_plain_version(case, dtype, cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(MOE_GEMM_CASES) + ["granite_decode"])
 def test_moe_gemm_kernel_matches_plain_version(case, dtype, cuda):
-    shape = MOE_GEMM_CASES.get(case, (40, 4, 1536, 512))
+    """Each case through the variant it is meant to reach (the counts
+    show it); granite_decode is the w2 twin of granite_c4."""
+    shape = MOE_GEMM_CASES.get(case, (40, 4, 512, 1536))
+    want_variant = MOE_GEMM_VARIANTS.get(case, ("stream", "stream"))[
+        dtype == torch.bfloat16]
     x, w = (_t(a, cuda).to(dtype) for a in moe_gemm_inputs(*shape))
     before = moe_ops.launch_count("moe_gemm")
+    variants = dict(moe_ops.variant_counts)
     got = moe_ops.moe_gemm(x, w)
     torch.cuda.synchronize()
     assert moe_ops.launch_count("moe_gemm") == before + 1
+    variants[want_variant] += 1
+    assert moe_ops.variant_counts == variants
     want = moe_ref.moe_gemm_ref(x, w)
     assert got.shape == want.shape and got.dtype == dtype
     _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["c508_d1536", "granite_c4", "c12_d1024"])
+def test_moe_gemm_kernel_gives_the_same_bits_twice(case, dtype, cuda):
+    """No atomics on values: the split decode sums its partials in a
+    fixed order, so two calls agree bit for bit (and the counters are
+    back at zero for the second)."""
+    x, w = (_t(a, cuda).to(dtype) for a in moe_gemm_inputs(
+        *MOE_GEMM_CASES[case]))
+    first, second = moe_ops.moe_gemm(x, w), moe_ops.moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["s511_g3", "s96_d128"])
+def test_flash_prefill_bf16_kernel_gives_the_same_bits_twice(case, cuda):
+    b, s, k, g, d, w = PREFILL_CASES[case]
+    q, kk, vv = (_t(a, cuda).bfloat16() for a in prefill_inputs(b, s, k, g, d))
+    first = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
+    second = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ from repro.models.transformer import layers as RL
 from repro_torch.kernels.moe_gemm import ops, ref
 from repro_torch.models.transformer import layers as L
 
-from _torch_cases import MOE_GEMM_CASES, c_argtypes, moe_gemm_inputs
+from _torch_cases import (MOE_GEMM_CASES, MOE_GEMM_VARIANTS, c_argtypes,
+                          moe_gemm_inputs)
 
 # tests/test_kernels.py's bands.  fp32: sums in another order than XLA's;
 # bf16: the output rounded once, after sums that may differ in the last
@@ -132,3 +133,72 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("name", sorted(ops.SOURCES))
 def test_ctypes_signature_matches_the_c_prototype(name):
     assert ops.ARGTYPES[name] == c_argtypes(ops.SOURCES[name], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MOE_GEMM_CASES))
+def test_variant_choice_follows_shape_and_dtype(case, dtype):
+    e, c, d, f = MOE_GEMM_CASES[case]
+    want = MOE_GEMM_VARIANTS[case][dtype == torch.bfloat16]
+    assert ops.variant(e, c, d, f, dtype) == want
+    # a pointer off the 16-byte grid takes the general variant
+    assert ops.variant(e, c, d, f, dtype, aligned=False) == "general"
+
+
+@pytest.mark.parametrize("shape", [(40, 1536, 512), (40, 512, 1536),
+                                   (8, 4096, 14336), (3, 24, 8), (1, 0, 8),
+                                   (4, 1024, 256), (2, 3000, 64)])
+def test_stream_split_stays_in_one_wave_within_its_limits(shape):
+    """fp32 decode: granite's w1/w2, mixtral-sized experts, a tiny D, an
+    empty one, a narrow wide-D case and a D past one split's limit: the
+    rows of D a block takes are a multiple of 8 up to MAX_SPLIT_ROWS,
+    every split has rows, D is split only while the blocks fit one wave
+    (or its length forces it), and a split keeps 64 rows where D has
+    them."""
+    e, d, f = shape
+    rows = ops.split_rows(e, d, f)
+    assert rows % 8 == 0 and 8 <= rows <= ops.MAX_SPLIT_ROWS
+    splits = max(1, -(-d // rows))
+    assert (splits - 1) * rows < max(d, 1)
+    base = e * -(-f // ops.STREAM_SLAB)
+    if splits > -(-d // ops.MAX_SPLIT_ROWS):
+        assert base * splits <= ops.STREAM_BLOCKS
+        assert rows >= 64 or rows >= d
+
+
+def test_granite_decode_plan():
+    """granite-moe-3b-a800m's decode GEMMs: bf16 streams w through the
+    TMA ring (no split, no scratch); fp32 w1 (D 1536, F 512) in one
+    split of 1536 rows over 160 slabs, and a 16-way split where D is long
+    and the slabs few."""
+    assert ops._plan(40, 4, 1536, 512, torch.bfloat16, True) == \
+        ("stream", 0, 0, 0)
+    assert ops._plan(40, 4, 1536, 512, torch.float32, True) == \
+        ("stream", 1536, 0, 160)
+    assert ops._plan(4, 12, 1024, 256, torch.float32, True) == \
+        ("stream", 64, 16 * 4 * 12 * 256, 8)
+    # bf16 with a D that TMA cannot address: the general variant
+    assert ops._plan(3, 4, 36, 16, torch.bfloat16, True) == \
+        ("general", 0, 0, 0)
+    assert ops._plan(40, 508, 1536, 512, torch.bfloat16, True) == \
+        ("wgmma", 0, 0, 0)
+
+
+@pytest.mark.parametrize("d,rows", [(0, 128), (3, 64)])
+def test_grid_limit_follows_the_variant(d, rows):
+    """C tiles of 128 rows for simt (D a multiple of 4), 64 for general
+    (D = 3): one row more than 65535 tiles is refused."""
+    f = 4
+    ok = torch.empty((1, rows * ops.MAX_GRID_Y, d))
+    too_many = torch.empty((1, rows * ops.MAX_GRID_Y + 1, d))
+    w = torch.empty((1, d, f))
+    ops._check_cuda(ok, w)
+    with pytest.raises(ValueError):
+        ops._check_cuda(too_many, w)
+
+
+def test_reset_clears_the_variant_counts():
+    ops.variant_counts["stream"] += 3
+    ops.reset_launches()
+    assert set(ops.variant_counts.values()) == {0}
+    assert tuple(ops.variant_counts) == ops.VARIANTS
