@@ -13,9 +13,16 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    registers, static shared memory and spills;
 3. each kernel against its plain PyTorch version on the card, at every
    shape its path launches plus edge cases, with times for the kernel,
-   the plain version, one library call and the card's bound;
-   ``flash_prefill`` and ``moe_gemm`` also called twice, which must give
-   the same bits, and each ``moe_gemm`` case names its variant;
+   the plain version, one library call and the card's bound (CUDA
+   events), and the kernel's and the library call's device time
+   (``torch.profiler``); every ``conv2d_fused``, ``decode_attention``,
+   ``flash_prefill`` and ``moe_gemm`` case also called twice, which must
+   give the same bits; each conv case names its plan (variant, tile,
+   split-K) and must run the planned variant, the conv and decode edge
+   cases must take the plan (splits) they are listed with, each
+   ``moe_gemm`` case names its variant; a table of the 15 conv launches
+   of one runner call (plan, ms, device ms against cuDNN's, share of the
+   bound);
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
    then ``Deployment.run`` on one frame and on a list of 8 frames.  The
    conv kernel's launch counter is reset just before and read just
@@ -167,7 +174,9 @@ def check_close(y, y_ref, dtype):
 
 def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
               bias=True, seed=0):
-    """One kernel-vs-plain case on the card; returns a result dict."""
+    """One kernel-vs-plain case on the card; returns a result dict with the
+    launch's plan (``ops.plan``), the variant that the counts show it
+    took, and whether two calls gave the same bits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.conv2d import ops, ref
@@ -181,10 +190,15 @@ def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
     b = (0.1 * torch.randn((co,), generator=g, device="cuda")).to(dtype) \
         if bias else None
     kw_args = dict(stride=stride, relu=relu, pool=pool)
+    plan = ops.plan(*x_shape, kh, kw, co, ops.normalize_stride(stride), pool)
+    before = dict(ops.variant_counts)
     y = ops.conv2d_fused(x, w, b, **kw_args)
+    ran = [v for v in ops.VARIANTS if ops.variant_counts[v] != before[v]]
+    y2 = ops.conv2d_fused(x, w, b, **kw_args)
     y_ref = ref.conv2d_fused_ref(x, w, b, **kw_args)
     torch.cuda.synchronize()
     err, of_limit, ok = check_close(y, y_ref, dtype)
+    same = torch.equal(y, y2)      # two calls, the same bits
 
     # library yardstick: one cuDNN conv (+ bias) on channels-last views
     # of the same memory; the ReLU and pool are not in it
@@ -193,6 +207,8 @@ def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
     ms = time_ms(lambda: ops.conv2d_fused(x, w, b, **kw_args))
     plain_ms = time_ms(lambda: ref.conv2d_fused_ref(x, w, b, **kw_args))
     library_ms = time_ms(lambda: F.conv2d(xc, wc, b, stride=stride))
+    dev = (device_ms(lambda: ops.conv2d_fused(x, w, b, **kw_args)),
+           device_ms(lambda: F.conv2d(xc, wc, b, stride=stride)))
 
     n = x_shape[0]
     hp, wp = y.shape[1], y.shape[2]
@@ -202,8 +218,14 @@ def conv_case(x_shape, w_shape, stride, pool, dtype_name, relu=True,
                  for t in (x, w, b, y) if t is not None)
     return dict(x=tuple(x_shape), w=tuple(w_shape), stride=tuple(stride),
                 pool=pool, dtype=dtype_name, err=err, of_limit=of_limit,
-                ok=ok, per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                ok=ok and same and ran == [plan.variant], same=same,
+                plan=plan, ran=ran, per_call=0, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, dev_ms=dev[0], library_dev_ms=dev[1],
                 **bound(flops, nbytes, dtype_name))
+
+
+def _plan_text(p) -> str:
+    return f"{p.variant} {p.tile[0]}x{p.tile[1]} S{p.split}"
 
 
 def prefill_case(shape, window, dtype_name, seed=0) -> dict:
@@ -256,7 +278,9 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
 
 def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
     """decode_attention against its plain version at q (B, K, G, D) and a
-    cache of W entries; the library call is SDPA (``enable_gqa``, mask)."""
+    cache of W entries, and two calls that must give the same bits; the
+    library call is SDPA (``enable_gqa``, mask).  The description names
+    the splits of the cache per (b, kv head) (``ops.decode_splits``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
@@ -269,24 +293,35 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
               .to(dtype) for _ in range(2))
     vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
     y = ops.decode_attention(q, kk, vv, vl)
+    y2 = ops.decode_attention(q, kk, vv, vl)
     y_ref = ref.decode_attention_ref(q, kk, vv, vl)
     torch.cuda.synchronize()
     err, of_limit, ok = check_close(y, y_ref, dtype)
+    same = torch.equal(y, y2)      # two calls, the same bits
 
     qh = q.reshape(b, k * g, 1, d)
     kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
     mask = (torch.arange(w, device="cuda") < vl)[None, None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
     ms = time_ms(lambda: ops.decode_attention(q, kk, vv, vl))
     plain_ms = time_ms(lambda: ref.decode_attention_ref(q, kk, vv, vl))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    library_ms = time_ms(sdpa)
+    dev = (device_ms(lambda: ops.decode_attention(q, kk, vv, vl)),
+           device_ms(sdpa))
     live = min(valid_len, w) if valid_len > 0 else w   # entries read
     nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4
+    splits = ops.decode_splits(b, k, w)
     return dict(kernel="decode_attention",
-                desc=f"q{tuple(q_shape)} W{w} vl{valid_len}",
-                dtype=dtype_name, err=err,
-                of_limit=of_limit, ok=ok, per_call=0, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms,
+                desc=f"q{tuple(q_shape)} W{w} vl{valid_len} S{splits}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE"),
+                dtype=dtype_name, err=err, splits=splits,
+                of_limit=of_limit, ok=ok and same, per_call=0, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, dev_ms=dev[0],
+                library_dev_ms=dev[1],
                 **bound(4.0 * b * k * g * d * live, nbytes, dtype_name))
 
 
@@ -497,14 +532,29 @@ def _extra_cases(cfg) -> list[dict]:
                 ((1, 130, 2, 64, 32), 0, "bfloat16"),
                 ((2, 37, k, g, d), 0, "bfloat16")]:
             cases.append(prefill_case(shape, window, dt))
-        for q_shape, cache_w, vl, dt in [
-                ((b, k, g, d), w, 1, "float32"),       # valid_len = 1
-                ((b, k, g, d), w, w, "float32"),       # valid_len = W
-                ((b, k, g, d), w, w, "bfloat16"),
-                ((2, 16, 1, d), 300, 257, "float32"),  # G = 1
-                ((1, 8, 8, 128), 1000, 999, "float32"),   # D = 128
-                ((1, 8, 8, 128), 1000, 999, "bfloat16")]:
-            cases.append(decode_case(q_shape, cache_w, vl, dt))
+        # the split-KV kernel's edges, each with the splits it must take:
+        # valid_len 1 (split 0 alone live), W, on a split boundary
+        # (W / 2), 0 (all W entries, equal weights) and past W; W = 37
+        # (one split); G = 1, G = 64, D = 8, D = 128 (eight splits of
+        # B K = 8); B K = 1024 (one split)
+        for q_shape, cache_w, vl, dts, want_splits in [
+                ((b, k, g, d), w, 1, ("float32", "bfloat16"), 4),
+                ((b, k, g, d), w, w, ("float32", "bfloat16"), 4),
+                ((b, k, g, d), w, w // 2, ("float32",), 4),
+                ((b, k, g, d), w, 0, ("float32", "bfloat16"), 4),
+                ((b, k, g, d), w, w + 5, ("float32",), 4),
+                ((b, k, g, d), 37, 30, ("float32", "bfloat16"), 1),
+                ((2, 16, 1, d), 300, 257, ("float32",), 4),
+                ((1, 2, 64, 32), 200, 150, ("float32", "bfloat16"), 4),
+                ((b, k, g, 8), w, w - 14, ("float32", "bfloat16"), 4),
+                ((1, 8, 8, 128), 1000, 999, ("float32", "bfloat16"), 8),
+                ((32, 32, g, d), 256, 200, ("float32", "bfloat16"), 1)]:
+            for dt in dts:
+                r = decode_case(q_shape, cache_w, vl, dt)
+                if r["splits"] != want_splits:
+                    fail(f"decode_attention {r['desc']}: want "
+                         f"{want_splits} splits")
+                cases.append(r)
     if cfg.is_moe:
         # moe_gemm's variants at their edges: the C tail of 128-row tiles
         # at granite's D, a D tail inside one expert, F = 8, D and F not
@@ -892,7 +942,7 @@ def run_lm(arch: str) -> dict[str, dict]:
 
 def _entry_name(mangled: str) -> str:
     """A readable name for a mangled kernel entry: the function's name
-    and its template arguments (types and ints), e.g.
+    and its template arguments (types, ints and bools), e.g.
     ``moe_gemm_stream<bf16,4>``."""
     import re
     rest = mangled.removeprefix("_ZN").removeprefix("_Z")
@@ -905,8 +955,11 @@ def _entry_name(mangled: str) -> str:
     if not rest.startswith("I"):
         return name
     args = []
-    for tok in re.finditer(r"Li(-?\d+)E|13__nv_bfloat16|f(?=[LE1])", rest):
+    for tok in re.finditer(r"Li(-?\d+)E|Lb([01])E|13__nv_bfloat16|f(?=[LE1])",
+                           rest):
         args.append(tok.group(1) if tok.group(1) is not None
+                    else ("false", "true")[int(tok.group(2))]
+                    if tok.group(2) is not None
                     else "bf16" if "bfloat16" in tok.group(0) else "float")
         if rest[tok.end():].startswith("EE"):
             break
@@ -983,8 +1036,10 @@ def run_cnn() -> dict:
         fail("the plan launches no conv kernel")
 
     # shapes the main path gives the kernel: one warm-up pass of each
-    # form with a recording wrapper (these launches are not counted)
+    # form with a recording wrapper (these launches are not counted);
+    # `order` keeps the single-frame call's launches in order
     launched: dict[tuple, int] = {}
+    order: list[tuple] = []
     real = ops.conv2d_fused
 
     def recording(x, w, b=None, *, stride=(1, 1), relu=False, pool=None):
@@ -992,6 +1047,8 @@ def run_cnn() -> dict:
                None if pool is None else tuple(pool), relu, b is not None,
                str(x.dtype).removeprefix("torch."))
         launched[key] = launched.get(key, 0) + 1
+        if x.shape[0] == 1:
+            order.append(key)
         return real(x, w, b, stride=stride, relu=relu, pool=pool)
 
     ops.conv2d_fused = recording
@@ -1026,24 +1083,72 @@ def run_cnn() -> dict:
             ((1, 230, 230, 3), (7, 7, 3, 64), (2, 2), None, "float32"),
             ((1, 17, 23, 192), (1, 7, 192, 160), (1, 1), None, "float32"),
             ((1, 23, 17, 160), (7, 1, 160, 192), (1, 1), None, "float32"),
-            ((2, 31, 29, 13), (3, 3, 13, 70), (1, 1), (2, 2), "float32"),
             ((1, 20, 22, 16), (3, 3, 16, 24), (1, 1), (3, 3), "float32"),
             ((1, 58, 58, 128), (3, 3, 128, 256), (1, 1), (2, 2),
              "bfloat16")]:
         cases.append(conv_case(xs, ws, st, pool, dt))
-    print(f"[kernel] {len(cases)} cases: x, w, stride, pool, dtype | "
-          f"max_abs_err (worst error / its limit) | ms kernel / plain / "
-          f"library / bound")
+    # the plan's edges, each with the plan it must take: launch 15 (S = 8,
+    # 2x2 pool); K = 1800, no multiple of S BK (CI = 200 not one of BK
+    # either); CI = 12 (a slice spans several (dh, dw)) with a split;
+    # CI = 3 and CI = 13 / CO = 70 (general); a 3x3 pool in 128-row
+    # tiles; bf16 with a split
+    for xs, ws, pool, dt, want in [
+            ((1, 16, 16, 512), (3, 3, 512, 512), (2, 2), "float32",
+             ("ring", (64, 64), 8)),
+            ((1, 16, 16, 200), (3, 3, 200, 256), None, "float32",
+             ("ring", (64, 64), 8)),
+            ((1, 24, 24, 12), (5, 5, 12, 32), None, "float32",
+             ("ring", (64, 64), 4)),
+            ((1, 60, 60, 3), (3, 3, 3, 64), None, "float32",
+             ("general", (64, 64), 1)),
+            ((2, 31, 29, 13), (3, 3, 13, 70), (2, 2), "float32",
+             ("general", (64, 64), 2)),
+            ((1, 100, 100, 32), (3, 3, 32, 64), (3, 3), "float32",
+             ("ring", (128, 64), 4)),
+            ((1, 30, 30, 512), (3, 3, 512, 512), (2, 2), "bfloat16",
+             ("ring", (128, 64), 4))]:
+        r = conv_case(xs, ws, (1, 1), pool, dt)
+        if tuple(r["plan"]) != want:
+            fail(f"conv plan {_plan_text(r['plan'])} for x{xs} w{ws} "
+                 f"p{pool}, want {want}")
+        cases.append(r)
+    print(f"[kernel] {len(cases)} cases: x, w, stride, pool, dtype, plan "
+          f"(variant, tile, split S) | max_abs_err (worst error / its "
+          f"limit), same bits on two calls | ms kernel / plain / library "
+          f"/ bound (CUDA events around 20 calls) | device ms kernel / "
+          f"library (torch.profiler)")
     for r in cases:
         print(f"  {'ok ' if r['ok'] else 'BAD'} x{r['x']} w{r['w']} "
-              f"s{r['stride']} p{r['pool']} {r['dtype']} | {r['err']:.3g} "
-              f"({r['of_limit']:.2f} of limit) | {r['ms']:.4f} / "
-              f"{r['plain_ms']:.4f} / {r['library_ms']:.4f} / "
-              f"{r['bound_ms']:.4f} "
-              f"({r['bound_by']})")
+              f"s{r['stride']} p{r['pool']} {r['dtype']} "
+              f"{_plan_text(r['plan'])} (ran {'/'.join(r['ran'])}) | "
+              f"{r['err']:.3g} ({r['of_limit']:.2f} of limit)"
+              f"{'' if r['same'] else ' NOT BIT-REPRODUCIBLE'} | "
+              f"{r['ms']:.4f} / {r['plain_ms']:.4f} / {r['library_ms']:.4f}"
+              f" / {r['bound_ms']:.4f} ({r['bound_by']}) | device "
+              f"{r['dev_ms']:.4f} / {r['library_dev_ms']:.4f}")
     bad = [r for r in cases if not r["ok"]]
     if bad:
-        fail(f"{len(bad)} kernel case(s) disagree with the plain version")
+        fail(f"{len(bad)} kernel case(s) disagree with the plain version, "
+             f"repeat no bits or ran another variant")
+
+    # the launches of one single-frame runner call, in order
+    by_key = {(r["x"], r["w"], r["stride"], r["pool"], r["dtype"]): r
+              for r in cases[:len(launched)]}
+    print("[conv] the launches of one single-frame runner call: x, w, pool "
+          "| plan | ms kernel (events) / device ms kernel / cuDNN device ms "
+          "/ bound ms | bound over device ms")
+    sums = dict.fromkeys(("ms", "dev_ms", "library_dev_ms", "bound_ms"), 0.0)
+    for i, (xs, ws, st, pool, relu, bias, dt) in enumerate(order, 1):
+        r = by_key[(xs, ws, st, pool, dt)]
+        for key in sums:
+            sums[key] += r[key]
+        print(f"  {i:2d} x{xs} w{ws} p{pool} | {_plan_text(r['plan'])} | "
+              f"{r['ms']:.4f} / {r['dev_ms']:.4f} / "
+              f"{r['library_dev_ms']:.4f} / {r['bound_ms']:.4f} | "
+              f"{100 * r['bound_ms'] / r['dev_ms']:.1f}%")
+    print(f"  sum of {len(order)}: {sums['ms']:.4f} / {sums['dev_ms']:.4f} "
+          f"/ {sums['library_dev_ms']:.4f} / {sums['bound_ms']:.4f} | "
+          f"{100 * sums['bound_ms'] / sums['dev_ms']:.1f}%")
 
     # -- 4b. the main path, counted --------------------------------------
     reps = 10
@@ -1097,7 +1202,9 @@ def run_cnn() -> dict:
     t_bytes = sum(r["t_bytes_ms"] * r["per_call"] for r in path)
     print("[kernels] conv2d_fused: ms, plain_ms, bound_ms, library_ms "
           "summed over the launches of one single-frame runner call; "
-          "max_abs_err over those shapes")
+          "max_abs_err over those shapes; device time (profiler) over the "
+          f"same launches: {sum(r['dev_ms'] * r['per_call'] for r in path):.4f}"
+          f", cuDNN {sum(r['library_dev_ms'] * r['per_call'] for r in path):.4f}")
     return {
         "name": "conv2d_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/conv2d/csrc/conv2d_fused.cu",

@@ -5,9 +5,10 @@ compiled at first use, for Hopper (``sm_90a``), from the source in the
 checkout into ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), under a name keyed by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is not.
-:class:`Launchers` binds a set of them and counts their launches.
-Nothing here runs at import time: this module imports on machines with
-no CUDA toolkit.
+:class:`Launchers` binds a set of them and counts their launches;
+:func:`split_ranges` is how a kernel that splits work across the blocks
+of a cluster shares it out.  Nothing here runs at import time: this
+module imports on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -81,6 +82,14 @@ def library(src: Path) -> ctypes.CDLL:
 
 #: the dtype code each launcher takes as its first argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split_ranges(n: int, parts: int) -> list[tuple[int, int]]:
+    """[a, b) of each of ``parts`` blocks that share n items, in rank
+    order, balanced (sizes differ by at most one), together [0, n) once:
+    rank r takes [r n / parts, (r + 1) n / parts), as the kernels that
+    split work across a cluster compute it."""
+    return [(r * n // parts, (r + 1) * n // parts) for r in range(parts)]
 
 
 class Launchers:

@@ -12,6 +12,7 @@ layout or head dim the kernel does not take is an error.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -29,16 +30,40 @@ ARGTYPES = {
     # dtype; q, k, v, o; b, s, kh, g, d, window; stream
     "flash_prefill": ([ctypes.c_int] + [ctypes.c_void_p] * 4
                       + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
-    # dtype; q, k, v, valid_len, o; b, w, kh, g, d; stream
+    # dtype; q, k, v, valid_len, o; b, w, kh, g, d, splits; stream
     "decode_attention": ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
+#: decode: the blocks a launch may reach (one on each of an H100's 132
+#: SMs: the S blocks of a cluster must find room in one GPC together, and
+#: grids past one a SM waited for it), the most splits of a (batch, kv
+#: head) (the blocks of one cluster, the portable limit), and the cache
+#: entries a split keeps at least
+DECODE_BLOCKS = 132
+MAX_SPLITS = 8
+MIN_SPLIT_ENTRIES = 32
 
 _KERNELS = Launchers(SOURCES, ARGTYPES)
 #: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
 #: start or :func:`reset_launches`
 launch_count = _KERNELS.launch_count
 reset_launches = _KERNELS.reset
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, k: int, w: int) -> int:
+    """Splits S of the cache per (batch, kv head) for B = ``b``, K = ``k``
+    and a cache of ``w`` entries: doubled from 1 while the B K 2S blocks
+    stay within :data:`DECODE_BLOCKS` and every split keeps at least
+    :data:`MIN_SPLIT_ENTRIES` entries, up to :data:`MAX_SPLITS`.
+    From shapes only: ``valid_len`` stays on the device.  Split r walks
+    the entries below ``valid_len`` of ``_build.split_ranges(w, S)[r]``.
+    """
+    s = 1
+    while s < MAX_SPLITS and 2 * b * k * s <= DECODE_BLOCKS \
+            and w // (2 * s) >= MIN_SPLIT_ENTRIES:
+        s *= 2
+    return s
 
 
 def _check_cuda(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
@@ -128,11 +153,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{valid_len.device}, q on {q.device}")
     if k.shape[1] == 0:
         raise ValueError("decode_attention: empty cache")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention: q, k and v must be 16-byte "
+                         "aligned (the kernel loads them in 16-byte "
+                         "vectors)")
     B, K, G, D = q.shape
+    W = k.shape[1]
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     _KERNELS.launch("decode_attention", q, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), valid_len.data_ptr(), o.data_ptr(), B,
-                    k.shape[1], K, G, D)
+                    v.data_ptr(), valid_len.data_ptr(), o.data_ptr(), B, W,
+                    K, G, D, decode_splits(B, K, W))
     return o

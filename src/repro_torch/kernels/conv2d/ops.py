@@ -7,16 +7,22 @@ dtype or layout the kernel does not take is an error.  An input smaller
 than the kernel has an empty output, which is returned without a
 launch.
 
+The kernel's launch is planned per shape by :func:`plan`, in plain
+Python: its variant (``ring`` or ``general``), its output tile and how
+many blocks of a thread-block cluster split K.
+
 :func:`launch_count` counts the launches since the last
 :func:`reset_launches`, so a run can show that it went through the
-kernel.
+kernel, and :data:`variant_counts` how many of them took each variant.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,15 +30,95 @@ from .._build import library
 from .ref import conv2d_fused_ref, out_size
 
 SOURCE = Path(__file__).parent / "csrc" / "conv2d_fused.cu"
-#: largest pool window (ph * pw) whose rows fit one 64-row block tile
+#: largest pool window (ph * pw) whose rows fit the smallest block tile
 MAX_POOL_WINDOW = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: ctypes signature of ``conv2d_fused_launch`` in the source: dtype; x, w,
-#: b, y; n, h, w, ci, kh, kw, co, sh, sw, ph, pw, relu; stream
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+#: b, y; n, h, w, ci, kh, kw, co, sh, sw, ph, pw, relu, variant, bm, bn,
+#: split; stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
             + [ctypes.c_void_p])
+#: the variants, in the order of the code ``conv2d_fused_launch`` takes:
+#: ``ring`` (CI and CO multiples of 4, 16-byte aligned x and w: cp.async
+#: copies of 4 elements) and ``general`` (scalar loads, any shape)
+VARIANTS = ("ring", "general")
+#: output tiles (BM rows, BN channels) of a 256-thread block, larger
+#: first; a thread holds (BM / 16) x (BN / 16) accumulators.  The
+#: general variant takes 64 x 64 only
+TILES = ((128, 64), (64, 64))
+#: depth of one K slice (csrc BK): splits of K fall on its multiples
+BK = 16
+#: SMs of an H100 SXM.  A launch wants at least MIN_BLOCKS, three blocks
+#: for every two SMs (an SM with one block cannot keep its FMA pipes
+#: busy), and splits K further while it has fewer than FULL_BLOCKS (four
+#: a SM) and each split keeps LONG_SPLIT_SLICES; every split keeps at
+#: least MIN_SPLIT_SLICES.  The cluster's reduction costs more with each
+#: split, so short splits pay only where blocks are scarce
+SMS = 132
+MIN_BLOCKS = 3 * SMS // 2
+FULL_BLOCKS = 4 * SMS
+MIN_SPLIT_SLICES = 4
+LONG_SPLIT_SLICES = 64
+#: blocks of a thread-block cluster (the portable limit)
+MAX_SPLIT = 8
+
+
+class Plan(NamedTuple):
+    """How one conv launches: the variant, the output tile (BM, BN) and
+    the split-K factor S (the blocks of one cluster)."""
+    variant: str
+    tile: tuple[int, int]
+    split: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
+         stride: tuple[int, int] = (1, 1),
+         pool: tuple[int, int] | None = None, aligned: bool = True) -> Plan:
+    """The launch plan of x (n, h, w, ci), w (kh, kw, ci, co), from the
+    shape alone (and 16-byte alignment, which every tensor the model
+    makes has).
+
+    - variant: ``ring`` where CI and CO are multiples of 4 and x and w
+      aligned, else ``general``;
+    - tile: the first of :data:`TILES` (64 x 64 for ``general``) whose
+      blocks, split at most :data:`MAX_SPLIT` ways, reach
+      :data:`MIN_BLOCKS`; else 64 x 64;
+    - split S: doubled from 1 while the blocks number fewer than
+      :data:`MIN_BLOCKS`, or fewer than :data:`FULL_BLOCKS` with every
+      split keeping :data:`LONG_SPLIT_SLICES` slices of K, as long as each
+      keeps at least :data:`MIN_SPLIT_SLICES`.  Block r of a cluster
+      walks the BK slices ``_build.split_ranges(ceil(K / BK), S)[r]``.
+    """
+    ph, pw = pool or (1, 1)
+    hp, wp = out_size(h, w, kh, kw, stride, pool)
+    windows = n * hp * wp
+    variant = "ring" if aligned and ci % 4 == 0 and co % 4 == 0 \
+        else "general"
+    slices = math.ceil(kh * kw * ci / BK)
+
+    def blocks(tile):
+        bm, bn = tile
+        return math.ceil(windows / (bm // (ph * pw))) * math.ceil(co / bn)
+
+    def split_of(tile):
+        s, b = 1, blocks(tile)
+        while s < MAX_SPLIT and slices >= 2 * s * MIN_SPLIT_SLICES and (
+                b * s < MIN_BLOCKS or (b * s < FULL_BLOCKS and slices
+                                       >= 2 * s * LONG_SPLIT_SLICES)):
+            s *= 2
+        return s
+
+    tiles = TILES if variant == "ring" else TILES[-1:]
+    tile = next((t for t in tiles if blocks(t) * split_of(t) >= MIN_BLOCKS),
+                tiles[-1])
+    return Plan(variant, tile, split_of(tile))
+
 
 _launches = 0
+#: launches of each variant (a key of :data:`VARIANTS`) since process
+#: start or :func:`reset_launches`
+variant_counts = dict.fromkeys(VARIANTS, 0)
 
 
 def launch_count() -> int:
@@ -43,6 +129,8 @@ def launch_count() -> int:
 def reset_launches() -> None:
     global _launches
     _launches = 0
+    for name in variant_counts:
+        variant_counts[name] = 0
 
 
 def normalize_stride(stride) -> tuple[int, int]:
@@ -116,17 +204,21 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
     if y.numel() == 0:
         return y
     ph, pw = pool or (1, 1)
+    p = plan(n, h, wd, ci, kh, kw, co, stride, pool,
+             x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     err = _kernel()(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if b is None else b.data_ptr(), y.data_ptr(),
         n, h, wd, ci, kh, kw, co, stride[0], stride[1], ph, pw, int(relu),
+        VARIANTS.index(p.variant), *p.tile, p.split,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv2d_fused launch failed with CUDA error "
                            f"{err} for x {tuple(x.shape)} w {tuple(w.shape)} "
-                           f"stride {stride} pool {pool}")
+                           f"stride {stride} pool {pool} plan {p}")
     global _launches
     _launches += 1
+    variant_counts[p.variant] += 1
     return y
 
 

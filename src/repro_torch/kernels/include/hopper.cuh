@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory swizzle and wgmma descriptors, mbarriers, TMA tensor loads and
-// the wgmma instructions, each a thin wrapper of one PTX instruction.
+// memory swizzle and wgmma descriptors, mbarriers, TMA tensor loads,
+// cp.async copies, thread-block clusters with their distributed shared
+// memory, and the wgmma instructions, each a thin wrapper of one PTX
+// instruction (and a cluster launch).
 //
 // Layouts follow CUTLASS's canonical GMMA layouts (cute/atom/
 // mma_traits_sm90_gmma.hpp).  A tile is stored in rows of R = 32, 64 or
@@ -104,6 +106,87 @@ DEV void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
 // generic-proxy writes to shared memory made visible to wgmma and TMA
 DEV void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- cp.async: copies into shared memory that the issuing thread waits for --
+
+// 16 bytes, not kept in L1; where !valid nothing is read and the 16 bytes
+// are zero filled (src must still be a mapped address)
+DEV void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// 8 bytes (.ca: the only form below 16 bytes), zero fill where !valid
+DEV void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+DEV void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N> DEV void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// -- thread-block clusters and distributed shared memory ---------------------
+// A cluster's blocks run at once on neighbouring SMs and can read each
+// other's shared memory.  The port launches 1-d clusters along grid x.
+
+DEV uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster arrives, then waits: shared
+// memory written before it is visible to all the cluster's blocks after
+// it.  Also a block-wide barrier.  A block whose shared memory others
+// read must pass one more of these before it exits.
+DEV void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address, in the cluster's shared window, of `addr` (a shared::cta
+// address of this block) in the shared memory of block `rank`
+DEV uint32_t dsmem_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+DEV float ld_dsmem(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+DEV float4 ld_dsmem4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// launch `kernel` on `grid` (x a multiple of `cluster`) in clusters of
+// `cluster` blocks along x; returns what the runtime says
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                           size_t smem, cudaStream_t stream, int cluster,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 // cuTensorMapEncodeTiled from the driver that the process has loaded

@@ -312,12 +312,6 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* y, int e, int c,
 constexpr int SM_M = 128, SM_N = 128, SM_K = 16;
 constexpr int SM_LDA = SM_K + 4;   // x rows padded: 80 B, 16-byte aligned
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
 __global__ void __launch_bounds__(256)
 moe_gemm_simt(const float* __restrict__ x, const float* __restrict__ w,
               float* __restrict__ y, int C, int D, int F) {
@@ -337,14 +331,14 @@ moe_gemm_simt(const float* __restrict__ x, const float* __restrict__ w,
       const int id = tid + 256 * i;
       const int r = id / 4, kc = (id % 4) * 4;
       const bool ok = m0 + r < C && k0 + kc < D;
-      cp_async16(hopper::smem_addr(&xs[buf][r][kc]),
-                 ok ? xe + (long long)(m0 + r) * D + k0 + kc : xe, ok);
+      hopper::cp_async16(hopper::smem_addr(&xs[buf][r][kc]),
+                         ok ? xe + (long long)(m0 + r) * D + k0 + kc : xe, ok);
       const int kr = id / 32, nc = (id % 32) * 4;
       const bool okw = k0 + kr < D && n0 + nc < F;
-      cp_async16(hopper::smem_addr(&ws[buf][kr][nc]),
-                 okw ? we + (long long)(k0 + kr) * F + n0 + nc : we, okw);
+      hopper::cp_async16(hopper::smem_addr(&ws[buf][kr][nc]),
+                         okw ? we + (long long)(k0 + kr) * F + n0 + nc : we, okw);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    hopper::cp_async_commit();
   };
 
   float acc[8][8];
@@ -358,9 +352,9 @@ moe_gemm_simt(const float* __restrict__ x, const float* __restrict__ w,
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       load(kt + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      hopper::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();
 #pragma unroll

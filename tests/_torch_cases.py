@@ -34,6 +34,62 @@ CONV_CASES = {
                    True),
 }
 
+# the conv kernel's launch plan (kernels/conv2d/ops.py, `plan`):
+# (variant, (BM, BN) tile, split-K S).  The 15 launches of one
+# single-frame VGG16 runner call on the paper's 8-Pi plan, in order:
+# (x shape, w shape, pool) and the plan each takes
+VGG16_LAUNCHES = [
+    ((1, 226, 226, 3), (3, 3, 3, 64), None, ("general", (64, 64), 1)),
+    ((1, 226, 226, 64), (3, 3, 64, 64), (2, 2), ("ring", (128, 64), 1)),
+    ((1, 114, 114, 64), (3, 3, 64, 128), None, ("ring", (128, 64), 2)),
+    ((1, 114, 114, 128), (3, 3, 128, 128), None, ("ring", (128, 64), 2)),
+    ((1, 58, 58, 128), (3, 3, 128, 256), None, ("ring", (128, 64), 2)),
+    ((1, 58, 33, 256), (3, 3, 256, 256), None, ("ring", (128, 64), 4)),
+    ((1, 58, 32, 256), (3, 3, 256, 256), (2, 2), ("ring", (128, 64), 4)),
+    ((1, 58, 29, 256), (3, 3, 256, 256), None, ("ring", (128, 64), 8)),
+    ((1, 58, 28, 256), (3, 3, 256, 256), (2, 2), ("ring", (128, 64), 8)),
+    ((1, 30, 30, 256), (3, 3, 256, 512), None, ("ring", (128, 64), 4)),
+    ((1, 30, 30, 512), (3, 3, 512, 512), None, ("ring", (128, 64), 4)),
+    ((1, 30, 30, 512), (3, 3, 512, 512), (2, 2), ("ring", (128, 64), 4)),
+    ((1, 16, 16, 512), (3, 3, 512, 512), None, ("ring", (64, 64), 8)),
+    ((1, 16, 16, 512), (3, 3, 512, 512), None, ("ring", (64, 64), 8)),
+    ((1, 16, 16, 512), (3, 3, 512, 512), (2, 2), ("ring", (64, 64), 8)),
+]
+# the plan each of CONV_CASES takes
+CONV_CASE_PLANS = {
+    "plain": ("ring", (64, 64), 1),
+    "stride2_tail": ("general", (64, 64), 1),
+    "stride1x2": ("general", (64, 64), 1),
+    "k1x7": ("ring", (64, 64), 1),
+    "k7x1": ("ring", (64, 64), 1),
+    "stem7x7s2": ("general", (64, 64), 2),
+    "pool_odd": ("general", (64, 64), 1),
+    "stride2_pool_odd": ("ring", (64, 64), 1),
+    "tail_pool3": ("general", (64, 64), 2),
+}
+# the plan's edges at full size, (x, w, stride, pool, relu, bias) and the
+# plan: VGG16's launch 15 (S = 8 and the 2x2 pool); K = 1800, no
+# multiple of S BK, with CI = 200 no multiple of BK; CI = 12 (a slice
+# spans several (dh, dw)) split four ways; CI = 3 and CI = 13 / CO = 70
+# (general); a 3x3 pool in 128-row tiles (14 windows a block); VGG16's
+# launch 2 for a batch of 8 frames
+CONV_PLAN_CASES = {
+    "vgg_launch15": ((1, 16, 16, 512), (3, 3, 512, 512), (1, 1), (2, 2),
+                     True, True, ("ring", (64, 64), 8)),
+    "k1800": ((1, 16, 16, 200), (3, 3, 200, 256), (1, 1), None, True, True,
+              ("ring", (64, 64), 8)),
+    "ci12": ((1, 24, 24, 12), (5, 5, 12, 32), (1, 1), None, False, True,
+             ("ring", (64, 64), 4)),
+    "ci3": ((1, 60, 60, 3), (3, 3, 3, 64), (1, 1), None, True, True,
+            ("general", (64, 64), 1)),
+    "ci13": ((2, 31, 29, 13), (3, 3, 13, 70), (1, 1), (2, 2), True, False,
+             ("general", (64, 64), 2)),
+    "pool3_bm128": ((1, 100, 100, 32), (3, 3, 32, 64), (1, 1), (3, 3), True,
+                    True, ("ring", (128, 64), 4)),
+    "vgg_launch2_batch8": ((8, 226, 226, 64), (3, 3, 64, 64), (1, 1), (2, 2),
+                           True, True, ("ring", (128, 64), 1)),
+}
+
 
 def conv_inputs(x_shape, w_shape, bias, seed=0):
     """x, w (scaled by 1/sqrt(fan_in)) and an optional bias, fp32."""
@@ -107,6 +163,25 @@ DECODE_CASES = {
     "w32": (3, 4, 2, 8, 32, 32),
     "w512_vl511_d128": (1, 2, 2, 128, 512, 511),
     "w37_vl1": (2, 2, 4, 64, 37, 1),
+}
+
+# the decode kernel's splits of the cache (kernels/attention/ops.py,
+# `decode_splits`): (B, K, G, D, cache W, valid_len) and the splits S.
+# Llama-3.2-1B's and granite's decode shapes with valid_len on a split
+# boundary, 1 (split 0 alone live), 0 (all W entries, equal weights),
+# past W and inside the cache; W = 37 (one split); G = 64, D = 8, D = 128
+# (eight splits of B K = 8); B K = 1024 (one split)
+DECODE_SPLIT_CASES = {
+    "llama_vl_boundary": (4, 8, 4, 64, 544, 272, 4),
+    "llama_vl1": (4, 8, 4, 64, 544, 1, 4),
+    "llama_vl0": (4, 8, 4, 64, 544, 0, 4),
+    "llama_vl_past_w": (4, 8, 4, 64, 544, 549, 4),
+    "granite": (4, 8, 3, 64, 544, 530, 4),
+    "w37": (4, 8, 4, 64, 37, 30, 1),
+    "g64": (1, 2, 64, 32, 200, 150, 4),
+    "d8": (4, 8, 4, 8, 544, 530, 4),
+    "d128": (1, 8, 8, 128, 1000, 999, 8),
+    "bk1024": (32, 32, 4, 64, 256, 200, 1),
 }
 
 

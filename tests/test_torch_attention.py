@@ -2,6 +2,8 @@
 kernels (Pallas in interpret mode) and its blockwise attention, on the
 same inputs; and the wrappers' CPU path and checks."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,10 +14,11 @@ from repro.kernels.attention.decode_attn import (
 from repro.kernels.attention.flash_prefill import (
     flash_prefill as ref_flash_prefill)
 from repro.models.transformer import layers as RL
+from repro_torch.kernels._build import split_ranges
 from repro_torch.kernels.attention import ops, ref
 
-from _torch_cases import (DECODE_CASES, PREFILL_CASES, c_argtypes,
-                          decode_inputs, prefill_inputs)
+from _torch_cases import (DECODE_CASES, DECODE_SPLIT_CASES, PREFILL_CASES,
+                          c_argtypes, decode_inputs, prefill_inputs)
 
 # fp32: sums in another order than XLA's (the band of
 # tests/test_kernels.py's flash-prefill sweep); bf16: the `TOL` band of
@@ -124,3 +127,44 @@ def test_cuda_checks_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("name", sorted(ops.SOURCES))
 def test_ctypes_signature_matches_the_c_prototype(name):
     assert ops.ARGTYPES[name] == c_argtypes(ops.SOURCES[name], name)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+def test_decode_splits_of_each_case(case):
+    """The splits S of the cache at each case's shapes, and the entries
+    the splits walk: S ranges, balanced, in order, together [0, W)
+    once."""
+    b, k, _, _, w, _, want = DECODE_SPLIT_CASES[case]
+    assert ops.decode_splits(b, k, w) == want
+    ranges = split_ranges(w, want)
+    assert ranges[0][0] == 0 and ranges[-1][1] == w
+    assert all(x[1] == y[0] for x, y in zip(ranges, ranges[1:]))
+    sizes = [y - x for x, y in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_decode_splits_depend_on_shapes_only():
+    """S is a function of B, K and W: valid_len never reaches the host.
+    It stays within the cluster limit and one block a SM, keeps
+    MIN_SPLIT_ENTRIES entries a split, and is 1 for a short cache or a
+    grid that already fills the card."""
+    assert list(inspect.signature(ops.decode_splits).parameters) == \
+        ["b", "k", "w"]
+    for b, k in [(1, 1), (1, 8), (4, 8), (2, 16), (8, 8), (64, 32)]:
+        for w in (1, 8, 37, 63, 64, 128, 544, 4096):
+            s = ops.decode_splits(b, k, w)
+            assert 1 <= s <= ops.MAX_SPLITS and s & (s - 1) == 0
+            assert s == 1 or (w // s >= ops.MIN_SPLIT_ENTRIES
+                              and b * k * s <= ops.DECODE_BLOCKS)
+            if w < 2 * ops.MIN_SPLIT_ENTRIES or b * k * 2 > \
+                    ops.DECODE_BLOCKS:
+                assert s == 1
+
+
+@pytest.mark.parametrize("n,parts", [(1, 1), (7, 3), (544, 4), (544, 8),
+                                     (37, 8), (4608 // 16, 8)])
+def test_split_ranges_cover_once_in_order(n, parts):
+    ranges = split_ranges(n, parts)
+    assert len(ranges) == parts
+    covered = [i for a, b in ranges for i in range(a, b)]
+    assert covered == list(range(n))

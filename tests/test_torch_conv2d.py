@@ -17,9 +17,11 @@ import torch
 
 from repro.kernels.conv2d.ops import conv2d_fused as jax_conv2d_fused
 from repro.kernels.conv2d.ref import conv2d_fused_ref as jax_conv2d_ref
+from repro_torch.kernels._build import split_ranges
 from repro_torch.kernels.conv2d import ops, ref
 
-from _torch_cases import CONV_CASES, conv_inputs
+from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
+                          VGG16_LAUNCHES, conv_inputs)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -116,3 +118,82 @@ def test_plain_version_on_cpu_launches_nothing():
     x, w, b = conv_inputs((1, 6, 6, 3), (3, 3, 3, 4), True)
     ops.conv2d_fused(_t(x), _t(w), _t(b), relu=True, pool=(2, 2))
     assert ops.launch_count() == 0
+
+
+def _plan(x_shape, w_shape, stride=(1, 1), pool=None):
+    kh, kw, _, co = w_shape
+    return tuple(ops.plan(*x_shape, kh, kw, co, stride, pool))
+
+
+def _assert_k_ranges_cover_k(k, split):
+    """The K ranges the blocks of a cluster walk: ``split`` of them, whole
+    BK slices, non-empty, in rank order, together [0, K) once."""
+    ranges = [(a * ops.BK, min(k, b * ops.BK))
+              for a, b in split_ranges(-(-k // ops.BK), split)]
+    assert len(ranges) == split
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    for a, b in ranges:
+        assert a < b and a % ops.BK == 0
+    assert max(b - a for a, b in ranges) - min(b - a for a, b in ranges) \
+        <= ops.BK
+
+
+@pytest.mark.parametrize("i", range(len(VGG16_LAUNCHES)))
+def test_plan_of_each_vgg16_launch(i):
+    """The plan of the 15 launches of a single-frame VGG16 runner call:
+    the RGB stem through the general variant, 128 x 64 tiles split 1-8
+    ways where they give enough blocks, 64 x 64 split 8 ways for the
+    14 x 14 layers (32 tiles, K = 4608)."""
+    x_shape, w_shape, pool, want = VGG16_LAUNCHES[i]
+    assert _plan(x_shape, w_shape, pool=pool) == want
+    kh, kw, ci, _ = w_shape
+    _assert_k_ranges_cover_k(kh * kw * ci, want[2])
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_plan_of_each_conv_case(case):
+    x_shape, w_shape, stride, pool, _, _ = CONV_CASES[case]
+    want = CONV_CASE_PLANS[case]
+    assert _plan(x_shape, w_shape, stride, pool) == want
+    kh, kw, ci, _ = w_shape
+    _assert_k_ranges_cover_k(kh * kw * ci, want[2])
+
+
+@pytest.mark.parametrize("case", sorted(CONV_PLAN_CASES))
+def test_plan_of_each_edge_case(case):
+    x_shape, w_shape, stride, pool, _, _, want = CONV_PLAN_CASES[case]
+    assert _plan(x_shape, w_shape, stride, pool) == want
+    kh, kw, ci, _ = w_shape
+    _assert_k_ranges_cover_k(kh * kw * ci, want[2])
+
+
+def test_plan_rules():
+    """Misaligned or odd channel counts take the general variant; a split
+    never leaves a block fewer than MIN_SPLIT_SLICES slices of K nor
+    passes MAX_SPLIT; the pool window always fits the tile."""
+    assert _plan((1, 30, 30, 512), (3, 3, 512, 512))[0] == "ring"
+    assert ops.plan(1, 30, 30, 512, 3, 3, 512, aligned=False)[0] == \
+        "general"
+    assert _plan((1, 30, 30, 512), (3, 3, 512, 510))[0] == "general"
+    for x_shape, w_shape, pool in [((1, 16, 16, 8), (3, 3, 8, 8), None),
+                                   ((1, 9, 9, 4), (1, 1, 4, 4), None),
+                                   ((1, 64, 64, 512), (3, 3, 512, 512),
+                                    (8, 8)),
+                                   ((4, 8, 8, 2048), (3, 3, 2048, 64),
+                                    None)]:
+        variant, (bm, bn), split = _plan(x_shape, w_shape, pool=pool)
+        kh, kw, ci, _ = w_shape
+        slices = -(-kh * kw * ci // ops.BK)
+        assert 1 <= split <= ops.MAX_SPLIT
+        assert split == 1 or slices >= split * ops.MIN_SPLIT_SLICES
+        assert (bm, bn) in ops.TILES
+        assert (pool or (1, 1))[0] * (pool or (1, 1))[1] <= bm
+
+
+def test_variant_counts_stay_at_zero_on_cpu():
+    ops.reset_launches()
+    x, w, b = conv_inputs((1, 6, 6, 4), (3, 3, 4, 4), True)
+    ops.conv2d_fused(_t(x), _t(w), _t(b))
+    assert ops.variant_counts == dict.fromkeys(ops.VARIANTS, 0)

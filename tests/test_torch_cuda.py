@@ -28,7 +28,8 @@ from repro_torch.models.cnn import params_from_numpy, zoo
 from repro_torch.models.transformer import model as M
 from repro_torch.serving import lm
 
-from _torch_cases import (CONV_CASES, DECODE_CASES, MOE_GEMM_CASES,
+from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
+                          DECODE_CASES, DECODE_SPLIT_CASES, MOE_GEMM_CASES,
                           MOE_GEMM_VARIANTS, PREFILL_CASES, SSD_CASES,
                           conv_inputs,
                           decode_inputs, image, lm_config, lm_tokens,
@@ -49,22 +50,44 @@ def _t(a, device):
     return None if a is None else torch.tensor(a, device=device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CONV_CASES))
-def test_kernel_matches_plain_version(case, cuda):
+def _conv_case(x_shape, w_shape, stride, pool, relu, bias, want_plan, dev):
     """fp32 kernel vs the plain version on the card: 1e-4 x max(1,
-    max|ref|), for sums taken in another order than cuBLAS's."""
-    x_shape, w_shape, stride, pool, relu, bias = CONV_CASES[case]
-    x, w, b = (_t(a, cuda) for a in conv_inputs(x_shape, w_shape, bias))
+    max|ref|), for sums taken in another order than cuBLAS's; one launch
+    through the planned variant; the same bits on a second call (the
+    split-K sum runs in rank order)."""
+    x, w, b = (_t(a, dev) for a in conv_inputs(x_shape, w_shape, bias))
     kw = dict(stride=stride, relu=relu, pool=pool)
+    kh, kwd, _, co = w_shape
+    assert tuple(ops.plan(*x_shape, kh, kwd, co, stride, pool)) == want_plan
     before = ops.launch_count()
+    variants = dict(ops.variant_counts)
     got = ops.conv2d_fused(x, w, b, **kw)
     torch.cuda.synchronize()
     assert ops.launch_count() == before + 1
+    variants[want_plan[0]] += 1
+    assert ops.variant_counts == variants
     want = ref.conv2d_fused_ref(x, w, b, **kw)
     assert got.shape == want.shape
     tol = 1e-4 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol
+    again = ops.conv2d_fused(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_kernel_matches_plain_version(case, cuda):
+    _conv_case(*CONV_CASES[case], CONV_CASE_PLANS[case], cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CONV_PLAN_CASES))
+def test_kernel_plan_edges_match_plain_version(case, cuda):
+    """The plan's edges at full size: split K up to 8 ways across a
+    cluster, K no multiple of S BK, CI = 12, the general variant, a 3x3
+    pool in 128-row tiles, a batch of 8 frames."""
+    _conv_case(*CONV_PLAN_CASES[case], cuda)
 
 
 @pytest.mark.cuda
@@ -143,14 +166,11 @@ def test_flash_prefill_kernel_matches_plain_version(case, dtype, cuda):
     _assert_attn_close(got, want, dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(DECODE_CASES) + ["vl_0", "vl_past_w"])
-def test_decode_kernel_matches_plain_version(case, dtype, cuda):
-    b, k, g, d, w, vl = DECODE_CASES.get(
-        case, (2, 2, 4, 64, 70, 0 if case == "vl_0" else 100))
-    q, kk, vv = (_t(a, cuda).to(dtype) for a in decode_inputs(b, k, g, d, w))
-    vl = torch.tensor(vl, dtype=torch.int32, device=cuda)
+def _decode_case(b, k, g, d, w, vl, dtype, dev):
+    """decode_attention vs its plain version, one launch, and the same
+    bits on a second call (the splits combine in rank order)."""
+    q, kk, vv = (_t(a, dev).to(dtype) for a in decode_inputs(b, k, g, d, w))
+    vl = torch.tensor(vl, dtype=torch.int32, device=dev)
     before = attn_ops.launch_count("decode_attention")
     got = attn_ops.decode_attention(q, kk, vv, vl)
     torch.cuda.synchronize()
@@ -158,6 +178,29 @@ def test_decode_kernel_matches_plain_version(case, dtype, cuda):
     want = attn_ref.decode_attention_ref(q, kk, vv, vl)
     assert got.shape == want.shape and got.dtype == dtype
     _assert_attn_close(got, want, dtype)
+    again = attn_ops.decode_attention(q, kk, vv, vl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES) + ["vl_0", "vl_past_w"])
+def test_decode_kernel_matches_plain_version(case, dtype, cuda):
+    _decode_case(*DECODE_CASES.get(
+        case, (2, 2, 4, 64, 70, 0 if case == "vl_0" else 100)), dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+def test_decode_split_edges_match_plain_version(case, dtype, cuda):
+    """The split-KV kernel at the LM decode shapes and its edges
+    (valid_len on a split boundary, 1, 0, past W; one split; G = 64,
+    D = 8 and 128; B K = 1024), with the splits each must take."""
+    b, k, g, d, w, vl, splits = DECODE_SPLIT_CASES[case]
+    assert attn_ops.decode_splits(b, k, w) == splits
+    _decode_case(b, k, g, d, w, vl, dtype, cuda)
 
 
 @pytest.mark.cuda
@@ -174,6 +217,11 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
                torch.tensor(3, device=cuda)):               # int64
         with pytest.raises(ValueError):
             attn_ops.decode_attention(q, kk, vv, vl)
+    vl = torch.tensor(3, dtype=torch.int32, device=cuda)
+    off = torch.empty(kk.numel() + 1, device=cuda)[1:].view(kk.shape)
+    off.copy_(kk)                                           # 4-byte aligned
+    with pytest.raises(ValueError):
+        attn_ops.decode_attention(q, off, vv, vl)
 
 
 @pytest.mark.cuda
