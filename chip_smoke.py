@@ -15,12 +15,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    shape its path launches plus edge cases, with times for the kernel,
    the plain version, one library call and the card's bound (CUDA
    events), and the kernel's and the library call's device time
-   (``torch.profiler``); every ``conv2d_fused``, ``decode_attention``,
-   ``flash_prefill`` and ``moe_gemm`` case also called twice, which must
-   give the same bits; each conv case names its plan (variant, tile,
-   split-K) and must run the planned variant, the conv and decode edge
-   cases must take the plan (splits) they are listed with, each
-   ``moe_gemm`` case names its variant; a table of the 15 conv launches
+   (``torch.profiler``); every case also called twice, which must give
+   the same bits; each conv case names its plan (variant, tile, split-K)
+   and must run the planned variant, the conv, decode and ``ssd_chunk``
+   edge cases must take the plan (splits, heads a block) they are listed
+   with, each ``moe_gemm`` case names its variant and each ``ssd_chunk``
+   case its plan (G, G', tiles, grid); a table of the 15 conv launches
    of one runner call (plan, ms, device ms against cuDNN's, share of the
    bound);
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
@@ -329,8 +329,11 @@ def ssd_case(shape, dtype_name, seed=0) -> dict:
     """ssd_chunk against its plain version at (BC, Q, H, P, N), with the
     model's ranges: dt the softplus of a normal around the init's
     ``dt_bias``, A from -1 to -16 (so cum falls to about -10^3 over
-    Q = 511).  No single PyTorch call computes the function: no library
-    time."""
+    Q = 511); two calls must give the same bits.  The description names
+    the launch's plan (``ops.plan``: G heads a y block, G' a state block,
+    the tiles, the grid), whose grid and shared memory must be the C
+    side's (``ops.kernel_layout``).  No single PyTorch call computes the
+    function: no library time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd import ops, ref
@@ -348,25 +351,37 @@ def ssd_case(shape, dtype_name, seed=0) -> dict:
     dt = F.softplus(randn(bc, q, h) + dt_bias).to(dtype)
     A = (-torch.linspace(1.0, 16.0, h, device="cuda")).to(dtype)
     Bm, Cm = randn(bc, q, n).to(dtype), randn(bc, q, n).to(dtype)
+    pl = ops.plan(bc, q, h, p, n, dtype)
+    # the plan's grid and shared memory as the C side computes them
+    same_layout = ops.kernel_layout(bc, q, h, p, n, pl.g, dtype) \
+        == (pl.smem, pl.grid)
     y, st = ops.ssd_chunk(x, dt, A, Bm, Cm)
+    y2, st2 = ops.ssd_chunk(x, dt, A, Bm, Cm)
     y_ref, st_ref = ref.ssd_chunk_ref(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
     checks = [check_close(y, y_ref, dtype), check_close(st, st_ref, dtype)]
+    same = torch.equal(y, y2) and torch.equal(st, st2)
 
     ms = time_ms(lambda: ops.ssd_chunk(x, dt, A, Bm, Cm))
     plain_ms = time_ms(lambda: ref.ssd_chunk_ref(x, dt, A, Bm, Cm))
+    dev = device_ms(lambda: ops.ssd_chunk(x, dt, A, Bm, Cm))
     pairs = q * (q + 1) // 2          # causal (i, j) pairs of a chunk
     flops = (2.0 * bc * pairs * n          # C B^T, once per chunk
              + 2.0 * bc * h * pairs * p    # M @ x
              + 2.0 * bc * h * q * p * n)   # the state
     nbytes = (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
               + st.numel()) * x.element_size()
-    return dict(kernel="ssd_chunk", desc=f"(BC,Q,H,P,N){tuple(shape)}",
+    return dict(kernel="ssd_chunk",
+                desc=f"(BC,Q,H,P,N){tuple(shape)} G{pl.g} G'{pl.gs} "
+                f"TQ{ops.TQ} TJ{ops.TJ} NS{ops.NS} grid{pl.grid}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE")
+                + ("" if same_layout else " PLAN AND KERNEL DIFFER"),
                 dtype=dtype_name, err=max(c[0] for c in checks),
                 of_limit=max(c[1] for c in checks),
-                ok=all(c[2] for c in checks), per_call=0, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bound(flops, nbytes, dtype_name))
+                ok=all(c[2] for c in checks) and same and same_layout,
+                per_call=0, ms=ms,
+                plain_ms=plain_ms, library_ms=None, dev_ms=dev,
+                library_dev_ms=None, **bound(flops, nbytes, dtype_name))
 
 
 def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
@@ -407,7 +422,9 @@ def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
 def _print_cases(cases) -> None:
     for r in cases:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        dev = (f" | device {r['dev_ms']:.4f} / {r['library_dev_ms']:.4f}"
+        lib_dev = "-" if r.get("library_dev_ms") is None \
+            else f"{r['library_dev_ms']:.4f}"
+        dev = (f" | device {r['dev_ms']:.4f} / {lib_dev}"
                if "dev_ms" in r else "")
         print(f"  {'ok ' if r['ok'] else 'BAD'} {r['kernel']} {r['desc']} "
               f"{r['dtype']} x{r['per_call']} | {r['err']:.3g} "
@@ -565,10 +582,28 @@ def _extra_cases(cfg) -> list[dict]:
                            ((4, 12, 1024), 256), ((40, 16, 1536), 512)]:
             cases += [moe_case(x_shape, f, dt)
                       for dt in ("float32", "bfloat16")]
-    if cfg.is_ssm:      # a 1024-token prompt: Q = 256, four chunks each
-        shape = (LM_BATCH * 4, 256, cfg.ssm_heads, cfg.ssm_head_dim,
-                 cfg.ssm_state)
-        cases += [ssd_case(shape, dt) for dt in ("float32", "bfloat16")]
+    if cfg.is_ssm:
+        hp, n = cfg.ssm_head_dim, cfg.ssm_state
+        # shape, and the heads a y block that ops.plan must choose in fp32
+        # and in bf16 (G = 2 where G = 4's grid is short of a wave)
+        for shape, want_g in [
+                # a 1024-token prompt: Q = 256, four chunks each
+                ((LM_BATCH * 4, 256, cfg.ssm_heads, hp, n), (4, 4)),
+                # H not a multiple of G
+                ((64, 256, 3, hp, n), (4, 4)), ((16, 511, 6, hp, n), (4, 4)),
+                # an odd number of row tiles at BC = 1; Q = 1030 (in fp32
+                # G = 2's grid takes two waves of one block an SM)
+                ((1, 511, cfg.ssm_heads, hp, n), (2, 2)),
+                ((1, 1030, cfg.ssm_heads, hp, n), (4, 2)),
+                # P = 128 (two P tiles) with N = 8 (one live column in four)
+                ((2, 256, 4, 128, 8), (2, 2)),
+                # two heads: G = 2 by construction
+                ((64, 256, 2, hp, n), (2, 2))]:
+            for dt, g in zip(("float32", "bfloat16"), want_g):
+                r = ssd_case(shape, dt)
+                if f" G{g} " not in r["desc"]:
+                    fail(f"ssd_chunk {r['desc']}: want G = {g}")
+                cases.append(r)
     return cases
 
 
@@ -823,8 +858,8 @@ def run_lm(arch: str) -> dict[str, dict]:
     print(f"[kernel] {cfg.name}: {len(cases)} cases of {', '.join(names)}: "
           f"shape, dtype, launches per generate | max_abs_err (worst error "
           f"/ its limit) | ms kernel / plain / library / bound (CUDA "
-          f"events around 20 calls); flash_prefill and moe_gemm also | "
-          f"device ms kernel / library (torch.profiler, kernels only)"
+          f"events around 20 calls) | device ms kernel / library "
+          f"(torch.profiler, kernels only)"
           + (f"; decode_attention held at valid lengths {sorted(held_vl)} "
              f"of {len(vls)}" if len(held_vl) < len(vls) else ""))
     _print_cases(cases)
@@ -920,11 +955,12 @@ def run_lm(arch: str) -> dict[str, dict]:
               f"{'-' if lib is None else f'{lib:.4f}'}, bound "
               f"{total(bf, 'bound_ms'):.5f}")
         if all("dev_ms" in r for r in path + bf):
+            lib = [total(rows, "library_dev_ms") for rows in (path, bf)]
+            lib = ["-" if v is None else f"{v:.4f}" for v in lib]
             print(f"[kernels] {cfg.name} {name} device time (profiler) "
                   f"over the same launches: fp32 {total(path, 'dev_ms'):.4f}"
-                  f", library {total(path, 'library_dev_ms'):.4f}; bf16 "
-                  f"{total(bf, 'dev_ms'):.4f}, library "
-                  f"{total(bf, 'library_dev_ms'):.4f}")
+                  f", library {lib[0]}; bf16 {total(bf, 'dev_ms'):.4f}, "
+                  f"library {lib[1]}")
         if name == "moe_gemm":      # the split by variant, per dtype
             for dt, rows in (("float32", path), ("bfloat16", bf)):
                 for v in sorted({r["variant"] for r in rows}):

@@ -9,40 +9,80 @@
 //   st    = sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
 // out, y (BC, Q, H, P) and st (BC, H, P, N) in the input dtype.
 //
-// Grid: (state tiles + row tiles, H, BC).  The TPU kernel holds a whole
-// chunk in VMEM per (chunk, head); here a chunk may be the whole prompt
-// (ssd_chunked takes Q = S when no tile of 64 or more divides S, e.g.
-// Q = 511), so nothing is sized by Q.  A y block owns 64 rows i of one
-// (chunk, head) and walks the column tiles j only up to the tile of its
-// diagonal (the TPU grid computes the dead upper half and masks it).  A
-// state block owns 64 of the P rows of st and walks all of Q.  Rows and
-// columns past Q are zero-filled loads and are never stored.
+// Grid (ceil(H / G), BC, y items + state items), 64 G threads a block,
+// one block an SM in fp32 (its shared memory).  G (4 heads a y block,
+// or 2 where G = 4's grid is short of a wave or H <= 2) comes from
+// ops.plan in Python; G' = G / 2 heads a state block and the tiles (TQ
+// = 64, TJ = 32, NS = 64) are this file's, and ssd_chunk_query reports
+// the grid and shared memory that the Python plan is held against.  B
+// and C are shared by all heads (ngroups = 1), so a block serves a
+// group of heads (the last group may hold fewer live heads; nothing is
+// stored for the others):
+//   - a y block owns a pair of 64-row tiles i of one (chunk, G heads, 64
+//     columns of P): row tile it is paired with n_itiles - 1 - it, so
+//     every pair walks n_itiles + 1 tiles of columns j (an odd middle
+//     tile runs alone).  It walks the columns in steps of TJ = 32.
+//     Every second step it forms C_i B_j^T for the next 2 TJ columns once
+//     for its G heads (fp32, in shared memory, 4 x 4 a thread, summed
+//     over N in order); every step, per head, M = round((C B^T *
+//     exp(cum_i - cum_j)) * dt_j) and y += M x_j, 64 threads a head, 8 x
+//     8 outputs a thread (four FMAs per float read from shared memory);
+//   - a state block owns 64 rows of P and NS = 64 columns of N of st for
+//     G' heads (half the y block's group) and walks all of Q in steps of
+//     TJ positions: xw = round(x * (exp(cum_last - cum) * dt)), then
+//     st += xw^T B, 128 threads a head, 8 x 4 outputs a thread.  Each B
+//     tile serves its G' heads; a state block carries about a third of a
+//     y block's work, so at mamba2's shape the state blocks fill one wave
+//     after the y blocks' one.
+// Items run longest first (blockIdx.z: y pairs, then state tiles).
+// Nothing is sized by Q (ssd_chunked takes Q = S when no tile of 64 or
+// more divides S, e.g. Q = 511 or 1030): rows and columns past Q are
+// zero-filled loads that are never stored, and column steps wholly past
+// Q are skipped.
 //
-// The decay cumsum is formed a tile of 64 positions at a time, carried
-// from tile to tile, and added in order by one thread: the same order as
-// torch.cumsum along a non-innermost dimension, so the plain version
-// gets the same cum.  A block recomputes the prefix up to its own tile
-// (a few hundred adds) instead of holding all of Q.  exp is taken of the
-// fp32 difference cum_i - cum_j, and only where i >= j: A reaches -16, so
-// cum falls to about -10^3 over a long chunk, where exp(cum_i) alone
-// underflows, and above the diagonal the difference is positive.
+// Tiles come through cp.async (16-byte copies, each thread on fixed
+// chunks, zero fill past Q; plain loads where P or N is not a multiple
+// of 16 bytes, N's row is not a power of two of 16-byte chunks, or a
+// pointer is not aligned): x through a two-slot ring, B for the next
+// C B^T as soon as the current one is formed, the next step's dt into
+// registers; all of it lands while a step computes.  Three barriers a
+// step: tiles landed | C B^T (y) and the step's cum | M (y) or xw
+// (state) | the products.  bf16 tiles stay bf16 in shared memory and
+// are widened at the read; the FMAs, rounding points and sums are the
+// fp32 path's.
 //
-// B and C are shared by all heads (ngroups = 1); this simple version
-// recomputes C B^T per head, as the TPU grid does.
+// The decay cumsum is added in order by one thread per head (the G
+// heads at once), TJ positions at a time from dt * A staged in shared
+// memory, in registers, and carried from step to step: the same order
+// as torch.cumsum along a non-innermost dimension, so the plain version
+// gets the same cum (a different order moves exp(cum_i - cum_j) by about
+// 1e-4 relative at cum ~ -10^3).  A block first walks the prefix once
+// for all its heads (PB steps of dt in flight at a time): a y block to
+// the end of its longer row tile, keeping the cum of both row tiles; a
+// state block to cum_last.  exp is taken of the fp32 difference
+// cum_i - cum_j, and only where i >= j.
 //
 // Numerics follow the Pallas kernel: dt * A rounded to the input dtype,
 // then cum, the decays, C B^T and M = (C B^T * exp(seg)) * dt in fp32; M
 // rounded to the input dtype before M @ x; x * (exp(cum_last - cum) * dt)
 // rounded to the input dtype before its product with B; products summed
-// in fp32 (registers), stored in the input dtype.
+// in fp32 (registers), stored in the input dtype.  Every sum runs in
+// index order (C B^T over n, M x over j, the state over q), as the plain
+// version's matrix products sum on this card: at mamba2's shapes the
+// two agree bit for bit, which keeps the bf16 model within its band of
+// the plain path (summing C B^T in two halves of N moved mamba2's bf16
+// logits past it).  No atomics: two calls give the same bits.
 //
 // What bounds it on an H100: at BC = 4, Q = 511, H = 32, P = 64, N = 128
 // the function needs 3.35 GFLOP (C B^T once per chunk, the causal half,
-// the state) against 40 MB in fp32: operations in fp32 (about 0.05 ms),
-// bytes in bf16.  This version does 2x the FLOPs (C B^T per head) as
-// fp32 FMAs out of shared memory, 4 x 4 outputs a thread, with no tensor
-// cores and no pipelined loads: wgmma and C B^T shared across heads come
-// later.
+// the state) against 40 MB in fp32: operations in fp32 (0.050 ms at the
+// 67 TFLOP/s FMA peak), bytes in bf16.  This version issues about 4.7
+// GFLOP as fp32 FMAs out of shared memory (C B^T once per 4 heads and
+// the full diagonal tiles), no tensor cores: IEEE fp32 has none on this
+// card with TF32 off, and bf16 through mma/wgmma is a later step.  With
+// 8 warps an SM and three barriers a step it reaches about a quarter of
+// the FMA peak: the C B^T and state products wait on shared-memory
+// reads, and the state blocks run as a second wave.
 //
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -52,14 +92,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TQ = 64;        // positions per tile (rows i, columns j)
-constexpr int THREADS = 256;  // 16 x 16: rows ty*4..+3, columns tx + 16*k
+constexpr int TQ = 64;    // rows i of a y row tile; P columns of a tile
+constexpr int TJ = 32;    // positions a step (y: columns j; state: rows q)
+constexpr int NS = 64;    // N columns of a state block
 constexpr int MAX_P = 128;
 constexpr int MAX_N = 128;
-constexpr int PC = MAX_P / 16;  // y columns a thread holds
-constexpr int NC = MAX_N / 16;  // state columns a thread holds
+constexpr int SMEM_MAX = 232448;   // opt-in shared memory of a block
+constexpr int NO_SAVE = -(1 << 30);
+constexpr int PB = 8;     // chunks of TJ positions a prefix batch
+constexpr int LDC = 2 * TJ + 1;   // row stride of the C B^T tile
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -77,304 +122,660 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// four consecutive elements of shared memory as fp32 (bf16 widened)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 struct Shape {
   int bc, q, h, p, n;
-  int n_ptiles;   // state blocks per (chunk, head): ceil(P / 64)
-  int n_itiles;   // y blocks per (chunk, head): ceil(Q / 64)
+  int n_itiles;   // 64-row tiles of Q
+  int y_pt;       // 64-column tiles of P (y and state blocks)
+  int y_items;    // y blocks per (head group, chunk): pairs x y_pt
+  int st_nt;      // NS-column tiles of N (state items: 2 st_nt y_pt)
+  int np;         // N rounded up to 16 bytes: width of the C and B tiles
+  int ld;         // their row stride in shared memory (np + 16 bytes)
+  bool vec;       // 16-byte cp.async copies
 };
 
-size_t smem_bytes(int p, int n) {
-  // a y block: cs, bs [TQ][n + 1]; xs [TQ][p]; ms [TQ][TQ + 1]; a, cum,
-  // dt [TQ].  A state block uses less: bs, xw [TQ][TQ + 1], a, cum, dt, w.
-  return sizeof(float) * (size_t)(2 * TQ * (n + 1) + TQ * p
-                                  + TQ * (TQ + 1) + 4 * TQ);
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
 }
 
-// The cumsum of dt * A over the tile of positions t0..t0+63 of chunk bc,
-// head h, continued from `carry` (the cum before t0), into cum_sh; dt of
-// the tile into dt_sh.  Positions past Q add 0.  Called by every thread;
-// begins and ends with a barrier.  On return carry is the cum at the
-// tile's end.
-template <typename T>
-__device__ void cum_tile(const T* __restrict__ dt, float a_h, const Shape& s,
-                         int bc, int h, int t0, float* a_sh, float* cum_sh,
-                         float* dt_sh, float& carry) {
-  const int tid = threadIdx.x;
-  __syncthreads();              // the previous tile's cum/dt are read
-  if (tid < TQ) {
-    const int q = t0 + tid;
-    float d = 0.f, a = 0.f;
-    if (q < s.q) {
-      d = to_f32(dt[((long long)bc * s.q + q) * s.h + h]);
-      a = round_to<T>(d * a_h);
-    }
-    a_sh[tid] = a;
-    dt_sh[tid] = d;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float c = carry;
-    for (int t = 0; t < TQ; ++t) {
-      c += a_sh[t];
-      cum_sh[t] = c;
-    }
-  }
-  __syncthreads();
-  carry = cum_sh[TQ - 1];
+// byte offsets of a block's shared memory (the state block uses b, x, m
+// (as xw), cumj, dtj, aj, pa and cl)
+struct Layout {
+  int c, b, x, cb, m, cumi, cumj, dtj, aj, pa, cl, total;
+};
+
+__host__ __device__ inline Layout layout(int g, int ld, int esz) {
+  Layout L;
+  int off = 0;
+  L.c = off;     off += align16(2 * TQ * ld * esz);           // C_i, 2 rows
+  L.b = off;     off += align16(2 * TJ * (ld > NS ? ld : NS) * esz);
+  L.x = off;     off += align16(2 * g * TJ * TQ * esz);       // x ring
+  L.cb = off;    off += align16(TQ * LDC * 4);                // C B^T
+  L.m = off;     off += align16(g * TJ * TQ * 4);             // M^T / xw
+  L.cumi = off;  off += align16(2 * g * TQ * 4);
+  L.cumj = off;  off += align16(g * TJ * 4);
+  L.dtj = off;   off += align16(g * TJ * 4);
+  L.aj = off;    off += align16(g * TJ * 4);
+  L.pa = off;    off += align16(PB * g * TJ * 4);
+  L.cl = off;    off += align16(g * 4);
+  L.total = off;
+  return L;
 }
 
-// 64 rows i of y for one (chunk, head).
-template <typename T>
-__device__ void y_tile(const T* __restrict__ x, const T* __restrict__ dt,
-                       float a_h, const T* __restrict__ Bm,
-                       const T* __restrict__ Cm, T* __restrict__ y,
-                       const Shape& s, int bc, int h, int it, float* smem) {
-  const int N = s.n, P = s.p, ldn = N + 1, ldm = TQ + 1;
-  float* cs = smem;               // [TQ][N + 1]  C rows of the i tile
-  float* bs = cs + TQ * ldn;      // [TQ][N + 1]  B rows of the j tile
-  float* xs = bs + TQ * ldn;      // [TQ][P]      x rows of the j tile
-  float* ms = xs + TQ * P;        // [TQ][TQ + 1]  M tile
-  float* a_sh = ms + TQ * ldm;
-  float* cum_sh = a_sh + TQ;
-  float* dt_sh = cum_sh + TQ;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i0 = it * TQ;
-  const long long row0 = (long long)bc * s.q;   // chunk's first row in B/C
-
-  for (int e = tid; e < TQ * N; e += THREADS) {
-    const int r = e / N, c = e % N, q = i0 + r;
-    cs[r * ldn + c] = q < s.q ? to_f32(Cm[(row0 + q) * N + c]) : 0.f;
+// A tile of rows x width elements into shared memory (row stride ld)
+// with plain loads and stores: row r from src + r * stride; rows r >=
+// rows_ok and columns c >= cols_ok zero filled.  For shapes the 16-byte
+// copies of load_rows / load_x do not take.
+template <typename T, int NT>
+__device__ __forceinline__ void copy_tile(T* dst, int ld, const T* src,
+                                          long long stride, int rows,
+                                          int width, int rows_ok,
+                                          int cols_ok) {
+  for (int e = threadIdx.x; e < rows * width; e += NT) {
+    const int r = e / width, c = e - r * width;
+    dst[r * ld + c] = r < rows_ok && c < cols_ok ? src[r * stride + c]
+                                                 : from_f32<T>(0.f);
   }
-  // the cum of this block's rows: the chain of tiles up to its own
-  float carry = 0.f;
-  for (int t = 0; t <= it; ++t)
-    cum_tile<T>(dt, a_h, s, bc, h, t * TQ, a_sh, cum_sh, dt_sh, carry);
-  float cum_i[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) cum_i[r] = cum_sh[ty * 4 + r];
+}
 
-  float acc[4][PC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < PC; ++c) acc[r][c] = 0.f;
+// dt and round(dt * A) of position q0 + t / G, head h0 + t % G, for
+// threads t < TJ G; 0 past Q and for heads past H
+template <typename T, int G>
+__device__ __forceinline__ void load_dt(const T* __restrict__ dt,
+                                        const Shape& s, int bc, int h0,
+                                        int q0, float a_h, float& d,
+                                        float& a) {
+  const int t = threadIdx.x, q = q0 + t / G, h = h0 + t % G;
+  d = 0.f;
+  a = 0.f;
+  if (t < TJ * G && q < s.q && h < s.h) {
+    d = to_f32(dt[((long long)bc * s.q + q) * s.h + h]);
+    a = round_to<T>(d * a_h);
+  }
+}
 
-  carry = 0.f;
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * TQ;
-    cum_tile<T>(dt, a_h, s, bc, h, j0, a_sh, cum_sh, dt_sh, carry);
-    for (int e = tid; e < TQ * N; e += THREADS) {
-      const int r = e / N, c = e % N, q = j0 + r;
-      bs[r * ldn + c] = q < s.q ? to_f32(Bm[(row0 + q) * N + c]) : 0.f;
+// thread g < G: the cum of TJ positions of head g, a[k] (row, TJ
+// values in shared memory) added to `carry` in order, in registers;
+// written to out
+__device__ __forceinline__ void scan_row(const float* row, float* out,
+                                         float& carry) {
+  float4 v[TJ / 4];
+#pragma unroll
+  for (int k = 0; k < TJ / 4; ++k)
+    v[k] = reinterpret_cast<const float4*>(row)[k];
+#pragma unroll
+  for (int k = 0; k < TJ / 4; ++k) {
+    v[k].x = carry += v[k].x;
+    v[k].y = carry += v[k].y;
+    v[k].z = carry += v[k].z;
+    v[k].w = carry += v[k].w;
+  }
+  if (out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < TJ / 4; ++k)
+      reinterpret_cast<float4*>(out)[k] = v[k];
+  }
+}
+
+// The cumsum of dt * A over positions [0, TJ n_chunks) for the block's G
+// heads, added in order by thread g < G for head h0 + g; returns thread
+// g's carry (the cum at the end: positions past Q add 0).  The cum of
+// positions [save0, save0 + TQ) goes to sv0[g][*], of [save1, ...) to
+// sv1 (NO_SAVE: none; both multiples of TQ).  dt comes PB chunks at a
+// time (the next batch's loads in flight during this one's scan) into
+// pa [PB][G][TJ].  Ends with a barrier.
+template <typename T, int G>
+__device__ float prefix_cum(const T* __restrict__ dt, const Shape& s,
+                            int bc, int h0, float a_h, int n_chunks,
+                            float* pa, int save0, float* sv0, int save1,
+                            float* sv1) {
+  const int t = threadIdx.x;
+  float carry = 0.f, d, a[PB];
+#pragma unroll
+  for (int k = 0; k < PB; ++k)
+    load_dt<T, G>(dt, s, bc, h0, k * TJ, a_h, d, a[k]);
+  for (int c0 = 0; c0 < n_chunks; c0 += PB) {
+    if (t < TJ * G) {
+#pragma unroll
+      for (int k = 0; k < PB; ++k)
+        pa[(k * G + t % G) * TJ + t / G] = a[k];
     }
-    for (int e = tid; e < TQ * P; e += THREADS) {
-      const int r = e / P, c = e % P, q = j0 + r;
-      xs[r * P + c] =
-          q < s.q ? to_f32(x[((row0 + q) * s.h + h) * P + c]) : 0.f;
+    if (c0 + PB < n_chunks) {
+#pragma unroll
+      for (int k = 0; k < PB; ++k)
+        load_dt<T, G>(dt, s, bc, h0, (c0 + PB + k) * TJ, a_h, d, a[k]);
     }
     __syncthreads();
-
-    // C_i . B_j for 4 x 4 (i, j) pairs a thread
-    float sc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sc[r][k] = 0.f;
-    for (int c = 0; c < N; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = cs[(ty * 4 + r) * ldn + c];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) b[k] = bs[(tx + 16 * k) * ldn + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sc[r][k] = fmaf(a[r], b[k], sc[r][k]);
-    }
-    // M = (C_i . B_j * exp(cum_i - cum_j)) * dt_j where i >= j, else 0,
-    // rounded to the input dtype
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int jl = tx + 16 * k;
-        float m = 0.f;
-        if (j0 + jl <= i)
-          m = (sc[r][k] * expf(cum_i[r] - cum_sh[jl])) * dt_sh[jl];
-        ms[(ty * 4 + r) * ldm + jl] = round_to<T>(m);
+    if (t < G) {
+      for (int k = 0; k < PB && c0 + k < n_chunks; ++k) {
+        const int q0 = (c0 + k) * TJ;   // in a saved tile or outside
+        float* out = (unsigned)(q0 - save0) < (unsigned)TQ
+                     ? sv0 + t * TQ + q0 - save0
+                     : (unsigned)(q0 - save1) < (unsigned)TQ
+                     ? sv1 + t * TQ + q0 - save1 : nullptr;
+        scan_row(pa + (k * G + t) * TJ, out, carry);
       }
     }
     __syncthreads();
-
-    const int nj = min(TQ, s.q - j0);
-    for (int j = 0; j < nj; ++j) {
-      float m[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) m[r] = ms[(ty * 4 + r) * ldm + j];
-#pragma unroll
-      for (int c = 0; c < PC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < P) {
-          const float xv = xs[j * P + col];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(m[r], xv, acc[r][c]);
-        }
-      }
-    }
   }
+  return carry;
+}
 
+// this step's dt (registers) into shared memory
+template <int G>
+__device__ __forceinline__ void stage_dt(float* dtj, float* aj, float d,
+                                         float a) {
+  const int t = threadIdx.x;
+  if (t < TJ * G) {
+    dtj[(t % G) * TJ + t / G] = d;
+    aj[(t % G) * TJ + t / G] = a;
+  }
+}
+
+// thread g < G: the step's cum of head g, carried on
+template <int G>
+__device__ __forceinline__ void scan_step(const float* aj, float* cumj,
+                                          float& carry) {
+  const int t = threadIdx.x;
+  if (t < G) scan_row(aj + t * TJ, cumj + t * TJ, carry);
+}
+
+// Rows [j0, j0 + rows) of B or C, columns [n0, n0 + bw), into rows of
+// ldb; and x rows [j0, j0 + TJ) of G heads from h0 (64 columns of P from
+// p0) into a ring slot [G][TJ][TQ].  On the vec path each thread copies
+// fixed 16-byte chunks at offsets from the tile's base pointer found
+// with shifts (a row of bw elements is a power of two of chunks, at most
+// NT); else copy_tile's plain loads.
+template <typename T, int NT>
+__device__ __forceinline__ void load_rows(const T* __restrict__ Bm,
+                                          const Shape& s, int bc, int j0,
+                                          int rows, int n0, int bw, int ldb,
+                                          T* bs) {
+  constexpr int CE = 16 / sizeof(T);
+  const int rows_ok = min(rows, s.q - j0);
+  const T* src = Bm + ((long long)bc * s.q + j0) * s.n + n0;
+  if (!s.vec) {
+    copy_tile<T, NT>(bs, ldb, src, s.n, rows, bw, rows_ok, s.n - n0);
+    return;
+  }
+  const int lg = __ffs(bw / CE) - 1;            // log2 of chunks a row
+  const int col = (threadIdx.x & ((1 << lg) - 1)) * CE;
+  const bool col_ok = n0 + col < s.n;
+  for (int r = threadIdx.x >> lg; r < rows; r += NT >> lg) {
+    const bool ok = r < rows_ok && col_ok;
+    hopper::cp_async16(hopper::smem_addr(bs + r * ldb + col),
+                       ok ? src + r * s.n + col : src, ok);
+  }
+}
+
+template <typename T, int NT, int G>
+__device__ __forceinline__ void load_x(const T* __restrict__ x,
+                                       const Shape& s, int bc, int h0,
+                                       int p0, int j0, T* xs) {
+  constexpr int CE = 16 / sizeof(T), CPX = TQ / CE;
+  const int rows_ok = min(TJ, s.q - j0);
+  const T* src = x + (((long long)bc * s.q + j0) * s.h + h0) * s.p + p0;
+  if (!s.vec) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-    if (i >= s.q) continue;
-    T* out = y + ((row0 + i) * s.h + h) * P;
+    for (int g = 0; g < G; ++g)
+      copy_tile<T, NT>(xs + g * TJ * TQ, TQ, src + g * s.p,
+                       (long long)s.h * s.p, TJ, TQ,
+                       h0 + g < s.h ? rows_ok : 0, s.p - p0);
+    return;
+  }
+  // chunk e of the slot: 16 bytes at e CE
 #pragma unroll
-    for (int c = 0; c < PC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < P) out[col] = from_f32<T>(acc[r][c]);
+  for (int k = 0; k < G * TJ * CPX / NT; ++k) {
+    const int e = threadIdx.x + k * NT;
+    const int g = e / (TJ * CPX), r = e / CPX % TJ, c = e % CPX * CE;
+    const bool ok = r < rows_ok && h0 + g < s.h && p0 + c < s.p;
+    hopper::cp_async16(hopper::smem_addr(xs + e * CE),
+                       ok ? src + (r * s.h + g) * s.p + c : src, ok);
+  }
+}
+
+// a y thread's 8 x 8 outputs of row tile it (rows r8.., columns p0 + c4..
+// and p0 + 32 + c4..) of head h, stored and zeroed
+template <typename T>
+__device__ __forceinline__ void store_y(float (&acc)[8][8], T* __restrict__ y,
+                                        const Shape& s, long long row0,
+                                        int h, int it, int p0, int r8,
+                                        int c4) {
+  const bool live = h < s.h;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = it * TQ + r8 + a;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int col = p0 + (b < 4 ? c4 + b : 32 + c4 + b - 4);
+      if (live && i < s.q && col < s.p)
+        y[((row0 + i) * s.h + h) * s.p + col] = from_f32<T>(acc[a][b]);
+      acc[a][b] = 0.f;
     }
   }
 }
 
-// 64 rows p of the state st[bc, h] (P x N).
-template <typename T>
-__device__ void state_tile(const T* __restrict__ x, const T* __restrict__ dt,
-                           float a_h, const T* __restrict__ Bm,
-                           T* __restrict__ st, const Shape& s, int bc, int h,
-                           int pt, float* smem) {
-  const int N = s.n, P = s.p, ldn = N + 1, ldx = TQ + 1;
-  float* bs = smem;               // [TQ][N + 1]  B rows of the q tile
-  float* xw = bs + TQ * ldn;      // [TQ][TQ + 1] weighted x, p columns
-  float* a_sh = xw + TQ * ldx;
-  float* cum_sh = a_sh + TQ;
-  float* dt_sh = cum_sh + TQ;
-  float* w_sh = dt_sh + TQ;
+// 64 rows i of y for a pair of row tiles (or one), G heads, 64 columns
+// of P
+template <typename T, int G>
+__device__ void y_block(const T* __restrict__ x, const T* __restrict__ dt,
+                        const T* __restrict__ A, const T* __restrict__ Bm,
+                        const T* __restrict__ Cm, T* __restrict__ y,
+                        const Shape& s, int bc, int h0, int pair, int pt,
+                        unsigned char* smem) {
+  constexpr int NT = 64 * G;
+  constexpr int RK = TQ * 16 / NT;   // C B^T rows a thread (4 columns)
+  constexpr int IPT = 32 / G;        // M entries (i) a thread, per head
+  constexpr int TPJ = TQ / IPT;      // threads per column j of M
+  const Layout L = layout(G, s.ld, sizeof(T));
+  T* cs = reinterpret_cast<T*>(smem + L.c);
+  T* bs = reinterpret_cast<T*>(smem + L.b);
+  T* xs = reinterpret_cast<T*>(smem + L.x);
+  float* cbs = reinterpret_cast<float*>(smem + L.cb);
+  float* ms = reinterpret_cast<float*>(smem + L.m);
+  float* cumi = reinterpret_cast<float*>(smem + L.cumi);
+  float* cumj = reinterpret_cast<float*>(smem + L.cumj);
+  float* dtj = reinterpret_cast<float*>(smem + L.dtj);
+  float* aj = reinterpret_cast<float*>(smem + L.aj);
+  float* pa = reinterpret_cast<float*>(smem + L.pa);
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int t = threadIdx.x, ld = s.ld;
+  const int tb = s.n_itiles - 1 - pair, ta = pair;   // tb first
+  const int n_rt = ta == tb ? 1 : 2;
   const int p0 = pt * TQ;
   const long long row0 = (long long)bc * s.q;
-  const int n_qt = (s.q + TQ - 1) / TQ;
+  const float a_h = t < TJ * G && h0 + t % G < s.h
+                    ? to_f32(A[h0 + t % G]) : 0.f;
+  // column steps of each row tile: up to its diagonal, not past Q; C B^T
+  // is formed at even steps (local to the row tile) for 2 TJ columns
+  const int ns0 = (min((tb + 1) * TQ, s.q) + TJ - 1) / TJ;
+  const int ns1 = n_rt == 2 ? (min((ta + 1) * TQ, s.q) + TJ - 1) / TJ : 0;
+  const int n_steps = ns0 + ns1;
 
-  // cum_last: the whole chain (positions past Q add 0, so the carry at
-  // its end is cum[Q - 1])
-  float carry = 0.f;
-  for (int t = 0; t < n_qt; ++t)
-    cum_tile<T>(dt, a_h, s, bc, h, t * TQ, a_sh, cum_sh, dt_sh, carry);
-  const float cum_last = carry;
+  // C rows of both row tiles, B for the first C B^T and x for step 0 in
+  // flight during the prefix walk
+  for (int r = 0; r < n_rt; ++r)
+    load_rows<T, NT>(Cm, s, bc, (r == 0 ? tb : ta) * TQ, TQ, 0, s.np, ld,
+                     cs + r * TQ * ld);
+  load_rows<T, NT>(Bm, s, bc, 0, 2 * TJ, 0, s.np, ld, bs);
+  load_x<T, NT, G>(x, s, bc, h0, p0, 0, xs);
+  hopper::cp_async_commit();
 
-  float acc[4][NC];
+  for (int e = t; e < 2 * G * TQ; e += NT) cumi[e] = 0.f;   // rows past Q
+  prefix_cum<T, G>(dt, s, bc, h0, a_h, ns0, pa, tb * TQ, cumi,
+                   n_rt == 2 ? ta * TQ : NO_SAVE, cumi + G * TQ);
+
+  // thread roles
+  const int cb_i = t / 16, cb_j = t % 16;                   // C B^T
+  const int m_j = t / TPJ, m_i0 = (t % TPJ) * IPT;          // M
+  const int hg = t / 64, r8 = (t % 64) / 8 * 8, c4 = t % 8 * 4;   // M x
+
+  float acc[8][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-    for (int k = 0; k < NC; ++k) acc[r][k] = 0.f;
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
 
-  carry = 0.f;
-  for (int t = 0; t < n_qt; ++t) {
-    const int t0 = t * TQ;
-    cum_tile<T>(dt, a_h, s, bc, h, t0, a_sh, cum_sh, dt_sh, carry);
-    if (tid < TQ) w_sh[tid] = expf(cum_last - cum_sh[tid]) * dt_sh[tid];
-    __syncthreads();
-    for (int e = tid; e < TQ * TQ; e += THREADS) {
-      const int r = e / TQ, c = e % TQ, q = t0 + r, p = p0 + c;
-      float v = 0.f;
-      if (q < s.q && p < P)
-        v = round_to<T>(to_f32(x[((row0 + q) * s.h + h) * P + p])
-                        * w_sh[r]);
-      xw[r * ldx + c] = v;
+  float carry = 0.f, d, a;
+  load_dt<T, G>(dt, s, bc, h0, 0, a_h, d, a);
+  for (int f = 0; f < n_steps; ++f) {
+    const int r = f < ns0 ? 0 : 1;
+    const int it = r == 0 ? tb : ta;
+    const int l = f - (r ? ns0 : 0);          // step within the row tile
+    const int j0 = l * TJ;
+    const int slot = f & 1;
+    if (f == ns0) {        // the second row tile starts over from j = 0
+      store_y<T>(acc, y, s, row0, h0 + hg, tb, p0, r8, c4);
+      carry = 0.f;
     }
-    for (int e = tid; e < TQ * N; e += THREADS) {
-      const int r = e / N, c = e % N, q = t0 + r;
-      bs[r * ldn + c] = q < s.q ? to_f32(Bm[(row0 + q) * N + c]) : 0.f;
+    hopper::cp_async_wait<0>();
+    stage_dt<G>(dtj, aj, d, a);
+    __syncthreads();       // tiles landed; step f - 1 done everywhere
+    if (f + 1 < n_steps) {
+      const int jn = (f + 1 - (f + 1 < ns0 ? 0 : ns0)) * TJ;
+      load_x<T, NT, G>(x, s, bc, h0, p0, jn, xs + (slot ^ 1) * G * TJ * TQ);
+      load_dt<T, G>(dt, s, bc, h0, jn, a_h, d, a);
     }
-    __syncthreads();
-    const int nq = min(TQ, s.q - t0);
-    for (int q = 0; q < nq; ++q) {
-      float xv[4];
+    hopper::cp_async_commit();
+    scan_step<G>(aj, cumj, carry);
+
+    // C_i B_j^T for columns [j0, j0 + 2 TJ), summed over N in order:
+    // rows cb_i + (NT / 16) k, columns cb_j + 16 m
+    if ((l & 1) == 0) {
+      const T* ct = cs + r * TQ * ld + cb_i * ld;
+      const T* bt = bs + cb_j * ld;
+      float sc[RK][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = xw[q * ldx + ty * 4 + r];
+      for (int k = 0; k < RK; ++k)
 #pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const int n = tx + 16 * k;
-        if (n < N) {
-          const float bv = bs[q * ldn + n];
+        for (int m = 0; m < 4; ++m) sc[k][m] = 0.f;
+#pragma unroll 2
+      for (int n = 0; n < s.np; n += 4) {
+        float4 b[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][k] = fmaf(xv[r], bv, acc[r][k]);
+        for (int m = 0; m < 4; ++m) b[m] = load4(bt + 16 * m * ld + n);
+#pragma unroll
+        for (int k = 0; k < RK; ++k) {
+          const float4 c = load4(ct + (NT / 16) * k * ld + n);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            sc[k][m] = fmaf(c.x, b[m].x, sc[k][m]);
+            sc[k][m] = fmaf(c.y, b[m].y, sc[k][m]);
+            sc[k][m] = fmaf(c.z, b[m].z, sc[k][m]);
+            sc[k][m] = fmaf(c.w, b[m].w, sc[k][m]);
+          }
         }
+      }
+#pragma unroll
+      for (int k = 0; k < RK; ++k)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          cbs[(cb_i + (NT / 16) * k) * LDC + cb_j + 16 * m] = sc[k][m];
+    }
+    __syncthreads();       // C B^T and the step's cum ready
+
+    // B for the next C B^T: this row tile's next pair of steps, else the
+    // other row tile's first
+    if ((l & 1) == 0) {
+      const int jb = r == 0 ? (l + 2 < ns0 ? j0 + 2 * TJ : n_rt == 2 ? 0 : -1)
+                            : (l + 2 < ns1 ? j0 + 2 * TJ : -1);
+      if (jb >= 0) load_rows<T, NT>(Bm, s, bc, jb, 2 * TJ, 0, s.np, ld, bs);
+      hopper::cp_async_commit();
+    }
+
+    // M^T[g][j][i] = round((C B^T * exp(cum_i - cum_j)) * dt_j), i >= j
+    {
+      const int qj = j0 + m_j;
+      float cb[IPT];
+#pragma unroll
+      for (int u = 0; u < IPT; ++u)
+        cb[u] = cbs[(m_i0 + u) * LDC + (l & 1) * TJ + m_j];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float cj = cumj[g * TJ + m_j], dj = dtj[g * TJ + m_j];
+        const float* ci = cumi + (r * G + g) * TQ + m_i0;
+        float* mt = ms + (g * TJ + m_j) * TQ + m_i0;
+#pragma unroll
+        for (int u = 0; u < IPT; u += 4) {
+          float o[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int i = it * TQ + m_i0 + u + v;
+            o[v] = qj <= i && i < s.q
+                   ? round_to<T>((cb[u + v] * expf(ci[u + v] - cj)) * dj)
+                   : 0.f;
+          }
+          *reinterpret_cast<float4*>(mt + u) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        }
+      }
+    }
+    __syncthreads();       // M ready
+
+    // y[g] += M[g] x_j[g]: rows r8.., columns c4.. and 32 + c4..
+    {
+      const float* mp = ms + hg * TJ * TQ + r8;
+      const T* xp = xs + slot * G * TJ * TQ + hg * TJ * TQ + c4;
+#pragma unroll 4
+      for (int j = 0; j < TJ; ++j) {
+        const float4 m0 = *reinterpret_cast<const float4*>(mp + j * TQ);
+        const float4 m1 = *reinterpret_cast<const float4*>(mp + j * TQ + 4);
+        const float4 x0 = load4(xp + j * TQ), x1 = load4(xp + j * TQ + 32);
+        const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int a8 = 0; a8 < 8; ++a8)
+#pragma unroll
+          for (int b8 = 0; b8 < 8; ++b8)
+            acc[a8][b8] = fmaf(mv[a8], xv[b8], acc[a8][b8]);
+      }
+    }
+  }
+  store_y<T>(acc, y, s, row0, h0 + hg, n_rt == 2 ? ta : tb, p0, r8, c4);
+}
+
+// 64 rows p and NS columns n of the state st for GS = G / 2 heads from
+// h0 (128 threads a head)
+template <typename T, int G>
+__device__ void state_block(const T* __restrict__ x,
+                            const T* __restrict__ dt,
+                            const T* __restrict__ A,
+                            const T* __restrict__ Bm, T* __restrict__ st,
+                            const Shape& s, int bc, int h0, int pt, int nt,
+                            unsigned char* smem) {
+  constexpr int NT = 64 * G, GS = G / 2, CE = 16 / sizeof(T);
+  constexpr int CPX = TQ / CE;
+  if (h0 >= s.h) return;   // a head group's second half past H
+  const Layout L = layout(G, s.ld, sizeof(T));
+  T* bs = reinterpret_cast<T*>(smem + L.b);        // [2][TJ][NS]
+  T* xs = reinterpret_cast<T*>(smem + L.x);        // [2][GS][TJ][TQ]
+  float* xw = reinterpret_cast<float*>(smem + L.m);  // [GS][TJ][TQ]
+  float* cumj = reinterpret_cast<float*>(smem + L.cumj);
+  float* dtj = reinterpret_cast<float*>(smem + L.dtj);
+  float* aj = reinterpret_cast<float*>(smem + L.aj);
+  float* pa = reinterpret_cast<float*>(smem + L.pa);
+  float* cl = reinterpret_cast<float*>(smem + L.cl);
+
+  const int t = threadIdx.x;
+  const int p0 = pt * TQ, n0 = nt * NS;
+  const float a_h = t < TJ * GS && h0 + t % GS < s.h
+                    ? to_f32(A[h0 + t % GS]) : 0.f;
+  const int n_steps = (s.q + TJ - 1) / TJ;
+
+  load_rows<T, NT>(Bm, s, bc, 0, TJ, n0, NS, NS, bs);
+  load_x<T, NT, GS>(x, s, bc, h0, p0, 0, xs);
+  hopper::cp_async_commit();
+  {
+    const float last = prefix_cum<T, GS>(dt, s, bc, h0, a_h, n_steps, pa,
+                                         NO_SAVE, nullptr, NO_SAVE,
+                                         nullptr);
+    if (t < GS) cl[t] = last;   // read after the next two barriers
+  }
+
+  const int hg = t / 128, r8 = t % 128 / 16 * 8, c4 = t % 16 * 4;
+  float acc[8][4];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+
+  float carry = 0.f, d, a;
+  load_dt<T, GS>(dt, s, bc, h0, 0, a_h, d, a);
+  for (int f = 0; f < n_steps; ++f) {
+    const int slot = f & 1;
+    hopper::cp_async_wait<0>();
+    stage_dt<GS>(dtj, aj, d, a);
+    __syncthreads();
+    if (f + 1 < n_steps) {
+      load_rows<T, NT>(Bm, s, bc, (f + 1) * TJ, TJ, n0, NS, NS,
+                    bs + (slot ^ 1) * TJ * NS);
+      load_x<T, NT, GS>(x, s, bc, h0, p0, (f + 1) * TJ,
+                        xs + (slot ^ 1) * GS * TJ * TQ);
+      load_dt<T, GS>(dt, s, bc, h0, (f + 1) * TJ, a_h, d, a);
+    }
+    hopper::cp_async_commit();
+    scan_step<GS>(aj, cumj, carry);
+    __syncthreads();       // the step's cum ready
+
+    // xw[g][q][p] = round(x * (exp(cum_last - cum_q) * dt_q)), a 16-byte
+    // chunk e of x (CE elements of row e / CPX) at a time: consecutive
+    // threads on consecutive chunks
+    {
+      const T* src = xs + slot * GS * TJ * TQ;
+#pragma unroll
+      for (int k = 0; k < GS * TJ * CPX / NT; ++k) {
+        const int e = t + k * NT, row = e / CPX, g = row / TJ;
+        const float w = expf(cl[g] - cumj[row]) * dtj[row];
+#pragma unroll
+        for (int u = 0; u < CE; u += 4) {
+          const float4 v = load4(src + e * CE + u);
+          *reinterpret_cast<float4*>(xw + e * CE + u) = make_float4(
+              round_to<T>(v.x * w), round_to<T>(v.y * w),
+              round_to<T>(v.z * w), round_to<T>(v.w * w));
+        }
+      }
+    }
+    __syncthreads();       // xw ready
+
+    // st[g] += xw[g]^T B: rows p r8.., columns n c4..
+    {
+      const float* ap = xw + hg * TJ * TQ + r8;
+      const T* bp = bs + slot * TJ * NS + c4;
+#pragma unroll 4
+      for (int q = 0; q < TJ; ++q) {
+        const float4 a0 = *reinterpret_cast<const float4*>(ap + q * TQ);
+        const float4 a1 = *reinterpret_cast<const float4*>(ap + q * TQ + 4);
+        const float4 bv = load4(bp + q * NS);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int a8 = 0; a8 < 8; ++a8)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[a8][b] = fmaf(av[a8], b4[b], acc[a8][b]);
       }
     }
   }
 
+  const int h = h0 + hg;
+  if (h >= s.h) return;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = p0 + ty * 4 + r;
-    if (p >= P) continue;
-    T* out = st + (((long long)bc * s.h + h) * P + p) * N;
+  for (int a8 = 0; a8 < 8; ++a8) {
+    const int p = p0 + r8 + a8;
+    if (p >= s.p) break;
+    T* out = st + (((long long)bc * s.h + h) * s.p + p) * s.n;
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int n = tx + 16 * k;
-      if (n < N) out[n] = from_f32<T>(acc[r][k]);
+    for (int b = 0; b < 4; ++b) {
+      const int n = n0 + c4 + b;
+      if (n < s.n) out[n] = from_f32<T>(acc[a8][b]);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int G>
+__global__ void __launch_bounds__(64 * G, 1)
 ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                  const T* __restrict__ A, const T* __restrict__ Bm,
                  const T* __restrict__ Cm, T* __restrict__ y,
                  T* __restrict__ st, Shape s) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.y, bc = blockIdx.z;
-  const float a_h = to_f32(A[h]);
-  const int b = blockIdx.x;
-  if (b < s.n_ptiles) {
-    state_tile<T>(x, dt, a_h, Bm, st, s, bc, h, b, smem);
-  } else {
-    // the longest row tiles (nearest the chunk's end) first
-    y_tile<T>(x, dt, a_h, Bm, Cm, y, s, bc, h,
-              s.n_itiles - 1 - (b - s.n_ptiles), smem);
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h0 = blockIdx.x * G, bc = blockIdx.y, item = blockIdx.z;
+  if (item < s.y_items)
+    y_block<T, G>(x, dt, A, Bm, Cm, y, s, bc, h0, item / s.y_pt,
+                  item % s.y_pt, smem);
+  else
+    state_block<T, G>(x, dt, A, Bm, st, s, bc,
+                      h0 + (item - s.y_items) % 2 * (G / 2),
+                      (item - s.y_items) / 2 / s.st_nt,
+                      (item - s.y_items) / 2 % s.st_nt, smem);
 }
 
-template <typename T>
+// Completes s for a launch of g heads a y block with elements of esz
+// bytes and sets its grid; returns the block's shared memory in bytes,
+// or 0 for a launch this file refuses (widths, G, shared memory, grid).
+inline int prepare(int g, int esz, Shape& s, dim3& grid) {
+  if (s.p < 1 || s.p > MAX_P || s.n < 1 || s.n > MAX_N || s.q < 1
+      || s.bc < 1 || s.bc > 65535 || s.h < 1 || s.h > 65535
+      || (g != 2 && g != 4))
+    return 0;
+  const int ce = 16 / esz;
+  s.n_itiles = (s.q + TQ - 1) / TQ;
+  s.y_pt = (s.p + TQ - 1) / TQ;
+  s.st_nt = (s.n + NS - 1) / NS;
+  s.np = (s.n + ce - 1) / ce * ce;
+  s.ld = s.np + ce;
+  s.y_items = (s.n_itiles + 1) / 2 * s.y_pt;
+  const long long items = s.y_items + 2LL * s.y_pt * s.st_nt;
+  const int smem = layout(g, s.ld, esz).total;
+  if (smem > SMEM_MAX || items > 65535) return 0;
+  grid = dim3((s.h + g - 1) / g, s.bc, (unsigned)items);
+  return smem;
+}
+
+template <typename T, int G>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, void* y, void* st,
-                   Shape s, cudaStream_t stream) {
+                   Shape s, int smem, dim3 grid, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(MAX_P, MAX_N));
+        ssd_chunk_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid(s.n_ptiles + s.n_itiles, s.h, s.bc);
-  ssd_chunk_kernel<T><<<grid, THREADS, smem_bytes(s.p, s.n), stream>>>(
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x)
+      | reinterpret_cast<uintptr_t>(Bm) | reinterpret_cast<uintptr_t>(Cm);
+  constexpr int CE = 16 / sizeof(T);
+  const int cpr = s.np / CE;     // chunks of a C / B row: a power of two
+  s.vec = bits % 16 == 0 && s.p % CE == 0 && s.n % CE == 0
+          && (cpr & (cpr - 1)) == 0;
+  ssd_chunk_kernel<T, G><<<grid, 64 * G, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const T*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<T*>(y), static_cast<T*>(st), s);
   return cudaGetLastError();
 }
 
+Shape shape_of(int bc, int q, int h, int p, int n) {
+  Shape s{};
+  s.bc = bc; s.q = q; s.h = h; s.p = p; s.n = n;
+  return s;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Contiguous x (bc, q, h, p),
 // dt (bc, q, h), A (h), B and C (bc, q, n); y like x, st (bc, h, p, n);
-// 1 <= p, n <= 128; 1 <= bc, h <= 65535; q >= 1.
-// Returns a cudaError_t: 0 after a launch that the runtime accepted.
+// 1 <= p, n <= 128; 1 <= bc, h <= 65535; q >= 1.  g: heads a y block,
+// 2 or 4, as ops.plan chooses (a state block takes g / 2; the tiles are
+// this file's); a launch whose shared memory or grid does not fit is
+// refused.  Returns a cudaError_t: 0 after a launch that the runtime
+// accepted.
 extern "C" int ssd_chunk_launch(int dtype, const void* x, const void* dt,
                                 const void* A, const void* Bm, const void* Cm,
                                 void* y, void* st, int bc, int q, int h,
-                                int p, int n, void* stream) {
-  if (p < 1 || p > MAX_P || n < 1 || n > MAX_N || q < 1 || bc < 1
-      || bc > 65535 || h < 1 || h > 65535)
-    return (int)cudaErrorInvalidValue;
-  Shape sh{bc, q, h, p, n, (p + TQ - 1) / TQ, (q + TQ - 1) / TQ};
+                                int p, int n, int g, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Shape s = shape_of(bc, q, h, p, n);
+  dim3 grid;
+  const int smem = prepare(g, dtype == 0 ? 4 : 2, s, grid);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, dt, A, Bm, Cm, y, st, sh, strm);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, st, sh, strm);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)(g == 2
+        ? launch<float, 2>(x, dt, A, Bm, Cm, y, st, s, smem, grid, strm)
+        : launch<float, 4>(x, dt, A, Bm, Cm, y, st, s, smem, grid, strm));
+  return (int)(g == 2
+      ? launch<__nv_bfloat16, 2>(x, dt, A, Bm, Cm, y, st, s, smem, grid, strm)
+      : launch<__nv_bfloat16, 4>(x, dt, A, Bm, Cm, y, st, s, smem, grid,
+                                 strm));
+}
+
+// What ssd_chunk_launch would launch with the same arguments: out[0] the
+// block's shared memory in bytes, out[1..3] the grid.  Returns
+// cudaErrorInvalidValue where the launch would be refused.
+extern "C" int ssd_chunk_query(int dtype, int bc, int q, int h, int p,
+                               int n, int g, int* out) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Shape s = shape_of(bc, q, h, p, n);
+  dim3 grid;
+  const int smem = prepare(g, dtype == 0 ? 4 : 2, s, grid);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  out[0] = smem;
+  out[1] = (int)grid.x;
+  out[2] = (int)grid.y;
+  out[3] = (int)grid.z;
+  return 0;
 }

@@ -202,7 +202,10 @@ def decode_inputs(b, k, g, d, w, seed=0):
 
 
 # SSD intra-chunk cases: (BC, Q, H, P, N); tests/test_kernels.py's sweep,
-# then chunk lengths that no 64-row tile divides
+# then chunk lengths that no 64-row tile divides, then a head count that
+# no head group of the kernel divides with P and N that the kernel's
+# 16-byte copies do not take in bf16 (its plain-load path), and three
+# 64-row tiles (an odd middle tile without a partner) with H = 6
 SSD_CASES = {
     "q16": (2, 16, 2, 16, 8),
     "q64": (1, 64, 4, 32, 16),
@@ -210,6 +213,24 @@ SSD_CASES = {
     "q128_p64": (2, 128, 2, 64, 64),
     "q37": (2, 37, 2, 16, 8),
     "q73": (1, 73, 3, 16, 32),
+    "h5_p20_n12": (1, 40, 5, 20, 12),
+    "q150_h6": (1, 150, 6, 8, 16),
+}
+# the kernel's edges on the card: (BC, Q, H, P, N) and the heads a block
+# ``ops.plan`` must choose in fp32 and in bf16.  mamba2-370m's prefill
+# chunk (Q = 511, eight row tiles: four pairs) and a 1024-token prompt's
+# (Q = 256); H not a multiple of G = 4; an odd number of row tiles at
+# BC = 1; Q = 1030 (nothing sized by Q; in fp32 G = 2's grid would take
+# two waves); P = 128 (two P tiles) with N = 8; two heads
+SSD_EDGE_CASES = {
+    "mamba2_prefill": ((4, 511, 32, 64, 128), (4, 4)),
+    "mamba2_q256": ((16, 256, 32, 64, 128), (4, 4)),
+    "h3": ((64, 256, 3, 64, 128), (4, 4)),
+    "h6": ((16, 511, 6, 64, 128), (4, 4)),
+    "q511_bc1": ((1, 511, 32, 64, 128), (2, 2)),
+    "q1030": ((1, 1030, 32, 64, 128), (4, 2)),
+    "p128_n8": ((2, 256, 4, 128, 8), (2, 2)),
+    "h2": ((64, 256, 2, 64, 128), (2, 2)),
 }
 # grouped expert GEMM cases: (E, C, D, F); tests/test_kernels.py's sweep,
 # then the capacities of a granite decode (C = 4) and prefill (C = 508),

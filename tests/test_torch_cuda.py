@@ -31,6 +31,7 @@ from repro_torch.serving import lm
 from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           DECODE_CASES, DECODE_SPLIT_CASES, MOE_GEMM_CASES,
                           MOE_GEMM_VARIANTS, PREFILL_CASES, SSD_CASES,
+                          SSD_EDGE_CASES,
                           conv_inputs,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
@@ -253,14 +254,25 @@ def test_generate_runs_through_the_attention_kernels(case, cuda):
         tok = toks[:, i].cpu()
 
 
+def _ssd_shape(case):
+    return SSD_CASES.get(case) or {"q511_h32": (2, 511, 32, 64, 128),
+                                   "q256_p128": (1, 256, 2, 128, 64)
+                                   }.get(case) or SSD_EDGE_CASES[case][0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["q511_h32", "q256_p128"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["q511_h32", "q256_p128"]
+                         + sorted(SSD_EDGE_CASES))
 def test_ssd_chunk_kernel_matches_plain_version(case, dtype, cuda):
     """The sweep, a full-width mamba2-370m chunk of 511 positions (no tile
-    divides it) and P = 128, under the attention kernels' limits."""
-    shape = SSD_CASES.get(case) or {"q511_h32": (2, 511, 32, 64, 128),
-                                    "q256_p128": (1, 256, 2, 128, 64)}[case]
+    divides it), P = 128 and the kernel's edges (each through the head
+    group its plan names), under the attention kernels' limits."""
+    shape = _ssd_shape(case)
+    if case in SSD_EDGE_CASES:
+        want = SSD_EDGE_CASES[case][1]
+        assert ssd_ops.plan(*shape, dtype).g == \
+            want[[torch.float32, torch.bfloat16].index(dtype)]
     x, dt, A, Bm, Cm = (_t(a, cuda).to(dtype) for a in ssd_inputs(*shape))
     before = ssd_ops.launch_count("ssd_chunk")
     y, st = ssd_ops.ssd_chunk(x, dt, A, Bm, Cm)
@@ -270,6 +282,52 @@ def test_ssd_chunk_kernel_matches_plain_version(case, dtype, cuda):
     for got, want in ((y, want_y), (st, want_st)):
         assert got.shape == want.shape and got.dtype == dtype
         _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mamba2_prefill", "h3", "q1030",
+                                  "p128_n8", "h5_p20_n12"])
+def test_ssd_chunk_kernel_gives_the_same_bits_twice(case, dtype, cuda):
+    """No atomics: every output is summed by one thread in a fixed order,
+    so two calls agree bit for bit."""
+    x, dt, A, Bm, Cm = (_t(a, cuda).to(dtype)
+                        for a in ssd_inputs(*_ssd_shape(case)))
+    first = ssd_ops.ssd_chunk(x, dt, A, Bm, Cm)
+    second = ssd_ops.ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [8, 3, 1, 0])
+def test_ssd_chunk_kernel_refuses_other_plans(g, cuda):
+    """The C side takes only the G that ``ops.plan`` may choose; the
+    wrapper raises on its error code (past the Python check, which
+    refuses the same plans first)."""
+    x, dt, A, Bm, Cm = (_t(a, cuda) for a in ssd_inputs(*SSD_CASES["q64"]))
+    BC, Q, H, P = x.shape
+    y, st = torch.empty_like(x), x.new_empty((BC, H, P, Bm.shape[-1]))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_ops._KERNELS.launch(
+            "ssd_chunk", x, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), st.data_ptr(), BC,
+            Q, H, P, Bm.shape[-1], g)
+    with pytest.raises(RuntimeError, match="refused"):
+        ssd_ops.kernel_layout(BC, Q, H, P, Bm.shape[-1], g, x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", ssd_ops.GROUPS)
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + sorted(SSD_EDGE_CASES))
+def test_ssd_plan_grid_and_smem_are_the_kernels(case, g, dtype, cuda):
+    """The Python plan's grid and shared memory (which choose G) are
+    what the C side computes for the same launch."""
+    shape = _ssd_shape(case)
+    esz = torch.empty((), dtype=dtype).element_size()
+    assert ssd_ops.kernel_layout(*shape, g, dtype) == (
+        ssd_ops.smem_bytes(g, shape[-1], esz), ssd_ops._grid(*shape, g))
 
 
 @pytest.mark.cuda

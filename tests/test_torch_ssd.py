@@ -4,6 +4,8 @@ interpret mode) and its jnp oracle, ``ssd_chunked`` and the Mamba2
 prefill/decode layers against the reference's; and the wrapper's CPU
 path and checks."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ from repro_torch import configs
 from repro_torch.kernels.ssd import ops, ref
 from repro_torch.models.transformer import layers as L
 
-from _torch_cases import SSD_CASES, c_argtypes, ssd_inputs
+from _torch_cases import SSD_CASES, SSD_EDGE_CASES, c_argtypes, ssd_inputs
 
 # tests/test_kernels.py's bands.  fp32: sums (and the cumsum) in another
 # order than XLA's.  bf16: M and x·w rounded to bf16, where a different
@@ -169,3 +171,108 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("name", sorted(ops.SOURCES))
 def test_ctypes_signature_matches_the_c_prototype(name):
     assert ops.ARGTYPES[name] == c_argtypes(ops.SOURCES[name], name)
+
+
+# -- the launch plan (plain Python; the kernel refuses any other) ----------
+
+_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("case", sorted(SSD_EDGE_CASES))
+def test_plan_at_the_paths_shapes_and_edges(case, dtype):
+    """G = 4 heads a y block at mamba2's prefill shapes and wherever the
+    grid fills the card, G = 2 where G = 4's grid is short of one wave
+    and G = 2's runs in one, or for two heads; G′ = G / 2 heads a state
+    block; the grid, one block an item, within CUDA's limits and the
+    shared memory within a block's 227 KB."""
+    shape, want = SSD_EDGE_CASES[case]
+    want_g = want[_DTYPES.index(dtype)]
+    bc, q, h, p, n = shape
+    pl = ops.plan(*shape, dtype)
+    assert pl.g == want_g and pl.gs == want_g // 2
+    assert (ops.TQ, ops.TJ, ops.NS) == (64, 32, 64)
+    pairs = -(-(-(-q // 64)) // 2)      # row-tile pairs (odd middle alone)
+    p_tiles, n_tiles = -(-p // 64), -(-n // 64)
+    assert pl.grid == (-(-h // want_g), bc,
+                       pairs * p_tiles + 2 * p_tiles * n_tiles)
+    assert max(pl.grid) <= 65535
+    assert 0 < pl.smem <= ops.SMEM_MAX
+    ops.check_plan(pl)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_plan_at_mamba2_prefill_is_one_wave_of_pairs(dtype):
+    """(4, 511, 32, 64, 128): eight row tiles in four pairs of nine column
+    tiles each, eight head groups of four, four chunks: 128 y blocks and
+    128 state blocks (64 P rows x 64 N columns of two heads)."""
+    pl = ops.plan(4, 511, 32, 64, 128, dtype)
+    assert pl.g == 4 and pl.gs == 2
+    assert pl.grid == (8, 4, 4 + 2 * 2) and math.prod(pl.grid) == 256
+    assert pl.smem == {torch.float32: 224016, torch.bfloat16: 142096}[dtype]
+
+
+@pytest.mark.parametrize("h,g,groups", [(1, 2, 1), (2, 2, 1), (3, 4, 1),
+                                        (5, 4, 2), (6, 4, 2), (32, 4, 8),
+                                        (33, 4, 9)])
+def test_plan_covers_every_head_with_a_tail_group(h, g, groups):
+    """ceil(H / G) head groups; the last holds the H % G live heads (the
+    kernel stores nothing for the rest).  At a grid that fills the card,
+    G = 4, except for one or two heads, where a group of 2 wastes
+    nothing."""
+    pl = ops.plan(128, 256, h, 64, 128)
+    assert pl.g == g and pl.grid[0] == groups
+    assert (pl.grid[0] - 1) * pl.g < h <= pl.grid[0] * pl.g
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("bc,q,h,blocks4,want", [
+    (1, 511, 32, 64, (2, 2)),   # G = 2: 128 blocks, one wave
+    (2, 511, 16, 64, (2, 2)),
+    # G = 2: 256 blocks, two waves at one an SM (fp32), one at two (bf16)
+    (2, 511, 32, 128, (4, 2)),
+    (3, 511, 32, 192, (4, 4)),  # G = 4 fills the card
+    (1, 64, 32, 40, (2, 2))])   # one row tile: 1 + 2 x 2 items
+def test_plan_takes_g2_only_when_g4_is_short_of_a_wave(bc, q, h, blocks4,
+                                                       want, dtype):
+    """G = 2 where G = 4's grid has fewer blocks than the card has SMs
+    and G = 2's whole grid runs at once (as many blocks as SMs times the
+    blocks an SM holds)."""
+    four = ops._grid(bc, q, h, 64, 128, 4)
+    assert math.prod(four) == blocks4
+    assert ops.plan(bc, q, h, 64, 128, dtype).g == want[_DTYPES.index(dtype)]
+
+
+@pytest.mark.parametrize("g,smem,blocks", [
+    (4, 224016, 1), (2, 171024, 1),      # mamba2, fp32
+    (4, 142096, 1), (2, 105488, 2),      # mamba2, bf16 (G = 4: registers)
+    (2, 20000, 2)])                      # registers: 128 x 255 a block
+def test_blocks_per_sm_by_shared_memory_and_registers(g, smem, blocks):
+    assert ops.blocks_per_sm(g, smem) == blocks
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("g", ops.GROUPS)
+@pytest.mark.parametrize("n", [1, 8, 12, 64, 100, 128])
+def test_every_plan_fits_a_blocks_shared_memory(n, g, dtype):
+    esz = torch.empty((), dtype=dtype).element_size()
+    assert ops.smem_bytes(g, n, esz) <= ops.SMEM_MAX
+
+
+def test_plan_refuses_a_grid_past_cudas_limits():
+    with pytest.raises(ValueError, match="plan refused"):
+        ops.plan(70000, 64, 4, 64, 128)
+
+
+@pytest.mark.parametrize("change", [dict(g=8), dict(g=3), dict(g=1),
+                                    dict(grid=(1, 1, 70000)),
+                                    dict(grid=(1, 70000, 8)),
+                                    dict(smem=1 << 20)])
+def test_plan_check_refuses_what_the_kernel_refuses(change):
+    """The wrapper's plan check refuses what ``ssd_chunk_launch`` refuses
+    with cudaErrorInvalidValue (held on the card by
+    tests/test_torch_cuda.py, where the wrapper raises on that code)."""
+    good = ops.plan(*SSD_CASES["q64"])
+    ops.check_plan(good)                                        # accepted
+    with pytest.raises(ValueError, match="plan refused"):
+        ops.check_plan(good._replace(**change))
