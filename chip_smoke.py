@@ -17,10 +17,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    events), and the kernel's and the library call's device time
    (``torch.profiler``); every case also called twice, which must give
    the same bits; each conv case names its plan (variant, tile, split-K)
-   and must run the planned variant, the conv, decode and ``ssd_chunk``
-   edge cases must take the plan (splits, heads a block) they are listed
-   with, each ``moe_gemm`` case names its variant and each ``ssd_chunk``
-   case its plan (G, G', tiles, grid); a table of the 15 conv launches
+   and must run the planned variant, the conv, decode, ``ssd_chunk``
+   and ``flash_prefill`` edge cases must take the plan (splits, heads a
+   block, padded D and grid) they are listed with, each ``moe_gemm``
+   case names its variant and each ``ssd_chunk`` and ``flash_prefill``
+   case its plan (G, G', tiles, grid; rows, padded D, grid, tile order),
+   held equal to the C side's; a table of the 15 conv launches
    of one runner call (plan, ms, device ms against cuDNN's, share of the
    bound);
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
@@ -123,25 +125,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
     """Mean device time of ``fn`` a call: the kernels' own durations as
     ``torch.profiler`` records them (host time between launches not
     counted; ``time_ms`` counts it when the host is the slower).  Each
     kernel's mean over the launches the profiler caught, times its
-    launches a call (the profiler can miss the first few of a window)."""
+    launches a call (the profiler can miss the first few of a window).
+    Now and then a window records no kernel at all; it is taken again,
+    up to ``tries`` windows, and then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count
-               * max(1, round(e.count / iters))
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.count) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / iters))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count) / 1e3
+        if ms > 0:
+            return ms
+    fail(f"torch.profiler recorded no kernel in {tries} windows of "
+         f"{iters} calls")
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
@@ -228,9 +237,18 @@ def _plan_text(p) -> str:
     return f"{p.variant} {p.tile[0]}x{p.tile[1]} S{p.split}"
 
 
+def _prefill_plan_text(p) -> str:
+    order = "tiles outer" if p.tile_outer else "tiles inner"
+    return (f"rows{p.rows} DP{p.dp} grid{p.grid} order {p.order[0]}.."
+            f"{p.order[-1]} {order}")
+
+
 def prefill_case(shape, window, dtype_name, seed=0) -> dict:
     """flash_prefill against its plain version at q shape (B, S, K, G, D);
-    the library call is SDPA (``enable_gqa``, causal or windowed mask)."""
+    the library call is SDPA (``enable_gqa``, causal or windowed mask).
+    The description names the launch's plan (``ops.prefill_plan``: rows
+    a block, padded D, grid, tile order), whose rows, padded D, threads,
+    shared memory and grid must be the C side's (``ops.prefill_layout``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
@@ -241,6 +259,9 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
     q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     kk, vv = (torch.randn((b, s, k, d), generator=gen, device="cuda")
               .to(dtype) for _ in range(2))
+    pl = ops.prefill_plan(*shape, dtype)
+    same_layout = ops.prefill_layout(*shape, dtype) == (
+        pl.rows, pl.dp, pl.threads, pl.smem, pl.grid)
     y = ops.flash_prefill(q, kk, vv, sliding_window=window)
     y2 = ops.flash_prefill(q, kk, vv, sliding_window=window)
     y_ref = ref.flash_prefill_ref(q, kk, vv, window)
@@ -268,9 +289,12 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
            device_ms(sdpa))
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     nbytes = 2 * (q.numel() + kk.numel()) * q.element_size()  # q, k, v, o
-    return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window}"
-                + ("" if same else " NOT BIT-REPRODUCIBLE"),
-                dtype=dtype_name, err=err, of_limit=of_limit, ok=ok and same,
+    return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window} "
+                + _prefill_plan_text(pl)
+                + ("" if same else " NOT BIT-REPRODUCIBLE")
+                + ("" if same_layout else " PLAN AND KERNEL DIFFER"),
+                plan=pl, dtype=dtype_name, err=err, of_limit=of_limit,
+                ok=ok and same and same_layout,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
                 **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
@@ -534,21 +558,31 @@ def _extra_cases(cfg) -> list[dict]:
         b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,\
             cfg.hd
         w = LM_PROMPT + LM_NEW
-        for shape, window, dt in [
-                ((2, 37, k, g, d), 0, "float32"),      # S no tile divides
-                ((2, 200, k, g, d), 32, "float32"),    # sliding window
-                ((2, 200, k, g, d), 32, "bfloat16"),
-                ((2, 256, 16, 1, d), 0, "float32"),    # G = 1
-                ((1, 256, 8, 8, 128), 0, "float32"),   # D = 128
-                ((1, 256, 8, 8, 128), 0, "bfloat16"),
-                # the bf16 wgmma kernel's edges: D padded to 16 and to
-                # 64, G = 3 at S = 511 (63 of 64 rows), G = 64, S = 37
-                ((2, 300, k, g, 8), 0, "bfloat16"),
-                ((2, 300, k, g, 40), 0, "bfloat16"),
-                ((b, 511, k, 3, d), 0, "bfloat16"),
-                ((1, 130, 2, 64, 32), 0, "bfloat16"),
-                ((2, 37, k, g, d), 0, "bfloat16")]:
-            cases.append(prefill_case(shape, window, dt))
+        # each with the padded D and grid its plan must give in fp32 (one
+        # dimension, the query tiles outer) and in bf16 (query tiles,
+        # B K); 64 rows a block in both
+        for shape, window, dts, dp, n_qt in [
+                ((2, 37, k, g, d), 0, ("float32", "bfloat16"), 64, 3),
+                ((2, 200, k, g, d), 32, ("float32", "bfloat16"), 64, 13),
+                ((2, 256, 16, 1, d), 0, ("float32",), 64, 4),    # G = 1
+                ((1, 256, 8, 8, 128), 0, ("float32", "bfloat16"), 128, 32),
+                # D padded to 16 and to 64, G = 3 at S = 511 (63 of 64
+                # rows), G = 64, and qwen1.5-0.5b's prefill (G = 1 at the
+                # path's size)
+                ((2, 300, k, g, 8), 0, ("float32", "bfloat16"), 16, 19),
+                ((2, 300, k, g, 40), 0, ("float32", "bfloat16"), 64, 19),
+                ((b, 511, k, 3, d), 0, ("float32", "bfloat16"), 64, 25),
+                ((1, 130, 2, 64, 32), 0, ("float32", "bfloat16"), 32, 130),
+                ((b, 511, 16, 1, d), 0, ("float32",), 64, 8)]:
+            bk = shape[0] * shape[2]
+            for dt in dts:
+                r = prefill_case(shape, window, dt)
+                want = (dp, (n_qt * bk, 1) if dt == "float32"
+                        else (n_qt, bk))
+                if (r["plan"].dp, r["plan"].grid) != want:
+                    fail(f"flash_prefill {r['desc']} {dt}: want DP and "
+                         f"grid {want}")
+                cases.append(r)
         # the split-KV kernel's edges, each with the splits it must take:
         # valid_len 1 (split 0 alone live), W, on a split boundary
         # (W / 2), 0 (all W entries, equal weights) and past W; W = 37
@@ -957,10 +991,12 @@ def run_lm(arch: str) -> dict[str, dict]:
         if all("dev_ms" in r for r in path + bf):
             lib = [total(rows, "library_dev_ms") for rows in (path, bf)]
             lib = ["-" if v is None else f"{v:.4f}" for v in lib]
+            dev = total(path, "dev_ms")
             print(f"[kernels] {cfg.name} {name} device time (profiler) "
-                  f"over the same launches: fp32 {total(path, 'dev_ms'):.4f}"
-                  f", library {lib[0]}; bf16 {total(bf, 'dev_ms'):.4f}, "
-                  f"library {lib[1]}")
+                  f"over the same launches: fp32 {dev:.4f} "
+                  f"({100 * out[name]['bound_ms'] / dev:.1f}% of the "
+                  f"bound), library {lib[0]}; bf16 "
+                  f"{total(bf, 'dev_ms'):.4f}, library {lib[1]}")
         if name == "moe_gemm":      # the split by variant, per dtype
             for dt, rows in (("float32", path), ("bfloat16", bf)):
                 for v in sorted({r["variant"] for r in rows}):

@@ -154,6 +154,13 @@ PREFILL_CASES = {
     "s200_g4_w32": (1, 200, 2, 4, 64, 32),
     "s40_g64": (1, 40, 1, 64, 32, 0),
 }
+# flash-prefill at the LM paths' full prefill shapes (B 4, S 511): q (B,
+# S, K, G, D)
+PREFILL_FULL_SHAPES = {
+    "llama3.2-1b": (4, 511, 8, 4, 64),
+    "granite-moe-3b-a800m": (4, 511, 8, 3, 64),
+    "qwen1.5-0.5b": (4, 511, 16, 1, 64),
+}
 # flash-decode: (B, K, G, D, cache W, valid_len), tests/test_kernels.py's
 # sweep plus a cache that no tile divides, filled to one entry
 DECODE_CASES = {

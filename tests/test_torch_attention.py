@@ -14,11 +14,13 @@ from repro.kernels.attention.decode_attn import (
 from repro.kernels.attention.flash_prefill import (
     flash_prefill as ref_flash_prefill)
 from repro.models.transformer import layers as RL
+from repro_torch import configs
 from repro_torch.kernels._build import split_ranges
 from repro_torch.kernels.attention import ops, ref
 
 from _torch_cases import (DECODE_CASES, DECODE_SPLIT_CASES, PREFILL_CASES,
-                          c_argtypes, decode_inputs, prefill_inputs)
+                          PREFILL_FULL_SHAPES, c_argtypes, decode_inputs,
+                          prefill_inputs)
 
 # fp32: sums in another order than XLA's (the band of
 # tests/test_kernels.py's flash-prefill sweep); bf16: the `TOL` band of
@@ -168,3 +170,111 @@ def test_split_ranges_cover_once_in_order(n, parts):
     assert len(ranges) == parts
     covered = [i for a, b in ranges for i in range(a, b)]
     assert covered == list(range(n))
+
+
+def _blocks(pl, b, k, g, s):
+    """(b K index, first position, positions) of every block of plan
+    ``pl`` in launch order, as the kernels map their block index: fp32
+    block i at query tile order[i // BK], (b, kv head) i % BK; bf16
+    block (x, y) at query tile order[x], (b, kv head) y, x fastest."""
+    bq, bk = pl.rows // g, b * k
+    ids = ([(t, i) for t in pl.order for i in range(bk)] if pl.tile_outer
+           else [(t, i) for i in range(bk) for t in pl.order])
+    assert len(ids) == pl.grid[0] * pl.grid[1]
+    return [(i, t * bq, min(bq, s - t * bq)) for t, i in ids]
+
+
+def _plan_shape(case):
+    if case in PREFILL_FULL_SHAPES:
+        return PREFILL_FULL_SHAPES[case]
+    return PREFILL_CASES[case][:5]
+
+
+@pytest.mark.parametrize("arch", sorted(PREFILL_FULL_SHAPES))
+def test_prefill_full_shapes_are_the_configs(arch):
+    cfg = configs.get(arch)
+    b, s, k, g, d = PREFILL_FULL_SHAPES[arch]
+    assert (k, g, d) == (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                         cfg.hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES)
+                         + sorted(PREFILL_FULL_SHAPES))
+def test_prefill_plan_covers_every_row_once(case, dtype):
+    """The blocks of ``ops.prefill_plan``, mapped as the kernel maps its
+    block index, hold every (b K, position, head) row exactly once, and
+    no block more rows than the plan's."""
+    b, s, k, g, d = _plan_shape(case)
+    pl = ops.prefill_plan(b, s, k, g, d, dtype)
+    seen = np.zeros((b * k, s), np.int64)
+    for bk, q0, n in _blocks(pl, b, k, g, s):
+        assert 1 <= n and n * g <= pl.rows and q0 + n <= s
+        seen[bk, q0:q0 + n] += 1
+    assert (seen == 1).all()
+    assert pl.dp >= d and pl.dp in ops.PADDED_D
+    assert (pl.bkv, pl.stages) == (ops.BKV, ops.STAGES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES)
+                         + sorted(PREFILL_FULL_SHAPES))
+def test_prefill_plan_walks_the_heaviest_query_tiles_first(case, dtype):
+    """The tile order is a permutation of the query tiles, the last
+    first: without a window, by live kv tiles from most to fewest; in
+    fp32 over the whole grid (every (b, kv head) of a tile before the
+    next), so the short blocks come last.  (With a window every tile
+    past the first few walks about as many.)"""
+    b, s, k, g, d = _plan_shape(case)
+    pl = ops.prefill_plan(b, s, k, g, d, dtype)
+    bq = pl.rows // g
+    assert list(pl.order) == list(range(-(-s // bq)))[::-1]
+    work = [(min(s, (t + 1) * bq) - 1) // pl.bkv + 1 for t in pl.order]
+    assert work == sorted(work, reverse=True)
+    blocks = _blocks(pl, b, k, g, s)
+    if dtype == torch.float32:
+        assert pl.tile_outer and pl.grid[1] == 1
+        assert [q0 for _, q0, _ in blocks] == sorted(
+            (q0 for _, q0, _ in blocks), reverse=True)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 64])
+def test_prefill_plan_fits_shared_memory_at_every_head_dim(g):
+    for d in range(8, 129, 8):
+        for b, s, k in [(1, 37, 1), (4, 511, 8), (2, 256, 16)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                pl = ops.prefill_plan(b, s, k, g, d, dtype)
+                assert pl.smem <= ops.SMEM_MAX, (d, g, dtype)
+
+
+@pytest.mark.parametrize("shape,dp,blocks", [
+    ((4, 511, 8, 4, 64), 64, 32 * 8 * 4),    # Llama-3.2-1B
+    ((4, 511, 8, 3, 64), 64, 25 * 8 * 4),    # granite: 21 positions a block
+    ((2, 256, 16, 1, 64), 64, 4 * 16 * 2),   # G = 1
+    ((1, 256, 8, 8, 128), 128, 32 * 8),      # D = 128
+    ((2, 300, 8, 4, 40), 64, 19 * 8 * 2),    # D padded to 64
+    ((1, 130, 2, 64, 32), 32, 130 * 2),      # G = 64: one position a block
+    ((1, 37, 2, 3, 8), 16, 2 * 2)])
+def test_prefill_plan_grid_threads_and_smem(shape, dp, blocks):
+    """64 rows a block in both dtypes; fp32 in 128 threads and a
+    one-dimensional grid, bf16 in one warpgroup and a (query tiles, B K)
+    grid."""
+    b, s, k, g, d = shape
+    f32, bf16 = (ops.prefill_plan(*shape, dt)
+                 for dt in (torch.float32, torch.bfloat16))
+    assert f32.rows == bf16.rows == 64 and f32.dp == bf16.dp == dp
+    assert (f32.threads, f32.grid) == (128, (blocks, 1))
+    assert (bf16.threads, bf16.grid) == (128, (blocks // (b * k), b * k))
+    assert f32.smem == 4 * ((64 + 4 * 64) * (dp + 4) + 64 * 80)
+    assert bf16.smem == 64 * dp * 2 + 4 * 64 * dp * 2 + 1024 + 16
+
+
+def test_cuda_checks_refuse_unaligned_inputs():
+    """The kernels copy q, k and v in 16-byte chunks: a view that starts
+    off that grid is refused, in either dtype."""
+    base = torch.zeros(1 + 8 * 2 * 16)
+    ops.check_aligned("flash_prefill", base[:8 * 2 * 16])      # accepted
+    for dtype in (torch.float32, torch.bfloat16):
+        off = base.to(dtype)[1:].view(1, 8, 2, 16)
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.check_aligned("flash_prefill", off)

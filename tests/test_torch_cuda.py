@@ -30,7 +30,8 @@ from repro_torch.serving import lm
 
 from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           DECODE_CASES, DECODE_SPLIT_CASES, MOE_GEMM_CASES,
-                          MOE_GEMM_VARIANTS, PREFILL_CASES, SSD_CASES,
+                          MOE_GEMM_VARIANTS, PREFILL_CASES,
+                          PREFILL_FULL_SHAPES, SSD_CASES,
                           SSD_EDGE_CASES,
                           conv_inputs,
                           decode_inputs, image, lm_config, lm_tokens,
@@ -167,6 +168,38 @@ def test_flash_prefill_kernel_matches_plain_version(case, dtype, cuda):
     _assert_attn_close(got, want, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES)
+                         + sorted(PREFILL_FULL_SHAPES) + ["s256_g1_k16"])
+def test_prefill_plan_is_the_kernels(case, dtype, cuda):
+    """``ops.prefill_plan``'s rows, padded D, threads, shared memory and
+    grid are what the C side computes for the same shape
+    (``flash_prefill_query``)."""
+    shape = (PREFILL_FULL_SHAPES[case] if case in PREFILL_FULL_SHAPES
+             else PREFILL_CASES[case][:5] if case in PREFILL_CASES
+             else (2, 256, 16, 1, 64))
+    pl = attn_ops.prefill_plan(*shape, dtype)
+    assert attn_ops.prefill_layout(*shape, dtype) == (
+        pl.rows, pl.dp, pl.threads, pl.smem, pl.grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_FULL_SHAPES))
+def test_flash_prefill_fp32_kernel_at_the_full_prefill_shapes(case, cuda):
+    """The fp32 kernel at the LM paths' own prefill shapes (B 4, S 511:
+    Llama's, granite's G = 3, qwen's G = 1), against the plain version,
+    and the same bits on a second call."""
+    shape = PREFILL_FULL_SHAPES[case]
+    q, kk, vv = (_t(a, cuda) for a in prefill_inputs(*shape))
+    got = attn_ops.flash_prefill(q, kk, vv)
+    again = attn_ops.flash_prefill(q, kk, vv)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, attn_ref.flash_prefill_ref(q, kk, vv, 0),
+                       torch.float32)
+    assert torch.equal(got, again)
+
+
 def _decode_case(b, k, g, d, w, vl, dtype, dev):
     """decode_attention vs its plain version, one launch, and the same
     bits on a second call (the splits combine in rank order)."""
@@ -207,10 +240,12 @@ def test_decode_split_edges_match_plain_version(case, dtype, cuda):
 @pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     q, kk, vv = (_t(a, cuda) for a in prefill_inputs(1, 8, 2, 2, 16))
+    off = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    off.copy_(q)                                            # 4-byte aligned
     for args in [(q.double(), kk.double(), vv.double()),
                  (q.transpose(1, 2), kk, vv), (q, kk.cpu(), vv),
                  (q[..., :12].contiguous(), kk[..., :12].contiguous(),
-                  vv[..., :12].contiguous())]:
+                  vv[..., :12].contiguous()), (off, kk, vv)]:
         with pytest.raises(ValueError):
             attn_ops.flash_prefill(*args)
     q, kk, vv = (_t(a, cuda) for a in decode_inputs(1, 2, 2, 16, 8))
@@ -367,10 +402,14 @@ def test_moe_gemm_kernel_gives_the_same_bits_twice(case, dtype, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["s511_g3", "s96_d128"])
-def test_flash_prefill_bf16_kernel_gives_the_same_bits_twice(case, cuda):
+def test_flash_prefill_bf16_kernel_gives_the_same_bits_twice(case, dtype,
+                                                             cuda):
+    """Both dtypes (the name is older than the fp32 case): no atomics, a
+    fixed order of sums, so two calls agree bit for bit."""
     b, s, k, g, d, w = PREFILL_CASES[case]
-    q, kk, vv = (_t(a, cuda).bfloat16() for a in prefill_inputs(b, s, k, g, d))
+    q, kk, vv = (_t(a, cuda).to(dtype) for a in prefill_inputs(b, s, k, g, d))
     first = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
     second = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
     torch.cuda.synchronize()

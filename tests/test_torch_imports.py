@@ -1,5 +1,6 @@
-"""The port (``src/repro_torch``) and ``chip_smoke.py`` stand alone: they
-import neither ``jax`` nor the JAX package ``repro``."""
+"""The port (``src/repro_torch``), ``chip_smoke.py`` and
+``tools/kernel_times.py`` stand alone: they import neither ``jax`` nor
+the JAX package ``repro``."""
 
 import os
 import re
@@ -14,7 +15,8 @@ from repro_torch.api.specs import ExecSpec, PlanSpec
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "tools" / "kernel_times.py"]
 # `import jax`, `from jax...`, `import repro`, `from repro.x` — but not
 # `repro_torch`
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
