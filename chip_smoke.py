@@ -26,10 +26,15 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    of one runner call (plan, ms, device ms against cuDNN's, share of the
    bound);
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
-   then ``Deployment.run`` on one frame and on a list of 8 frames.  The
-   conv kernel's launch counter is reset just before and read just
-   after; the logits are checked for shape, finiteness and agreement
-   with the ``"torch"`` backend and the monolithic forward;
+   then ``Deployment.run`` on one frame and on a list of 8 frames, each
+   stage's body replayed from a CUDA graph.  The conv kernel's launch
+   counter is reset just before and read just after (a graph's replays
+   are credited with its launches); the logits are checked for shape,
+   finiteness and agreement with the ``"torch"`` backend and the
+   monolithic forward.  ``[graph]`` lines: each stage's replays equal
+   its eager body bit for bit in both forms; ``dep.run`` ms/frame
+   graphed and eager, in turns; parameter sets A, B, A each give their
+   own eager outputs; an output handed out is unchanged by the next run;
 5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
    random weights from a seed, batch 4, a 512-token prompt, 32 new
    greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
@@ -41,19 +46,27 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    granite: 32 flash_prefill, 32 x 32 decode_attention and
    3 x 32 x (1 + 32) moe_gemm, the 96 prefill ones through the wgmma
    (bf16) or simt (fp32) variant and the 3072 decode ones through
-   stream); prefill and decode times; agreement with
-   ``backend="torch"`` on the same weights (``_lm_agreement``, and for
-   granite each MoE layer on shared inputs, ``_moe_agreement``); a
-   profiled decode step (with granite, moe_gemm's time inside it);
+   stream); the decode steps after the first replay one CUDA graph,
+   whose replays are credited with its launches; prefill and decode
+   times; agreement with ``backend="torch"`` on the same weights
+   (``_lm_agreement``, and for granite each MoE layer on shared inputs,
+   ``_moe_agreement``); ``[graph]`` lines: replayed logits equal eager
+   ``decode_step``'s bit for bit, the graphed generate's greedy tokens
+   equal the eager loop's, decode ms/step graphed and eager in turns,
+   capture ms; profiled decode steps, eager and replayed (with granite,
+   moe_gemm's time inside the eager step);
 6. one ``{"kernels": [...]}`` JSON line (five kernels), the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
 IEEE fp32.  The script imports neither ``jax`` nor the JAX package.
+Shapes are recorded, and the plain oracles (the ``"torch"`` backend, the
+agreement checks) run, with every body eager (``exec.graph.eager``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -95,6 +108,7 @@ LM_FAMILIES = {LM_ARCH: ("flash_prefill", "decode_attention"),
                SSM_ARCH: ("ssd_chunk",),
                MOE_ARCH: ("flash_prefill", "decode_attention", "moe_gemm")}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
+GRAPH_STEPS = 6      # decode steps held bit for bit, eager against replayed
 # kernel path vs backend="torch" on the same weights, x max|logit| over
 # the real vocab.  fp32: only the kernels differ (sums in another
 # order), through every layer.  bf16: both paths round the same tensors
@@ -125,7 +139,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
     """Mean device time of ``fn`` a call: the kernels' own durations as
     ``torch.profiler`` records them (host time between launches not
     counted; ``time_ms`` counts it when the host is the slower).  Each
@@ -149,6 +163,7 @@ def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
                  and e.count) / 1e3
         if ms > 0:
             return ms
+        time.sleep(0.1)
     fail(f"torch.profiler recorded no kernel in {tries} windows of "
          f"{iters} calls")
 
@@ -788,53 +803,156 @@ def _moe_agreement(cfg, params, prompt, toks, dtype_name) -> None:
 
 
 def _decode_profile(cfg, params, prompt, dtype_name, alone_ms=None,
-                    steps: int = 4) -> None:
+                    steps: int = 4) -> dict:
     """Where a decode step's time goes: ``torch.profiler`` over a few
-    steps; kernels launched per step, the card's busy time and the top
-    kernels by time; with ``alone_ms`` (moe_gemm's mean device time a
-    decode launch, timed alone) also moe_gemm's device time inside the step
-    beside it.  A diagnostic: nothing here is checked."""
+    steps, eager (a loop of ``decode_step``) and replayed from a
+    ``Decoder``'s CUDA graph (captured before the window); kernels
+    launched per step, the card's busy time and the top kernels by time;
+    with ``alone_ms`` (moe_gemm's mean device time a decode launch, timed
+    alone) also moe_gemm's device time inside the eager step beside it.
+    Returns {mode: (busy ms, wall ms) a step, or None where the profiler
+    saw no device time}.  A diagnostic: nothing here is checked."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import model as M
     from repro_torch.serving import lm
 
-    _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
-    tok = prompt[:, -1]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = M.decode_step(cfg, params, cache, {"token": tok})
-            tok = logits.argmax(dim=-1)
+    out = {}
+    for mode in ("eager", "graph"):
+        _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
+        tok = prompt[:, -1].long()
+        if mode == "graph":
+            decoder = lm.Decoder(cfg, params, cache)
+            tok = decoder(tok).argmax(dim=-1)    # warm-up and capture
+
+            def step(tok):
+                return decoder(tok).argmax(dim=-1)
+        else:
+            def step(tok):
+                nonlocal cache
+                logits, cache = M.decode_step(cfg, params, cache,
+                                              {"token": tok})
+                return logits.argmax(dim=-1)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    if busy_ms <= 0:
-        print(f"[profile] {cfg.name} {dtype_name} decode step: the profiler "
-              f"saw no device time; busy share not measured")
-        return
-    launches = sum(e.count for e in kernels) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"[profile] {cfg.name} {dtype_name} decode step (torch.profiler, "
-          f"{steps} steps): {launches:.0f} kernels per step, device busy "
-          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
-              f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f} ms"
-              for e in top))
-    if alone_ms is not None:
-        moe = [e for e in kernels if "moe_gemm" in e.key]
-        n = sum(e.count for e in moe)
-        in_ms = sum(e.self_device_time_total for e in moe) / 1e3
-        if n:
-            print(f"[profile] {cfg.name} {dtype_name} moe_gemm inside the "
-                  f"decode step: {in_ms / steps:.3f} ms a step over "
-                  f"{n / steps:.0f} launches, {1e3 * in_ms / n:.2f} us a "
-                  f"launch; alone (warm L2, device time, profiler) "
-                  f"{1e3 * alone_ms:.2f} us a launch")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = step(tok)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+            / steps
+        what = ("decode step" if mode == "eager"
+                else "decode step replayed from its CUDA graph")
+        if busy_ms <= 0:
+            print(f"[profile] {cfg.name} {dtype_name} {what}: the profiler "
+                  f"saw no device time; busy share not measured")
+            out[mode] = None
+            continue
+        out[mode] = (busy_ms, wall_ms)
+        launches = sum(e.count for e in kernels) / steps
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        print(f"[profile] {cfg.name} {dtype_name} {what} (torch.profiler, "
+              f"{steps} steps): {launches:.0f} kernels per step, device "
+              f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+              f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
+                  f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.3f}"
+                  f" ms" for e in top))
+        if alone_ms is not None and mode == "eager":
+            moe = [e for e in kernels if "moe_gemm" in e.key]
+            n = sum(e.count for e in moe)
+            in_ms = sum(e.self_device_time_total for e in moe) / 1e3
+            if n:
+                print(f"[profile] {cfg.name} {dtype_name} moe_gemm inside "
+                      f"the decode step: {in_ms / steps:.3f} ms a step over "
+                      f"{n / steps:.0f} launches, {1e3 * in_ms / n:.2f} us "
+                      f"a launch; alone (warm L2, device time, profiler) "
+                      f"{1e3 * alone_ms:.2f} us a launch")
+    return out
+
+
+def _decode_graph(cfg, params, prompt, dtype_name, toks, pre_ms,
+                  busy) -> None:
+    """``[graph]`` lines of one LM and dtype: a ``Decoder``'s first
+    (eager) step and its replays against eager ``decode_step`` from the
+    same cache, bit for bit over GRAPH_STEPS teacher-forced steps; the
+    graphed generate's greedy tokens (``toks``, the counted run's) against
+    the eager loop's; decode ms/step graphed and eager from one generate
+    each, in turns (generate less ``pre_ms``, the prefill), and of the
+    steps alone; capture and instantiation ms; the profiled busy shares
+    (``busy``, from ``_decode_profile``)."""
+    import torch
+    from repro_torch.exec import graph
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    head = f"[graph] {cfg.name} {dtype_name}"
+    _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    decoder = lm.Decoder(cfg, params, cache)
+    tok = prompt[:, -1].long()
+    for i in range(GRAPH_STEPS):
+        want, eager_cache = M.decode_step(cfg, params, eager_cache,
+                                          {"token": tok})
+        got = decoder(tok)
+        if not torch.equal(got, want):
+            fail(f"{head}: decode step {i} "
+                 f"{'(eager warm-up)' if i == 0 else 'replayed'} differs "
+                 f"from eager decode_step by "
+                 f"{(got.float() - want.float()).abs().max().item():.3g}")
+        tok = want.argmax(dim=-1)
+    capture_ms = decoder.graph.capture_s * 1e3
+    print(f"{head}: {GRAPH_STEPS} decode steps (the first eager, then "
+          f"{GRAPH_STEPS - 1} replays) equal eager decode_step from the "
+          f"same cache bit for bit; capture and instantiation "
+          f"{capture_ms:.1f} ms")
+    del decoder, cache, eager_cache
+
+    # one generate each, in turns; the steps alone, after the first
+    gen = {"eager": [], "graph": []}
+    steps = {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        ctx = graph.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lm.generate(cfg, params, prompt, LM_NEW)
+            torch.cuda.synchronize()
+            gen[mode].append(((time.perf_counter() - t0) * 1e3 - pre_ms)
+                             / LM_NEW)
+            if not torch.equal(out, toks):
+                fail(f"{head}: {mode} generate's {LM_NEW} greedy tokens "
+                     f"differ from the graphed counted run's in "
+                     f"{int((out != toks).sum())} places")
+            if mode not in steps:
+                _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
+                decoder = lm.Decoder(cfg, params, cache)
+                tok = decoder(prompt[:, -1].long()).argmax(dim=-1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(LM_NEW - 1):
+                    tok = decoder(tok).argmax(dim=-1)
+                torch.cuda.synchronize()
+                steps[mode] = (time.perf_counter() - t0) * 1e3 / (LM_NEW - 1)
+                del decoder, cache
+    print(f"{head}: greedy tokens of the graphed generate equal the eager "
+          f"loop's over all {LM_NEW}; decode ms/step (generate less "
+          f"prefill, one call each, in the turns eager, graph, graph, "
+          f"eager; the graph's capture included): graphed "
+          + " / ".join(f"{v:.3f}" for v in gen["graph"]) + ", eager "
+          + " / ".join(f"{v:.3f}" for v in gen["eager"])
+          + f"; steps 2..{LM_NEW} alone: graphed {steps['graph']:.3f}, eager "
+          f"{steps['eager']:.3f} ms/step (host clock, synchronized)")
+    if max(gen["graph"]) >= min(gen["eager"]):
+        print(f"{head}: NOTE graphed decode not below eager in every turn")
+    share = {m: ("not measured" if v is None else
+                 f"{v[0]:.3f} of {v[1]:.3f} ms ({100 * v[0] / v[1]:.1f}%)")
+             for m, v in busy.items()}
+    print(f"{head}: device busy a decode step (torch.profiler): replayed "
+          f"{share['graph']}, eager {share['eager']}")
 
 
 def _describe(cfg) -> str:
@@ -854,6 +972,7 @@ def run_lm(arch: str) -> dict[str, dict]:
     its counted fp32 generate."""
     import torch
     from repro_torch import configs
+    from repro_torch.exec import graph
     from repro_torch.models.transformer import model as M
     from repro_torch.serving import lm
 
@@ -872,9 +991,11 @@ def run_lm(arch: str) -> dict[str, dict]:
           f"params; batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} new "
           f"tokens, greedy")
 
-    # shapes the path gives the kernels: one warm-up generate per dtype
-    launched = _record_shapes(names, lambda: [
-        lm.generate(cfg, p, prompt, LM_NEW) for p in params.values()])
+    # shapes the path gives the kernels: one warm-up generate per dtype,
+    # every step eager (the recording reads valid_len on the host)
+    with graph.eager():
+        launched = _record_shapes(names, lambda: [
+            lm.generate(cfg, p, prompt, LM_NEW) for p in params.values()])
 
     # -- 3. kernel vs plain on the card ----------------------------------
     vls = sorted({a for (n, _, a, _) in launched if n == "decode_attention"})
@@ -904,7 +1025,7 @@ def run_lm(arch: str) -> dict[str, dict]:
 
     # -- 5. the path, counted, per dtype ----------------------------------
     want = _want_launches(cfg, names)
-    launches, tokens = {}, {}
+    launches, tokens, prefill_ms = {}, {}, {}
     for dt, p in params.items():
         _reset_counts()
         torch.cuda.synchronize()
@@ -931,14 +1052,15 @@ def run_lm(arch: str) -> dict[str, dict]:
         for _ in range(reps):
             lm.prefill_prompt(cfg, p, prompt, LM_NEW)
         torch.cuda.synchronize()
-        pre_ms = (time.perf_counter() - t0) / reps * 1e3
+        pre_ms = prefill_ms[dt] = (time.perf_counter() - t0) / reps * 1e3
         dec_ms = (gen_s * 1e3 - pre_ms) / LM_NEW
         print(f"[slice] {cfg.name} {dt}: generate {gen_s * 1e3:.1f} ms "
               f"({LM_BATCH * LM_NEW / gen_s:.1f} new tokens/s); prefill of "
               f"{LM_PROMPT - 1} tokens x {LM_BATCH} {pre_ms:.2f} ms (mean of "
               f"{reps}); decode {dec_ms:.3f} ms per step of {LM_BATCH} "
-              f"tokens (generate less prefill, over {LM_NEW} steps; host "
-              f"clock around synchronized runs)")
+              f"tokens (generate less prefill, over {LM_NEW} steps, the "
+              f"graph's capture included; host clock around synchronized "
+              f"runs)")
 
     # -- 5b. agreement with the plain path; where a decode step goes ------
     for dt, p in params.items():
@@ -951,7 +1073,8 @@ def run_lm(arch: str) -> dict[str, dict]:
                and r["desc"].startswith(f"x({cfg.n_experts}, {LM_BATCH},")]
         alone = (sum(r["dev_ms"] * r["per_call"] for r in dec)
                  / sum(r["per_call"] for r in dec)) if dec else None
-        _decode_profile(cfg, p, prompt, dt, alone)
+        busy = _decode_profile(cfg, p, prompt, dt, alone)
+        _decode_graph(cfg, p, prompt, dt, tokens[dt], prefill_ms[dt], busy)
     del params
     torch.cuda.empty_cache()
 
@@ -1081,6 +1204,103 @@ def build_all(sources) -> None:
             print(f"[build]   {line}")
 
 
+def _same(a: dict, b: dict) -> bool:
+    """Two dicts of tensors with the same keys and the same bits."""
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _cnn_graph(dep, model, frames, reps: int = 10) -> None:
+    """``[graph]`` lines of the CNN path, its stages' graphs captured by
+    the counted run: each stage's replays against its eager body, bit
+    for bit, one frame and the 8-frame stack, fed the eager outputs of
+    the stages before; ``dep.run`` ms/frame graphed and with every body
+    eager, in turns; parameter sets A, B, A, each against its own eager
+    run; outputs handed out, unchanged by the next run."""
+    import torch
+    from repro_torch.exec import graph
+
+    params = dep.params
+    stack = torch.stack(frames)
+    for form, image in (("frame", frames[0]), ("frames", stack)):
+        produced = {}
+        for si, ex in enumerate(dep.runner.stages):
+            bnd = ex.boundary_inputs(produced, image)
+            cs = ex._executable(bnd)
+            run, body = ((cs, cs._run) if form == "frame"
+                         else (cs.run_frames, cs._run_frames))
+            n_graphs = len(cs._graphs)
+            first, second = run(params, bnd), run(params, bnd)
+            want = body(params, bnd)
+            torch.cuda.synchronize()
+            print(f"[graph] cnn stage {si} ({len(ex.nodes)} nodes) "
+                  f"{form}: {n_graphs} graph(s) before, two replays vs the "
+                  f"eager body: "
+                  f"{'equal' if _same(first, want) and _same(second, want) else 'DIFFER'}"
+                  f" bit for bit ({', '.join(sorted(want))})")
+            if not (_same(first, want) and _same(second, want)):
+                fail(f"cnn stage {si} {form}: graph replay differs from "
+                     f"the eager body")
+            if n_graphs == 0:
+                fail(f"cnn stage {si} {form}: the counted run captured no "
+                     f"graph")
+            produced.update(want)
+
+    times = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        with graph.eager() if mode == "eager" else contextlib.nullcontext():
+            dep.run(frames[0])
+            dep.run(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dep.run(frames[0])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                dep.run(frames)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        times[mode].append(((t1 - t0) / reps * 1e3,
+                            (t2 - t1) / reps / len(frames) * 1e3))
+    for mode, rows in times.items():
+        print(f"[graph] cnn dep.run {mode}: frame " + " / ".join(
+            f"{a:.3f}" for a, _ in rows) + f" ms/frame; [{len(frames)} "
+            f"frames] " + " / ".join(f"{b:.3f}" for _, b in rows)
+            + f" ms/frame (mean of {reps} runs each, in the turns eager, "
+            f"graph, graph, eager; host clock around synchronized runs)")
+
+    pa = params
+    pb = model.init(torch.Generator().manual_seed(1),
+                    device=frames[0].device)
+    outs = []
+    for name, p in (("A", pa), ("B", pb), ("A", pa)):
+        got = dep.run(frames[0], params=p)
+        with graph.eager():
+            want = dep.run(frames[0], params=p)
+        torch.cuda.synchronize()
+        if not _same(got, want):
+            fail(f"cnn params {name}: graphed dep.run differs from eager")
+        outs.append(got)
+    if not _same(outs[0], outs[2]) or _same(outs[0], outs[1]):
+        fail("cnn params A, B, A: A's outputs changed, or B gave A's")
+    print("[graph] cnn params A, B, A: each graphed dep.run(frame) equals "
+          "its own eager run bit for bit; A twice the same, B not A's")
+
+    one = dep.run(frames[0])
+    many = dep.run(frames)
+    kept = ({k: v.clone() for k, v in one.items()},
+            [{k: v.clone() for k, v in o.items()} for o in many])
+    dep.run(frames[1])
+    dep.run(frames[::-1])
+    torch.cuda.synchronize()
+    if not (_same(one, kept[0])
+            and all(_same(o, k) for o, k in zip(many, kept[1]))):
+        fail("cnn: an output handed out changed with the next dep.run")
+    print("[graph] cnn outputs handed out by dep.run (one frame, 8 "
+          "frames) unchanged after the next runs")
+
+
 def run_cnn() -> dict:
     """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -1088,6 +1308,8 @@ def run_cnn() -> dict:
     import repro_torch
     from repro_torch.api.specs import ExecSpec, PlanSpec
     from repro_torch.core import make_pi_cluster
+    from repro_torch.exec import graph
+    from repro_torch.exec.cache import clear_cache
     from repro_torch.kernels.conv2d import ops
     from repro_torch.models.cnn import zoo
 
@@ -1125,8 +1347,9 @@ def run_cnn() -> dict:
 
     ops.conv2d_fused = recording
     try:
-        dep.run(frames[0])
-        dep.run(frames)
+        with graph.eager():
+            dep.run(frames[0])
+            dep.run(frames)
     finally:
         ops.conv2d_fused = real
     torch.cuda.synchronize()
@@ -1222,29 +1445,37 @@ def run_cnn() -> dict:
           f"/ {sums['library_dev_ms']:.4f} / {sums['bound_ms']:.4f} | "
           f"{100 * sums['bound_ms'] / sums['dev_ms']:.1f}%")
 
-    # -- 4b. the main path, counted --------------------------------------
+    # -- 4b. the main path, counted: the first call of each form
+    # captures the stages' graphs, the timed calls after it replay them
     reps = 10
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(reps):
-        one = dep.run(frames[0])
+    dep.run(frames[0])
+    dep.run(frames)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(reps):
-        many = dep.run(frames)
+        one = dep.run(frames[0])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    for _ in range(reps):
+        many = dep.run(frames)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
     launches = ops.launch_count()
-    ms_one = (t1 - t0) / reps * 1e3
-    ms_many = (t2 - t1) / reps / len(frames) * 1e3
+    calls = 2 * reps + 2
+    ms_one = (t2 - t1) / reps * 1e3
+    ms_many = (t3 - t2) / reps / len(frames) * 1e3
     print(f"[slice] conv2d_fused launches {launches} "
-          f"(plan: {planned} x {2 * reps} runner calls)")
-    if launches <= 0 or launches != planned * 2 * reps:
-        fail(f"kernel launches {launches} != {planned} x {2 * reps}")
+          f"(plan: {planned} x {calls} runner calls)")
+    if launches <= 0 or launches != planned * calls:
+        fail(f"kernel launches {launches} != {planned} x {calls}")
     print(f"[slice] dep.run(frame): {ms_one:.3f} ms/frame; "
           f"dep.run([{len(frames)} frames]): {ms_many:.3f} ms/frame "
-          f"(host clock around synchronized runs)")
+          f"(host clock around synchronized runs, the stages' graphs "
+          f"replayed); the first call of each form, which captures "
+          f"them: {(t1 - t0) * 1e3:.1f} ms")
 
     # -- 4c. the outputs -------------------------------------------------
     sink = model.graph.sinks()[0]
@@ -1255,7 +1486,8 @@ def run_cnn() -> dict:
         fail("logits not finite")
     dep_t = repro_torch.compile(model, cluster, PlanSpec(),
                                 ExecSpec(backend="torch"), params=dep.params)
-    ref_t = torch.stack([o[sink] for o in dep_t.run(frames)])
+    with graph.eager():
+        ref_t = torch.stack([o[sink] for o in dep_t.run(frames)])
     ref_m = model.forward(dep.params, torch.cat(frames))[sink].unsqueeze(1)
     scale = ref_t.abs().max().item()
     tol = LOGIT_TOL * scale
@@ -1268,6 +1500,9 @@ def run_cnn() -> dict:
           f"{LOGIT_TOL:g} x max |logit| {scale:.3g})")
     if not (d_t <= tol and d_m <= tol and d_1 <= tol):
         fail("logits disagree")
+    _cnn_graph(dep, model, frames)
+    del dep_t
+    clear_cache()                 # the stages' graphs, before the LMs
 
     path = [r for r in cases if r["per_call"]]
     t_ops = sum(r["t_ops_ms"] * r["per_call"] for r in path)

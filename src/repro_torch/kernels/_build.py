@@ -9,10 +9,19 @@ flags, so an edited source is rebuilt and an unchanged one is not.
 :func:`split_ranges` is how a kernel that splits work across the blocks
 of a cluster shares it out.  Nothing here runs at import time: this
 module imports on machines with no CUDA toolkit.
+
+Two things here serve the CUDA graphs of ``repro_torch.exec.graph``.
+Every table of launch counts is registered (:func:`count_table`), so a
+graph can take back what its capture added (:func:`take_counts`: a
+capture launches nothing) and credit it at each replay
+(:func:`credit`).  And a kernel's scratch buffers (:func:`scratch`) come
+from the table of the graph being captured while there is one, so they
+live as long as the graph that reads them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +39,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[Path, ctypes.CDLL] = {}
+#: every table of launch counts in the process, in registration order
+#: (each :class:`Launchers`' counts, the variant counts of conv2d_fused
+#: and moe_gemm)
+COUNT_TABLES: list[dict[str, int]] = []
+#: scratch tensors of launches outside a capture, per (device, stream)
+_SCRATCH: dict[tuple, dict[str, torch.Tensor]] = {}
+#: the scratch tables of the graphs being built, innermost last
+_OWNED: list[dict[str, torch.Tensor]] = []
 #: seconds each library took to build in this process (0.0 = reused),
 #: and the compiler's output (``-Xptxas -v``: registers, spills, smem)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -92,6 +109,75 @@ def split_ranges(n: int, parts: int) -> list[tuple[int, int]]:
     return [(r * n // parts, (r + 1) * n // parts) for r in range(parts)]
 
 
+def count_table(table: dict[str, int]) -> dict[str, int]:
+    """Register ``table`` (name -> launches) for the graphs to rewind and
+    credit; returns it.  Reset it in place, never rebind it."""
+    COUNT_TABLES.append(table)
+    return table
+
+
+def count_snapshot() -> list[dict[str, int]]:
+    """A copy of every count table, to diff against later."""
+    return [dict(t) for t in COUNT_TABLES]
+
+
+def take_counts(before: list[dict[str, int]]) -> list[dict[str, int]]:
+    """Set every count table back to ``before`` (a :func:`count_snapshot`)
+    and return what was added since, table by table: the launches a
+    graph's capture recorded and did not run."""
+    delta = []
+    for i, table in enumerate(COUNT_TABLES):
+        old = before[i] if i < len(before) else {}
+        delta.append({k: n - old.get(k, 0) for k, n in table.items()
+                      if n != old.get(k, 0)})
+        for k in table:
+            table[k] = old.get(k, 0)
+    return delta
+
+
+def credit(delta: list[dict[str, int]], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`take_counts` result) to the
+    count tables: ``times`` replays of a graph launch its nodes again."""
+    for table, d in zip(COUNT_TABLES, delta):
+        for k, n in d.items():
+            table[k] += n * times
+
+
+@contextlib.contextmanager
+def owned_scratch(table: dict[str, torch.Tensor]):
+    """Within the block, :func:`scratch` hands out ``table``: the scratch
+    of a graph being warmed up and captured, kept on the graph."""
+    _OWNED.append(table)
+    try:
+        yield table
+    finally:
+        _OWNED.pop()
+
+
+def scratch(device: torch.device, name: str, numel: int,
+            dtype: torch.dtype, zero: bool = False) -> torch.Tensor:
+    """A kernel's scratch tensor ``name`` of at least ``numel`` elements
+    on ``device`` (zeroed when it is made, if ``zero``), kept for the
+    current stream, or in the table of the graph being built
+    (:func:`owned_scratch`).  It grows by replacement, which a capture
+    may not do (an earlier node may read the old tensor): the warm-up
+    before a capture sizes it, and a capture that would grow it raises."""
+    if _OWNED:
+        table = _OWNED[-1]
+    else:
+        key = (device, torch.cuda.current_stream(device).cuda_stream)
+        table = _SCRATCH.setdefault(key, {})
+    held = table.get(name)
+    if held is None or held.numel() < numel:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"scratch {name!r} would grow to {numel} "
+                               f"during a CUDA graph capture; the warm-up "
+                               f"before it sizes it")
+        make = torch.zeros if zero else torch.empty
+        held = table[name] = make(numel, dtype=dtype, device=device)
+    return held
+
+
 class Launchers:
     """The ``extern "C"`` launchers ``<name>_launch`` of a set of kernel
     sources, bound with ctypes at first use, each with a count of its
@@ -107,7 +193,7 @@ class Launchers:
     def __init__(self, sources: dict[str, Path],
                  argtypes: dict[str, list]):
         self.sources, self.argtypes = sources, argtypes
-        self.counts = dict.fromkeys(sources, 0)
+        self.counts = count_table(dict.fromkeys(sources, 0))
         self._fns: dict = {}
 
     def launch(self, name: str, like: torch.Tensor, *args) -> None:
@@ -126,7 +212,9 @@ class Launchers:
         self.counts[name] += 1
 
     def launch_count(self, name: str) -> int:
-        """Launches of kernel ``name`` since creation or :meth:`reset`."""
+        """Launches of kernel ``name`` since creation or :meth:`reset`:
+        one at each host call outside a graph capture, and a graph's
+        nodes again at each of its replays (:func:`credit`)."""
         return self.counts[name]
 
     def reset(self) -> None:

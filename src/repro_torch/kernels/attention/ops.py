@@ -36,6 +36,9 @@ MAX_GROUP = 64
 #: (D is padded up to one with zeros) and the shared memory one block may
 #: opt into
 ROWS, BKV, STAGES, PADDED_D, SMEM_MAX = 64, 64, 2, (16, 32, 64, 128), 232448
+#: a grid's x and y extents at most: bf16's y is B K, and fp32's grid is
+#: one-dimensional, its x (query tiles x B K) checked so on the C side too
+MAX_GRID_X, MAX_GRID_Y = 2 ** 31 - 1, 65535
 #: ctypes signatures of the ``extern "C"`` launchers, one for one
 ARGTYPES = {
     # dtype; q, k, v, o; b, s, kh, g, d, window; stream
@@ -198,8 +201,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
     _check_cuda("flash_prefill", q, k, v)
     B, S, K, G, D = q.shape
-    if B * K > 65535:
-        raise ValueError(f"flash_prefill: B * K = {B * K} > 65535")
+    grid = prefill_plan(B, S, K, G, D, q.dtype).grid
+    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+        raise ValueError(f"flash_prefill: grid {grid} for {tuple(q.shape)} "
+                         f"{q.dtype} is past the launch limits (x <= "
+                         f"{MAX_GRID_X}, y <= {MAX_GRID_Y})")
     check_aligned("flash_prefill", q, k, v)
     o = torch.empty_like(q)
     if o.numel() == 0:

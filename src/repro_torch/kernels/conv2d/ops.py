@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import library
+from .._build import count_table, library
 from .ref import conv2d_fused_ref, out_size
 
 SOURCE = Path(__file__).parent / "csrc" / "conv2d_fused.cu"
@@ -115,22 +115,21 @@ def plan(n: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
     return Plan(variant, tile, split_of(tile))
 
 
-_launches = 0
-#: launches of each variant (a key of :data:`VARIANTS`) since process
-#: start or :func:`reset_launches`
-variant_counts = dict.fromkeys(VARIANTS, 0)
+#: launches of the kernel, and of each variant (a key of
+#: :data:`VARIANTS`), since process start or :func:`reset_launches`
+_counts = count_table({"conv2d_fused": 0})
+variant_counts = count_table(dict.fromkeys(VARIANTS, 0))
 
 
 def launch_count() -> int:
     """Kernel launches since process start or :func:`reset_launches`."""
-    return _launches
+    return _counts["conv2d_fused"]
 
 
 def reset_launches() -> None:
-    global _launches
-    _launches = 0
-    for name in variant_counts:
-        variant_counts[name] = 0
+    for table in (_counts, variant_counts):
+        for name in table:
+            table[name] = 0
 
 
 def normalize_stride(stride) -> tuple[int, int]:
@@ -216,8 +215,7 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"conv2d_fused launch failed with CUDA error "
                            f"{err} for x {tuple(x.shape)} w {tuple(w.shape)} "
                            f"stride {stride} pool {pool} plan {p}")
-    global _launches
-    _launches += 1
+    _counts["conv2d_fused"] += 1
     variant_counts[p.variant] += 1
     return y
 

@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers
+from .._build import DTYPE_CODES, Launchers, count_table, scratch
 from .ref import moe_gemm_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -56,9 +56,7 @@ _KERNELS = Launchers(SOURCES, ARGTYPES)
 launch_count = _KERNELS.launch_count
 #: launches of each variant (a key of :data:`VARIANTS`) since process
 #: start or :func:`reset_launches`
-variant_counts = dict.fromkeys(VARIANTS, 0)
-#: the stream variant's workspace and counters, per (device, stream)
-_SCRATCH: dict[tuple, dict[str, torch.Tensor]] = {}
+variant_counts = count_table(dict.fromkeys(VARIANTS, 0))
 
 
 def reset_launches() -> None:
@@ -101,17 +99,14 @@ def split_rows(e: int, d: int, f: int) -> int:
 def _scratch(x: torch.Tensor, n_part: int, n_count: int):
     """The stream variant's workspace (``n_part`` floats, or None) and
     zeroed counters (``n_count`` ints) for x's device and current stream,
-    kept and grown as needed.  The kernel leaves the counters at zero."""
-    key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
-    held = _SCRATCH.setdefault(key, {})
-    if "counters" not in held or held["counters"].numel() < n_count:
-        held["counters"] = torch.zeros(n_count, dtype=torch.int32,
-                                       device=x.device)
-    if n_part and ("ws" not in held or held["ws"].numel() < n_part):
-        held["ws"] = torch.empty(n_part, dtype=torch.float32,
-                                 device=x.device)
-    return (held["ws"].data_ptr() if n_part else None,
-            held["counters"].data_ptr())
+    or for the CUDA graph being built (``_build.scratch``).  The kernel
+    leaves the counters at zero, so the launches of one stream, or of
+    one graph's replays, share them in stream order."""
+    counters = scratch(x.device, "moe_gemm.counters", n_count, torch.int32,
+                       zero=True)
+    ws = scratch(x.device, "moe_gemm.ws", n_part, torch.float32) \
+        if n_part else None
+    return (None if ws is None else ws.data_ptr()), counters.data_ptr()
 
 
 @functools.lru_cache(maxsize=1024)

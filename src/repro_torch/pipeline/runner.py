@@ -29,12 +29,17 @@ class PipelineRunner:
                                           backend=self.backend,
                                           mode=self.mode,
                                           spec=self.exec_spec)
+        # a stage whose outputs leave the call hands out copies; the
+        # others may hand out their CUDA graph's own outputs, which the
+        # later stages of the same call read before any replay of theirs
+        sinks = set(self.model.graph.sinks())
+        self._copy_out = [bool(sinks & set(ex.sinks)) for ex in self.stages]
 
     def __call__(self, params, image: torch.Tensor
                  ) -> dict[str, torch.Tensor]:
         produced: dict[str, torch.Tensor] = {}
-        for ex in self.stages:
-            produced.update(ex(params, produced, image))
+        for ex, copy_out in zip(self.stages, self._copy_out):
+            produced.update(ex(params, produced, image, copy_out=copy_out))
         return {s: produced[s] for s in self.model.graph.sinks()}
 
     def run_frames(self, params, frames: torch.Tensor
@@ -43,6 +48,7 @@ class PipelineRunner:
         each stage runs the whole stack in one pass (one kernel launch
         per conv and tile).  Returns sinks stacked along F."""
         produced: dict[str, torch.Tensor] = {}
-        for ex in self.stages:
-            produced.update(ex.run_frames(params, produced, frames))
+        for ex, copy_out in zip(self.stages, self._copy_out):
+            produced.update(ex.run_frames(params, produced, frames,
+                                          copy_out=copy_out))
         return {s: produced[s] for s in self.model.graph.sinks()}

@@ -2,8 +2,9 @@
 
 The default mode runs the stage as one :class:`CompiledStage` fetched
 from the stage cache (identical stages across re-plans share one), with
-conv->pool chains fused into one kernel call.  ``mode="eager"`` keeps
-the plain per-tile loop with no fusion as the oracle.  ``run_frames``
+conv->pool chains fused into one kernel call, replayed from a CUDA graph
+on a CUDA device.  ``mode="eager"`` keeps the plain per-tile loop with
+no fusion as the oracle, never graphed.  ``run_frames``
 takes a stack of frames: compiled mode folds it into the batch axis,
 eager mode loops over it.
 """
@@ -62,16 +63,19 @@ class StageExecutor:
                 for (n, p) in self.needs}
 
     def __call__(self, params, produced: Mapping[str, torch.Tensor],
-                 image: torch.Tensor | None = None
+                 image: torch.Tensor | None = None, *, copy_out: bool = True
                  ) -> dict[str, torch.Tensor]:
+        """The stage's sinks for one frame.  ``copy_out`` as in
+        :meth:`CompiledStage.__call__` (compiled mode on CUDA only)."""
         boundary = self.boundary_inputs(produced, image)
         if self.mode == "eager":
             return self._run_eager(params, boundary)
-        return self._executable(boundary)(params, boundary)
+        return self._executable(boundary)(params, boundary,
+                                          copy_out=copy_out)
 
     def run_frames(self, params, produced: Mapping[str, torch.Tensor],
-                   images: torch.Tensor | None = None
-                   ) -> dict[str, torch.Tensor]:
+                   images: torch.Tensor | None = None, *,
+                   copy_out: bool = True) -> dict[str, torch.Tensor]:
         """Frame-stack form of ``__call__``: every boundary tensor (and
         ``images``) carries a leading frame axis; sinks come back stacked
         the same way.  Compiled mode folds the stack into the batch axis
@@ -83,7 +87,8 @@ class StageExecutor:
                                             boundary.items()})
                    for f in range(n)]
             return {s: torch.stack([o[s] for o in per]) for s in self.sinks}
-        return self._executable(boundary).run_frames(params, boundary)
+        return self._executable(boundary).run_frames(params, boundary,
+                                                     copy_out=copy_out)
 
     # ------------------------------------------------------------------
 

@@ -1,9 +1,15 @@
-"""Autoregressive decode loop for the transformer substrate."""
+"""Autoregressive decode loop for the transformer substrate.
+
+The JAX package jits ``decode_step``; here :class:`Decoder` replays it
+from a CUDA graph on a CUDA device (:mod:`repro_torch.exec.graph`), and
+runs it eagerly on the CPU.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from ..exec import graph as cuda_graph
 from ..models.transformer import model as M
 from ..models.transformer.config import ArchConfig
 
@@ -27,6 +33,45 @@ def prefill_prompt(cfg: ArchConfig, params, prompt: torch.Tensor,
     return logits, cache
 
 
+class Decoder:
+    """Decode steps on one cache: ``decoder(token)`` runs one step for
+    ``token`` (B,) int and returns its logits (B, vocab_padded).
+
+    ``decode_step`` writes the cache's k/v (or conv and ssm states) in
+    place; the decoder advances the cache's length in place too, in a
+    ``len`` of its own, so every step reads and writes the same tensors.
+    On a CUDA device (:func:`repro_torch.exec.graph.enabled`) and with
+    ``capture``, the first call runs the step eagerly (the graph's
+    warm-up) and captures it; every later call copies the token in and
+    replays the graph.  The logits of a replay are the graph's own
+    tensor, which the next call overwrites.  No step reads a device
+    value on the host.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, cache: dict,
+                 backend: str = "cuda", capture: bool = True):
+        self.cfg, self.params, self.backend = cfg, params, backend
+        self.cache = {**cache, "len": cache["len"].clone()}
+        self.capture = capture
+        self.graph: cuda_graph.Graph | None = None
+
+    def _step(self, token: torch.Tensor) -> torch.Tensor:
+        logits, cache = M.decode_step(self.cfg, self.params, self.cache,
+                                      {"token": token},
+                                      backend=self.backend)
+        self.cache["len"].copy_(cache["len"])
+        return logits
+
+    def __call__(self, token: torch.Tensor) -> torch.Tensor:
+        if self.graph is not None:
+            return self.graph(token)
+        if not (self.capture and cuda_graph.enabled(token.device)):
+            return self._step(token)
+        self.graph = cuda_graph.Graph(self._step, (token,),
+                                      name=f"{self.cfg.name} decode step")
+        return self.graph.take_warm()
+
+
 def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
              temperature: float = 0.0,
              generator: torch.Generator | None = None,
@@ -35,9 +80,12 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
     (B, S) int, S >= 2.
 
     Returns (B, n_new) int32 generated tokens.  Prefill once, then one
-    ``decode_step`` per token.  Sampling draws from ``generator``
-    (default: a generator on the prompt's device seeded with 0).  The
-    loop never reads a token on the host.
+    decode step per token through a :class:`Decoder`: on a CUDA device
+    the first step runs eagerly and the rest replay one CUDA graph,
+    captured for this call (the next prefill makes new cache tensors).
+    Sampling, outside the graph, draws from ``generator`` (default: a
+    generator on the prompt's device seeded with 0).  The loop never
+    reads a token on the host.
     """
     B, S = prompt.shape
     if S < 2:
@@ -45,11 +93,11 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
     _, cache = prefill_prompt(cfg, params, prompt, n_new, backend)
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=prompt.device).manual_seed(0)
-    tok = prompt[:, -1]
+    decoder = Decoder(cfg, params, cache, backend, capture=n_new > 1)
+    tok = prompt[:, -1].long()
     toks = []
     for _ in range(n_new):
-        logits, cache = M.decode_step(cfg, params, cache, {"token": tok},
-                                      backend=backend)
+        logits = decoder(tok)
         if temperature > 0:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)[:, 0]

@@ -247,6 +247,19 @@ def test_prefill_plan_fits_shared_memory_at_every_head_dim(g):
                 assert pl.smem <= ops.SMEM_MAX, (d, g, dtype)
 
 
+@pytest.mark.parametrize("b,k", [(70000, 1), (8750, 8), (8200, 8)])
+def test_prefill_plan_takes_more_than_65535_batch_kv_heads_in_fp32(b, k):
+    """B K past 65535: fp32's grid is one-dimensional and within the x
+    extent the C side checks (2^31 - 1 blocks); bf16's (query tiles, B K)
+    grid is past the y limit, which the wrapper refuses."""
+    s, g, d = 16, 1, 64
+    pl = ops.prefill_plan(b, s, k, g, d, torch.float32)
+    assert pl.grid == (-(-s // (pl.rows // g)) * b * k, 1)
+    assert pl.grid[0] <= ops.MAX_GRID_X
+    bf = ops.prefill_plan(b, s, k, g, d, torch.bfloat16)
+    assert bf.grid[1] == b * k > ops.MAX_GRID_Y
+
+
 @pytest.mark.parametrize("shape,dp,blocks", [
     ((4, 511, 8, 4, 64), 64, 32 * 8 * 4),    # Llama-3.2-1B
     ((4, 511, 8, 3, 64), 64, 25 * 8 * 4),    # granite: 21 positions a block

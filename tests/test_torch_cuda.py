@@ -10,6 +10,9 @@ machine, which has no JAX:
 (``--noconftest``: ``tests/conftest.py`` imports JAX.)
 """
 
+import contextlib
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,9 @@ import torch
 import repro_torch
 from repro_torch.core import make_pi_cluster
 from repro_torch import configs
+from repro_torch.exec import graph
+from repro_torch.exec.cache import clear_cache, set_cache_size
+from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.conv2d import ops, ref
@@ -26,13 +32,14 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.cnn import params_from_numpy, zoo
 from repro_torch.models.transformer import model as M
+from repro_torch.pipeline import StageExecutor
 from repro_torch.serving import lm
 
 from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           DECODE_CASES, DECODE_SPLIT_CASES, MOE_GEMM_CASES,
                           MOE_GEMM_VARIANTS, PREFILL_CASES,
                           PREFILL_FULL_SHAPES, SSD_CASES,
-                          SSD_EDGE_CASES,
+                          SSD_EDGE_CASES, ZOO_TINY,
                           conv_inputs,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
@@ -464,3 +471,233 @@ def test_generate_runs_through_the_ssd_and_moe_kernels(case, cuda):
         err = (lg - lc).abs().max().item()
         assert err <= 1e-4 * lc.abs().max().item(), i
         tok = toks[:, i].cpu()
+
+
+# -- compiled execution: CUDA graphs of the decode step and of a stage ------
+
+GRAPH_LM_CASES = ["llama", "mamba2", "granite_moe"]
+
+
+def _kernel_counts():
+    """Every launch and variant count of the port's kernels."""
+    return [dict(t) for t in _build.COUNT_TABLES]
+
+
+def _reset_all():
+    for mod in (ops, attn_ops, moe_ops, ssd_ops):
+        mod.reset_launches()
+
+
+def _lm_on(cfg, dtype, dev):
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev, dtype=dtype)
+    return params, torch.tensor(lm_tokens(cfg)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAPH_LM_CASES)
+def test_decode_graph_replays_equal_eager_decode_steps(case, dtype, cuda):
+    """A reduced LM: the Decoder's eager first step and its graph's
+    replays give the logits of eager ``decode_step`` from the same cache
+    bit for bit over 6 teacher-forced steps; one graph, captured once."""
+    cfg = lm_config(configs, case)
+    params, prompt = _lm_on(cfg, dtype, cuda)
+    _, cache = lm.prefill_prompt(cfg, params, prompt, 6)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    decoder = lm.Decoder(cfg, params, {k: v.clone() for k, v in
+                                       cache.items()})
+    tok = prompt[:, -1].long()
+    for i in range(6):
+        want, eager_cache = M.decode_step(cfg, params, eager_cache,
+                                          {"token": tok})
+        got = decoder(tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert (decoder.graph is not None) and (i == 0 or got is
+                                                decoder.graph.outputs)
+        tok = want.argmax(dim=-1)
+    for key in cache:
+        if key != "len":
+            assert torch.equal(decoder.cache[key], eager_cache[key]), key
+    assert int(decoder.cache["len"]) == int(eager_cache["len"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAPH_LM_CASES)
+def test_graphed_generate_equals_the_eager_loop(case, dtype, cuda):
+    """``generate`` graphed and under ``graph.eager()``: the same greedy
+    tokens, the same seeded temperature draws, and the same launch and
+    variant counts of every kernel."""
+    cfg = lm_config(configs, case)
+    params, prompt = _lm_on(cfg, dtype, cuda)
+    n_new = 8
+    runs = {}
+    for mode in ("eager", "graph", "eager", "graph"):
+        _reset_all()
+        with graph.eager() if mode == "eager" else contextlib.nullcontext():
+            greedy = lm.generate(cfg, params, prompt, n_new)
+            drawn = lm.generate(
+                cfg, params, prompt, n_new, temperature=0.8,
+                generator=torch.Generator(device=cuda).manual_seed(5))
+        torch.cuda.synchronize()
+        got = (greedy, drawn, _kernel_counts())
+        if mode in runs:
+            assert torch.equal(got[0], runs[mode][0])
+            assert torch.equal(got[1], runs[mode][1])
+        runs[mode] = got
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert torch.equal(runs["graph"][1], runs["eager"][1])
+    assert runs["graph"][2] == runs["eager"][2]
+    L = cfg.n_layers
+    if cfg.layer_pattern == "attn":
+        assert attn_ops.launch_count("decode_attention") == 2 * L * n_new
+
+
+def _tiny_stage(dev, name="vgg16"):
+    m = zoo.build(name, **ZOO_TINY[name])
+    ex = StageExecutor(m, frozenset(m.graph.layers), [0.4, 0.35, 0.25])
+    frames = [torch.tensor(image(m, seed=s)).to(dev) for s in (1, 2, 3)]
+    params = [params_from_numpy(np_params(m, seed=s), dev) for s in (0, 1)]
+    return m, ex, frames, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vgg16", "resnet34", "inceptionv3"])
+def test_stage_graph_equals_its_body(name, cuda):
+    """Tiny-zoo model as one stage split three ways: each replay equals the
+    eager body bit for bit, in both forms; params A, B, A each give their
+    own outputs; an output handed out is not overwritten by the next call;
+    the conv launches of a replay are credited as the body's."""
+    clear_cache()
+    m, ex, frames, (pa, pb) = _tiny_stage(cuda, name)
+    boundary = [ex.boundary_inputs({}, x) for x in frames]
+    cs = ex._executable(boundary[0])
+    outs = []
+    for params, bnd in [(pa, boundary[0]), (pa, boundary[1]),
+                        (pb, boundary[0]), (pa, boundary[2]),
+                        (pb, boundary[1]), (pa, boundary[0])]:
+        ops.reset_launches()
+        got = cs(params, bnd)
+        torch.cuda.synchronize()
+        n_graph = ops.launch_count()
+        ops.reset_launches()
+        with graph.eager():
+            want = cs(params, bnd)
+        torch.cuda.synchronize()
+        assert n_graph == ops.launch_count() > 0
+        for s in want:
+            assert torch.equal(got[s], want[s]), s
+        outs.append((got, {s: y.clone() for s, y in got.items()}))
+    for got, kept in outs:                     # nothing handed out moved
+        for s in kept:
+            assert torch.equal(got[s], kept[s])
+    assert len(cs._graphs) == 2                # one per parameter set
+    for s in outs[0][0]:
+        assert not torch.equal(outs[0][0][s], outs[2][0][s])
+        assert torch.equal(outs[0][0][s], outs[5][0][s])
+    stack = {k: torch.stack([b[k] for b in boundary]) for k in boundary[0]}
+    cs_f = ex._executable(stack)
+    for _ in range(2):
+        got = cs_f.run_frames(pa, stack)
+        with graph.eager():
+            want = cs_f.run_frames(pa, stack)
+        for s in want:
+            assert torch.equal(got[s], want[s])
+
+
+@pytest.mark.cuda
+def test_deployment_outputs_survive_the_next_run(cuda):
+    """``Deployment.run`` on graphs: a returned output is unchanged after
+    the next run (one frame and a list of frames), and equals the run
+    with every body eager."""
+    m = zoo.vgg16(input_size=(40, 40), scale=0.1, head=True)
+    dep = repro_torch.compile(m, make_pi_cluster([1.5, 1.2, 1.0, 0.8]),
+                              params=params_from_numpy(np_params(m), cuda))
+    xs = [torch.tensor(image(m, seed=s)).to(cuda) for s in range(4)]
+    first = dep.run(xs[0])
+    kept = {k: v.clone() for k, v in first.items()}
+    many = dep.run(xs[1:])
+    kept_many = [{k: v.clone() for k, v in o.items()} for o in many]
+    dep.run(xs[3])
+    dep.run(xs[:3])
+    with graph.eager():
+        want = dep.run(xs[0])
+        want_many = dep.run(xs[1:])
+    for k in kept:
+        assert torch.equal(first[k], kept[k]) and torch.equal(first[k],
+                                                                want[k])
+    for o, ko, w in zip(many, kept_many, want_many):
+        for k in ko:
+            assert torch.equal(o[k], ko[k]) and torch.equal(o[k], w[k])
+
+
+@pytest.mark.cuda
+def test_stage_graphs_go_with_the_cache_entry(cuda):
+    """A stage's graphs are freed with its cache entry: on clear_cache
+    and on eviction past set_cache_size."""
+    _, ex, frames, (pa, _) = _tiny_stage(cuda)
+    bnd = ex.boundary_inputs({}, frames[0])
+    for evict in ("clear", "bound"):
+        clear_cache()
+        prev = set_cache_size(1)
+        try:
+            cs = ex._executable(bnd)
+            cs(pa, bnd)
+            held = weakref.ref(next(iter(cs._graphs.values())))
+            del cs
+            if evict == "clear":
+                clear_cache()
+            else:       # another boundary shape, another entry
+                ex._executable({k: torch.cat([v, v]) for k, v in
+                                bnd.items()})
+            assert held() is None, evict
+        finally:
+            set_cache_size(prev)
+
+
+@pytest.mark.cuda
+def test_flash_prefill_fp32_takes_more_than_65535_batch_kv_heads(cuda):
+    """B K = 65600: fp32's grid is one-dimensional and takes it, within
+    1e-4 x max(1, max|ref|) of the plain version; bf16's (tiles, B K)
+    grid does not, and the wrapper refuses it."""
+    b, s, k, g, d = 8200, 16, 8, 1, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, s, k, g, d), generator=gen, device=cuda)
+    kk = torch.randn((b, s, k, d), generator=gen, device=cuda)
+    vv = torch.randn((b, s, k, d), generator=gen, device=cuda)
+    assert attn_ops.prefill_plan(b, s, k, g, d).grid[1] == 1
+    got = attn_ops.flash_prefill(q, kk, vv)
+    want = attn_ref.flash_prefill_ref(q, kk, vv)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    del got, want
+    with pytest.raises(ValueError, match="launch limits"):
+        attn_ops.flash_prefill(q.bfloat16(), kk.bfloat16(), vv.bfloat16())
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
+    """A body that reads a device value on the host cannot be captured:
+    the stage raises, names the capture, keeps no graph, and runs no
+    eager fallback; the card stays usable."""
+    clear_cache()
+    m, ex, frames, (pa, _) = _tiny_stage(cuda)
+    bnd = ex.boundary_inputs({}, frames[0])
+    cs = ex._executable(bnd)
+    real = cs._run
+    calls = []
+
+    def reading(params, boundary):
+        calls.append(len(calls))
+        float(next(iter(boundary.values())).sum())      # a host read
+        return real(params, boundary)
+
+    monkeypatch.setattr(cs, "_run", reading)
+    with pytest.raises(RuntimeError, match="capture"):
+        cs(pa, bnd)
+    assert calls == [0, 1] and not cs._graphs   # warm-up, then the capture
+    torch.cuda.synchronize()
+    assert float((torch.ones(4, device=cuda) * 2).sum()) == 8.0
