@@ -34,7 +34,22 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    monolithic forward.  ``[graph]`` lines: each stage's replays equal
    its eager body bit for bit in both forms; ``dep.run`` ms/frame
    graphed and eager, in turns; parameter sets A, B, A each give their
-   own eager outputs; an output handed out is unchanged by the next run;
+   own eager outputs; an output handed out is unchanged by the next run.
+   4c: the same model and cluster compiled with ``ExecSpec(backend=
+   "cuda", calibrate=True, autotune=True)``: ``[autotune]`` a line per
+   conv key (winner plan and its device us, the heuristic plan's us and
+   the spread a winner must beat it by), ``[calibrate]`` the measured
+   fp32 matmul rate beside the card's fp32 peak and its spread over ten
+   more measurements, each stage's ms and ratio, the re-planned stages;
+   saved and loaded with the planner, calibrator and tuner counted at
+   zero; each launch that takes a tuned plan other than the heuristic's,
+   held against the plain version at its shape under that plan;
+   ``dep.run`` ms/frame under the default and the tuned plans in turns,
+   and the tuned plans' difference, flagged where they were slower;
+   the path counted again (launches reset just before, read just after);
+   the loaded deployment's outputs equal the compiled one's bit for bit
+   and the ``"torch"`` backend's within the logit tolerance; the
+   ``[graph]`` checks again under the tuned plans;
 5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
    random weights from a seed, batch 4, a 512-token prompt, 32 new
    greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
@@ -1301,6 +1316,275 @@ def _cnn_graph(dep, model, frames, reps: int = 10) -> None:
           "frames) unchanged after the next runs")
 
 
+def _launch_plans(dep, frame) -> list[tuple]:
+    """(x shape, w shape, stride, pool, relu, bias, plan the launch took,
+    the heuristic's plan) of each conv launch of one single-frame runner
+    call, every body eager."""
+    from repro_torch.exec import graph
+    from repro_torch.kernels.conv2d import ops
+
+    seen = []
+    real = ops.conv2d_fused
+
+    def recording(x, w, b=None, *, stride=(1, 1), relu=False, pool=None,
+                  tile=None, split=None):
+        n, h, wd, ci = x.shape
+        kh, kw, _, co = w.shape
+        stride = ops.normalize_stride(stride)
+        pool = None if pool is None else tuple(pool)
+        args = (n, h, wd, ci, kh, kw, co, stride, pool)
+        seen.append((tuple(x.shape), tuple(w.shape), stride, pool, relu,
+                     b is not None, ops.plan(*args, True, tile, split),
+                     ops.plan(*args)))
+        return real(x, w, b, stride=stride, relu=relu, pool=pool,
+                    tile=tile, split=split)
+
+    ops.conv2d_fused = recording
+    try:
+        with graph.eager():
+            dep.run(frame)
+    finally:
+        ops.conv2d_fused = real
+    return seen
+
+
+def _tuned_case(x_shape, w_shape, stride, pool, relu, bias, plan,
+                seed=0) -> tuple[float, float, bool]:
+    """The kernel under a tuned ``plan`` against its plain version at one
+    launch's shape (inputs as in :func:`conv_case`): (max |error|, error
+    over the fp32 limit, within the limit and the plan's variant taken)."""
+    import torch
+    from repro_torch.kernels.conv2d import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kh, kw, ci, co = w_shape
+    x = torch.randn(x_shape, generator=g, device="cuda")
+    w = torch.randn(w_shape, generator=g, device="cuda") \
+        / (kh * kw * ci) ** 0.5
+    b = 0.1 * torch.randn((co,), generator=g, device="cuda") if bias \
+        else None
+    kw_args = dict(stride=stride, relu=relu, pool=pool)
+    before = dict(ops.variant_counts)
+    y = ops.conv2d_fused(x, w, b, tile=plan.tile, split=plan.split,
+                         **kw_args)
+    ran = [v for v in ops.VARIANTS if ops.variant_counts[v] != before[v]]
+    y_ref = ref.conv2d_fused_ref(x, w, b, **kw_args)
+    torch.cuda.synchronize()
+    err, of_limit, ok = check_close(y, y_ref, torch.float32)
+    return err, of_limit, ok and ran == [plan.variant]
+
+
+def run_cnn_tuned(model, cluster, dep, frames, ref_t) -> None:
+    """Phase 4c: the CNN path compiled with ``ExecSpec(calibrate=True,
+    autotune=True)`` on the card (the conv kernel's launch plans tuned,
+    the plan's stages timed, the plan re-built on the measured
+    CostTable), saved and loaded with the planner, calibrator and tuner
+    counted at zero; the loaded deployment's outputs equal the compiled
+    one's bit for bit and the ``"torch"`` backend's (``ref_t``) within
+    the CNN tolerance; its conv launches counted; ``dep.run`` ms/frame
+    under the default and the tuned plans in turns; the ``[graph]``
+    checks again under the tuned plans."""
+    import torch
+    import repro_torch
+    from repro_torch.api import deployment as deployment_mod
+    from repro_torch.api.specs import ExecSpec, PlanSpec
+    from repro_torch.core import planner as planner_mod
+    from repro_torch.exec import autotune, calibrate
+    from repro_torch.kernels.conv2d import ops
+
+    autotune.clear_installed()
+    tuned, reports = [], []
+    real_tune, real_cal = autotune.autotune_conv, calibrate.calibrate_plan
+
+    def tune(*a, **kw):
+        tuned.append(real_tune(*a, **kw))
+        return tuned[-1]
+
+    def cal(*a, **kw):
+        reports.append(real_cal(*a, **kw))
+        return reports[-1]
+
+    autotune.autotune_conv, calibrate.calibrate_plan = tune, cal
+    t0 = time.perf_counter()
+    try:
+        spec = ExecSpec(backend="cuda", calibrate=True, autotune=True)
+        dep_t = repro_torch.compile(model, cluster, PlanSpec(), spec,
+                                    params=dep.params)
+        torch.cuda.synchronize()
+    finally:
+        autotune.autotune_conv, calibrate.calibrate_plan = real_tune, real_cal
+    print(f"[time] compile(calibrate=True, autotune=True) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not tuned or len(reports) != 1:
+        fail(f"compile tuned {len(tuned)} shapes, calibrated "
+             f"{len(reports)} times")
+    x_of = {autotune.shape_key(d["x_shape"], d["w_shape"], d["stride"],
+                               d["relu"], d["pool"]): d["x_shape"]
+            for d in autotune.conv_shapes(model)}
+    for r in tuned:
+        win = next(p for p, _ in r.trials
+                   if (p.tile, p.split) == (r.tile, r.split))
+        fastest, t_min = min(r.trials, key=lambda t: t[1])
+        kept = "" if win != r.heuristic or fastest == win else (
+            f" (fastest {_plan_text(fastest)} {t_min * 1e6:.2f} us, "
+            f"within the spread)")
+        print(f"[autotune] {r.key} at x{x_of[r.key]}: winner "
+              f"{_plan_text(win)} {r.best_us:.2f} us{kept}, heuristic "
+              f"{_plan_text(r.heuristic)} {r.heuristic_us:.2f} us, spread "
+              f"{r.spread_us:.2f} us; {len(r.trials)} plans timed (median "
+              f"of {autotune.ROUNDS} rounds in turns, CUDA events around "
+              f"{spec.autotune_iters} calls each)"
+              + ("; entry null: each width keeps its heuristic plan"
+                 if win == r.heuristic else ""))
+    rep = reports[0]
+    print(f"[calibrate] host_flops {rep.host_flops / 1e12:.2f} TFLOP/s "
+          f"(fp32 torch.matmul, n 512, best of 5, TF32 off) against the "
+          f"card's fp32 peak {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s "
+          f"({100 * rep.host_flops / PEAK_FLOPS['float32']:.1f}%)")
+    again = sorted(calibrate.measure_host_flops() for _ in range(10))
+    print(f"[calibrate] host_flops measured 10 times more: min "
+          f"{again[0] / 1e12:.2f}, median {again[5] / 1e12:.2f}, max "
+          f"{again[-1] / 1e12:.2f} TFLOP/s (spread "
+          f"{100 * (again[-1] - again[0]) / again[5]:.0f}% of the median); "
+          f"every ratio scales with it")
+    for st in rep.stages:
+        print(f"[calibrate] stage {st.index} ({len(st.nodes)} nodes): "
+              f"{st.measured_s * 1e3:.3f} ms (best of "
+              f"{spec.calibrate_iters} replays), {st.flops / 1e9:.3f} "
+              f"GFLOP, ratio {st.ratio:.3f}")
+    print("[calibrate] re-planned on the measured CostTable (default "
+          f"ratio {dep_t.cost_table.default:.3f}):")
+    print(dep_t.describe())
+
+    # -- save, then load with the planner, calibrator and tuner counted
+    path = ROOT / "build" / "smoke_deployment.json"
+    path.parent.mkdir(exist_ok=True)
+    dep_t.save(path)
+    counted = {"plan": 0, "calibrate": 0, "autotune": 0}
+    patched = [(deployment_mod, "plan_with_spec", "plan"),
+               (planner_mod, "plan_with_spec", "plan"),
+               (planner_mod, "plan", "plan"),
+               (calibrate, "calibrate_plan", "calibrate"),
+               (autotune, "autotune_conv", "autotune"),
+               (autotune, "autotune_model", "autotune")]
+    saved = [getattr(mod, name) for mod, name, _ in patched]
+
+    def counting(fn, what):
+        def wrapper(*a, **kw):
+            counted[what] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    autotune.clear_installed()
+    for (mod, name, what), fn in zip(patched, saved):
+        setattr(mod, name, counting(fn, what))
+    try:
+        dep_l = repro_torch.Deployment.load(path, params=dep_t.params)
+    finally:
+        for (mod, name, _), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    print(f"[tuned] saved {path.stat().st_size} bytes and loaded: planner, "
+          f"calibrator and tuner calls {counted}; "
+          f"{len(autotune.installed())} tuned plans installed on load")
+    if any(counted.values()) or autotune.installed() != {
+            k: e for k, e in dep_t.cost_table.kernels.items()
+            if k.startswith("conv:cuda:")} or not autotune.installed():
+        fail("load re-planned, re-calibrated or re-tuned, or installed "
+             "other plans than the compiled deployment's")
+
+    plans = _launch_plans(dep_l, frames[0])
+    other = [rec for rec in plans if rec[-2] != rec[-1]]
+    print(f"[tuned] {len(other)} of the {len(plans)} launches of a "
+          f"single-frame runner call take a plan other than the "
+          f"heuristic's, each held against the plain version (fp32 limit "
+          f"{FP32_TOL:g} x max(1, max|ref|)):")
+    for xs, ws, st, pool, relu, bias, p, h in other:
+        err, of_limit, ok = _tuned_case(xs, ws, st, pool, relu, bias, p)
+        print(f"  x{xs} w{ws}: {_plan_text(p)} (heuristic "
+              f"{_plan_text(h)}): max |err| {err:.3g}, {of_limit:.3f} of "
+              f"the limit")
+        if not ok:
+            fail(f"conv2d_fused under the tuned plan {_plan_text(p)} at "
+                 f"x{xs} w{ws} disagrees with its plain version")
+
+    # -- dep.run in turns, default plans against tuned: each switch drops
+    # the stages' graphs, and the first call of each form re-captures
+    reps = 10
+    times = {"default": [], "tuned": []}
+    for mode in ("default", "tuned", "tuned", "default"):
+        if mode == "default":
+            autotune.clear_installed()
+        else:
+            autotune.install(dep_l.cost_table.kernels)
+        dep_l.run(frames[0])
+        dep_l.run(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dep_l.run(frames[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            dep_l.run(frames)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        times[mode].append(((t1 - t0) / reps * 1e3,
+                            (t2 - t1) / reps / len(frames) * 1e3))
+    for mode, rows in times.items():
+        print(f"[tuned] dep.run {mode} plans: frame " + " / ".join(
+            f"{a:.3f}" for a, _ in rows) + f" ms/frame; [{len(frames)} "
+            f"frames] " + " / ".join(f"{b:.3f}" for _, b in rows)
+            + f" ms/frame (mean of {reps} runs each, in the turns default, "
+            f"tuned, tuned, default; host clock around synchronized runs, "
+            f"graphs replayed)")
+    for i, what in enumerate(("frame", f"[{len(frames)} frames]")):
+        d, t = (sum(r[i] for r in times[m]) / 2 for m in ("default", "tuned"))
+        slower = min(r[i] for r in times["tuned"]) \
+            > max(r[i] for r in times["default"])
+        print(f"[tuned] dep.run {what}: tuned plans {100 * (t / d - 1):+.1f}% "
+              f"against the default plans"
+              + (" -- SLOWER in both turns: the tuned plans cost time here"
+                 if slower else ""))
+
+    # -- the path, counted, under the tuned plans
+    autotune.install(dep_l.cost_table.kernels)
+    planned = sum(
+        sum(model.graph.layers[n].kind == "conv" for n in ex.nodes)
+        for ex in dep_l.runner.stages for tp in ex.plans if not tp.empty)
+    ops.reset_launches()
+    one_l = dep_l.run(frames[0])
+    many_l = dep_l.run(frames)
+    for _ in range(reps):
+        dep_l.run(frames[0])
+    torch.cuda.synchronize()
+    launches = ops.launch_count()
+    calls = reps + 2
+    print(f"[tuned] conv2d_fused launches {launches} (plan: {planned} x "
+          f"{calls} runner calls)")
+    if launches <= 0 or launches != planned * calls:
+        fail(f"tuned path: kernel launches {launches} != {planned} x "
+             f"{calls}")
+    one_t = dep_t.run(frames[0])
+    many_t = dep_t.run(frames)
+    torch.cuda.synchronize()
+    if not (_same(one_l, one_t)
+            and all(_same(a, b) for a, b in zip(many_l, many_t))):
+        fail("the loaded deployment's outputs differ from the compiled "
+             "one's")
+    sink = model.graph.sinks()[0]
+    logits = torch.stack([o[sink] for o in many_l])
+    scale = ref_t.abs().max().item()
+    d_t = (logits - ref_t).abs().max().item()
+    print(f"[tuned] loaded dep.run equals the compiled deployment's bit for "
+          f"bit (one frame, {len(frames)} frames); logits "
+          f"{tuple(logits.shape)} max |diff| vs torch backend {d_t:.3g} "
+          f"(limit {LOGIT_TOL * scale:.3g})")
+    if not bool(torch.isfinite(logits).all()) or d_t > LOGIT_TOL * scale:
+        fail("tuned logits not finite or disagree with the torch backend")
+    _cnn_graph(dep_l, model, frames, reps=5)
+    autotune.clear_installed()
+
+
 def run_cnn() -> dict:
     """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -1336,14 +1620,15 @@ def run_cnn() -> dict:
     order: list[tuple] = []
     real = ops.conv2d_fused
 
-    def recording(x, w, b=None, *, stride=(1, 1), relu=False, pool=None):
+    def recording(x, w, b=None, *, stride=(1, 1), relu=False, pool=None,
+                  **plan):
         key = (tuple(x.shape), tuple(w.shape), ops.normalize_stride(stride),
                None if pool is None else tuple(pool), relu, b is not None,
                str(x.dtype).removeprefix("torch."))
         launched[key] = launched.get(key, 0) + 1
         if x.shape[0] == 1:
             order.append(key)
-        return real(x, w, b, stride=stride, relu=relu, pool=pool)
+        return real(x, w, b, stride=stride, relu=relu, pool=pool, **plan)
 
     ops.conv2d_fused = recording
     try:
@@ -1477,7 +1762,7 @@ def run_cnn() -> dict:
           f"replayed); the first call of each form, which captures "
           f"them: {(t1 - t0) * 1e3:.1f} ms")
 
-    # -- 4c. the outputs -------------------------------------------------
+    # -- the outputs ----------------------------------------------------
     sink = model.graph.sinks()[0]
     logits = torch.stack([o[sink] for o in many])
     if tuple(logits.shape) != (len(frames), 1, 1, 1, 1000):
@@ -1502,6 +1787,11 @@ def run_cnn() -> dict:
         fail("logits disagree")
     _cnn_graph(dep, model, frames)
     del dep_t
+
+    # -- 4c. tuned and calibrated on the card, saved and loaded ---------
+    t0 = time.perf_counter()
+    run_cnn_tuned(model, cluster, dep, frames, ref_t)
+    print(f"[time] CNN phase 4c {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs, before the LMs
 
     path = [r for r in cases if r["per_call"]]

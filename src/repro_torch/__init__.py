@@ -10,7 +10,10 @@ kernel:
     dep = repro_torch.compile(zoo.vgg16(), make_pi_cluster([1.5, 1.2]))
     dep.run(frame)              # one (N, H, W, C) frame
     dep.run(frames)             # a list of frames, one batch-folded pass
+    dep.save("plan.json")       # the JAX package's artifact format
 
+``ExecSpec(calibrate=True, autotune=True)`` tunes the conv kernel's
+launch plans and times every stage on the device before the final plan.
 Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.  The package imports neither ``jax`` nor ``repro``.

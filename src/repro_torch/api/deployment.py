@@ -1,20 +1,30 @@
 """``repro_torch.compile(model, cluster) -> Deployment`` — the public facade.
 
-The paper's split into an offline optimizer and an online executor:
+One object owns the plan → calibrate → execute lifecycle that the paper
+splits into an offline optimizer and an online executor:
 
     dep = repro_torch.compile(model, cluster, plan_spec, exec_spec)
     dep.run(frame)                   # one (N, H, W, C) frame
     dep.run(frames)                  # a list of frames, batch-folded
+    dep.simulate()                   # closed-form steady-state report
+    dep.replan(cluster2)             # the same pieces on another cluster
+    dep.save("plan.json")            # durable, versioned artifact
+    dep2 = repro_torch.Deployment.load("plan.json")  # no re-plan or re-tune
 
 Planning is the JAX package's planner (framework-free, copied);
 execution runs every stage on one device, ``"cuda"`` unless the caller
-passes ``device="cpu"``.  Not ported yet: ``save``/``load``,
-``simulate``, calibration, autotune, the event-driven runtime, the
-servers and scheduler, distributed workers and ``replan``.
+passes ``device="cpu"``.  With ``ExecSpec(autotune=True)`` the conv
+kernel's launch plans are tuned first, and with ``calibrate=True`` each
+stage is timed on the device and the plan re-built on the measured
+:class:`CostTable`.  The artifact is the JAX package's document: one
+written by either package loads in the other, and neither the planner,
+the calibrator nor the tuner runs on load.  Not ported yet: the
+event-driven runtime, the servers and scheduler, distributed workers.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Mapping
 
@@ -26,6 +36,7 @@ from ..core.planner import PicoPlan, plan_with_spec
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
 from ..obs.trace import Tracer
+from . import artifacts
 from .specs import ExecSpec, PlanSpec
 
 
@@ -35,37 +46,71 @@ def compile(model, cluster: Cluster,
             cost_table: CostTable | None = None,
             params=None, generator: torch.Generator | None = None,
             device: str | torch.device = "cuda") -> "Deployment":
-    """Plan ``model`` on ``cluster`` and return the deployment that runs
-    the plan on ``device``.
+    """Plan (and optionally tune and calibrate) ``model`` on ``cluster``
+    and return the deployment that runs the plan on ``device``.
 
     ``model`` is a graph carrier (:class:`~repro_torch.models.cnn.
-    builder.CNNDef`).  ``params`` are the weights for later ``run()``
-    calls; without them ``generator`` (default: seed 0) seeds
-    ``model.init`` on first use.  ``cost_table`` supplies measured
-    segment ratios for the planner.
+    builder.CNNDef`).  With ``exec_spec.autotune`` the conv kernel's
+    launch plans are tuned on ``device`` first; with
+    ``exec_spec.calibrate`` every stage of the initial plan is timed on
+    ``device`` through its compiled stage and the plan is re-built on
+    the measured :class:`CostTable` (piece chain reused).  ``params``
+    are the weights for calibration and later ``run()`` calls; without
+    them ``generator`` (default: seed 0) seeds ``model.init``.
+    ``cost_table`` supplies a previously measured table up front.
     """
     plan_spec = plan_spec or PlanSpec()
     exec_spec = exec_spec or ExecSpec()
-    if exec_spec.calibrate or exec_spec.autotune:
-        raise NotImplementedError("ExecSpec.calibrate / autotune are not "
-                                  "ported to repro_torch yet")
     if params is None and generator is not None:
         params = model.init(generator, device=device)
-    # the deployment's tracer captures its lifecycle, starting with the
-    # offline plan's spans
+    # the deployment's tracer captures its lifecycle: the offline plan,
+    # tuning and calibration spans
     tracer = Tracer()
     with obs_trace.scoped(tracer):
+        if exec_spec.autotune:
+            # tune launch plans first so calibration (and with it the
+            # planner's cost ratios) measures the tuned kernel; winners
+            # merge into the same CostTable artifact as the ratios
+            from ..exec.autotune import autotune_model
+            cost_table, _ = autotune_model(
+                model,
+                backend=exec_spec.backend
+                or getattr(model, "backend", None) or "cuda",
+                table=cost_table, iters=exec_spec.autotune_iters,
+                device=device)
+        # one PlannerCache for the deployment's lifetime: the post-
+        # calibration re-plan and any later .replan() hops reuse the
+        # initial plan's segment geometry (incremental hot path)
+        cache = PlannerCache()
         pico = plan_with_spec(model.graph, cluster, model.input_size,
                               plan_spec, cost_table=cost_table,
-                              planner_cache=PlannerCache())
-    return Deployment(model, cluster, plan_spec, exec_spec, pico,
-                      cost_table=cost_table, params=params,
-                      device=torch.device(device), tracer=tracer)
+                              planner_cache=cache)
+        if exec_spec.calibrate:
+            from ..exec.calibrate import calibrate_plan
+            if params is None:
+                params = model.init(device=device)
+            report = calibrate_plan(model, params, pico.pipeline.stages,
+                                    backend=exec_spec.backend,
+                                    iters=exec_spec.calibrate_iters,
+                                    device=device)
+            tuned = cost_table.kernels if cost_table is not None else {}
+            cost_table = report.table()
+            cost_table.kernels.update(tuned)  # ratios + tunings, one store
+            pico = plan_with_spec(model.graph, cluster, model.input_size,
+                                  plan_spec, partition=pico.partition,
+                                  cost_table=cost_table,
+                                  planner_cache=cache)
+    dep = Deployment(model, cluster, plan_spec, exec_spec, pico,
+                     cost_table=cost_table, params=params,
+                     device=torch.device(device), tracer=tracer)
+    dep._planner_cache = cache
+    return dep
 
 
 @dataclass
 class Deployment:
-    """A planned pipeline, ready to execute on one device."""
+    """A planned (and optionally tuned and calibrated) pipeline, ready to
+    execute on one device, re-plan, or ship as a JSON artifact."""
 
     model: object
     cluster: Cluster
@@ -76,16 +121,23 @@ class Deployment:
     params: object = field(default=None, repr=False, compare=False)
     device: torch.device = field(default_factory=lambda: torch.device("cuda"))
     _runner: object = field(default=None, repr=False, compare=False)
-    #: span sink for the deployment lifecycle (plan spans from
-    #: :func:`compile`).  Export with ``tracer.save(path)``.
+    #: span sink for the deployment lifecycle (plan, autotune and
+    #: calibrate spans from :func:`compile`).  Export with
+    #: :meth:`save_trace`.
     tracer: object = field(default=None, repr=False, compare=False)
     #: deployment-scoped metrics registry
     metrics: object = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         # the cache bound is process-global; a deployment carrying one
-        # applies it when it is built
+        # applies it the same way on compile and on load
         self.exec_spec.apply_cache_limit()
+        # tuned launch plans ride in the cost table; install them
+        # process-wide so a loaded artifact re-arms them with zero
+        # re-tuning (the same compile/load symmetry as the cache bound)
+        if self.cost_table is not None and self.cost_table.kernels:
+            from ..exec.autotune import install
+            install(self.cost_table.kernels)
         if self.tracer is None:
             self.tracer = Tracer()
         if self.metrics is None:
@@ -131,6 +183,9 @@ class Deployment:
         if self.cost_table is not None:
             lines.append(f"  calibrated: {len(self.cost_table)} segment "
                          f"ratio(s)")
+            if self.cost_table.kernels:
+                lines.append(f"  autotuned: {len(self.cost_table.kernels)} "
+                             f"kernel shape(s)")
         return "\n".join(lines)
 
     # ---------------- execution ----------------
@@ -141,6 +196,7 @@ class Deployment:
         (idempotent unless ``generator`` is given)."""
         if self.params is None or generator is not None:
             self.params = self.model.init(generator, device=self.device)
+            self._runner = None
         return self
 
     @property
@@ -172,6 +228,12 @@ class Deployment:
                     for i in range(len(frames))]
         return [self.runner(params, x) for x in frames]
 
+    def simulate(self, frames: int = 64):
+        """Closed-form steady-state report for the plan (Table 5
+        quantities)."""
+        from ..core.simulate import simulate
+        return simulate(self.pico.pipeline, frames, cluster=self.cluster)
+
     # ---------------- observability ----------------
 
     def metrics_snapshot(self, meta: Mapping | None = None) -> dict:
@@ -186,3 +248,107 @@ class Deployment:
                 "stages": len(self.pico.pipeline.stages)}
         base.update(meta or {})
         return reg.snapshot(meta=base)
+
+    def save_trace(self, path: str | os.PathLike) -> str:
+        """Write the lifecycle trace as Perfetto-loadable Chrome-trace
+        JSON (one process row per device); returns the path."""
+        return self.tracer.save(path)
+
+    # ---------------- re-planning ----------------
+
+    def replan(self, cluster: Cluster) -> "Deployment":
+        """Re-plan onto a changed cluster, reusing Algorithm 1's piece
+        chain and any measured cost table (old deployment + new cluster
+        -> new one, on the same device with the same weights).
+
+        A :class:`~repro_torch.core.pipeline_dp.PlannerCache` is carried
+        across the replan chain, so every hop after the first is the
+        incremental hot path (``pico.source == "incremental"``)."""
+        cache = getattr(self, "_planner_cache", None)
+        if cache is None:
+            cache = self._planner_cache = PlannerCache()
+        pico = plan_with_spec(self.model.graph, cluster,
+                              self.model.input_size, self.plan_spec,
+                              partition=self.pico.partition,
+                              cost_table=self.cost_table,
+                              planner_cache=cache)
+        dep = Deployment(self.model, cluster, self.plan_spec,
+                         self.exec_spec, pico, cost_table=self.cost_table,
+                         params=self.params, device=self.device)
+        dep._planner_cache = cache
+        return dep
+
+    # ---------------- persistence ----------------
+
+    def _payload(self) -> dict:
+        return {
+            "plan_spec": self.plan_spec.to_dict(),
+            "exec_spec": artifacts.exec_spec_to_dict(self.exec_spec),
+            "model": artifacts.model_to_dict(self.model),
+            "cluster": artifacts.cluster_to_dict(self.cluster),
+            "pico": artifacts.plan_to_dict(self.pico),
+            "cost_table": (None if self.cost_table is None
+                           else artifacts.cost_table_to_dict(self.cost_table)),
+        }
+
+    def to_dict(self) -> dict:
+        return artifacts.envelope("deployment", self._payload())
+
+    @classmethod
+    def _from_payload(cls, p: Mapping, model=None, params=None,
+                      device: str | torch.device = "cuda") -> "Deployment":
+        return cls(
+            model if model is not None else artifacts.model_from_dict(
+                p["model"]),
+            artifacts.cluster_from_dict(p["cluster"]),
+            PlanSpec.from_dict(p["plan_spec"]),
+            artifacts.exec_spec_from_dict(p["exec_spec"]),
+            artifacts.plan_from_dict(p["pico"]),
+            cost_table=(None if p.get("cost_table") is None
+                        else artifacts.cost_table_from_dict(p["cost_table"])),
+            params=params, device=torch.device(device))
+
+    @classmethod
+    def from_dict(cls, d: Mapping, model=None, params=None,
+                  device: str | torch.device = "cuda") -> "Deployment":
+        return cls._from_payload(artifacts.open_envelope(d, "deployment"),
+                                 model=model, params=params, device=device)
+
+    def to_json(self, **dump_kw) -> str:
+        return artifacts.dumps_payload("deployment", self._payload(),
+                                       **dump_kw)
+
+    @classmethod
+    def from_json(cls, s: str, model=None, params=None,
+                  device: str | torch.device = "cuda") -> "Deployment":
+        return cls._from_payload(artifacts.loads_payload("deployment", s),
+                                 model=model, params=params, device=device)
+
+    def save(self, path: str | os.PathLike) -> str:
+        """Write the deployment artifact (plan + specs + model def +
+        cluster + cost table) as versioned JSON; returns the path.
+
+        Model *weights* are not part of the artifact — the plan ships as
+        data, weights ship as checkpoints: reattach them with
+        ``Deployment.load(path, params=...)``, or the loaded deployment
+        draws ``model.init``'s seeded default on first use.  Neither is
+        the device: ``load`` takes it."""
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=1))
+            f.write("\n")
+        return os.fspath(path)
+
+    @classmethod
+    def load(cls, path: str | os.PathLike, model=None, params=None,
+             device: str | torch.device = "cuda") -> "Deployment":
+        """Rebuild a deployment from :meth:`save` output — this
+        package's or the JAX package's — to run on ``device``.  Neither
+        the planner, the calibrator nor the tuner runs: the plan, its
+        measured cost table (tuned launch plans included, installed on
+        construction) and the model definition all come from the
+        artifact.  Pass ``model=`` to attach an existing model object
+        instead of rebuilding one from the serialized graph, and
+        ``params=`` to reattach weights (see :meth:`save`)."""
+        with open(path) as f:
+            return cls.from_json(f.read(), model=model, params=params,
+                                 device=device)

@@ -309,14 +309,20 @@ class ExecSpec(_SpecBase):
     per-tile oracle.  ``scan_batch`` routes multi-frame cohorts through
     the batch-folded ``run_frames`` path.  ``cache_size`` bounds the
     *process-wide* executable cache (applied whenever a Deployment
-    carrying the spec is built).  ``fuse`` lowers conv->pool chains as
-    one fused kernel call on backends with a fused lowering
-    (numerics-neutral on the others).
+    carrying the spec is built or loaded).  ``calibrate`` makes
+    :func:`repro_torch.api.compile` time each stage on the deployment's
+    device (best of ``calibrate_iters``) and re-plan on the measured
+    :class:`~repro_torch.core.cost.CostTable`.  ``fuse`` lowers
+    conv->pool chains as one fused kernel call on backends with a fused
+    lowering (numerics-neutral on the others).  ``autotune`` makes
+    :func:`repro_torch.api.compile` time the conv kernel's launch plans
+    (tile and split-K) per conv shape before calibration
+    (``autotune_iters`` calls each) and keep the winners in the
+    deployment's CostTable artifact.
 
     The fields are those of the JAX package's ``ExecSpec``, so that one
-    payload reads in both packages; ``donate``, ``calibrate``,
-    ``calibrate_iters``, ``profile``, ``autotune`` and
-    ``autotune_iters`` are carried but not acted on here yet.
+    payload reads in both packages; ``donate`` and ``profile`` are
+    carried but not acted on here.
     """
 
     backend: str | None = None
@@ -328,7 +334,7 @@ class ExecSpec(_SpecBase):
     calibrate_iters: int = 3
     profile: bool = False       # profiler bracket around each stage call
     fuse: bool = True           # fuse conv->pool chains into one kernel call
-    autotune: bool = False      # tune kernel block sizes at compile time
+    autotune: bool = False      # tune kernel launch plans at compile time
     autotune_iters: int = 3
 
     def __post_init__(self):

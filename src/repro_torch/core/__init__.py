@@ -2,7 +2,7 @@
 
 Framework-free copies of the JAX package's ``repro.core`` modules that
 the planning half of the main path needs (graph, cost, partition,
-pipeline DP, heterogeneous adjustment, planner facade).
+pipeline DP, heterogeneous adjustment, planner facade, simulator).
 """
 
 from .graph import Graph, LayerSpec, tile_widths, proportional_widths
@@ -17,6 +17,8 @@ from .hetero import adjust_stages
 from .planner import (PicoPlan, plan, plan_with_spec, replan, recost,
                       partition_cluster, split_devices, ClusterPartition,
                       TenantShare)
+from .simulate import (simulate, SimReport, DeviceReport, PlanMetrics,
+                       plan_metrics)
 
 __all__ = [
     "Graph", "LayerSpec", "tile_widths", "proportional_widths",
@@ -27,5 +29,6 @@ __all__ = [
     "PipelineDP", "PipelinePlan", "StagePlan", "plan_pipeline",
     "adjust_stages", "PicoPlan", "plan", "plan_with_spec", "replan",
     "recost", "partition_cluster", "split_devices", "ClusterPartition",
-    "TenantShare",
+    "TenantShare", "simulate", "SimReport", "DeviceReport", "PlanMetrics",
+    "plan_metrics",
 ]

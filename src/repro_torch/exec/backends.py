@@ -12,8 +12,9 @@ Registered backends, and the JAX package's names they stand for:
 ``cuda`` (``"pallas"`` in the JAX package; the default)
     The hand-written Hopper kernel (``kernels.conv2d``), which carries
     the conv epilogue — bias, relu, optional non-overlapping max-pool —
-    inside the kernel.  On CPU tensors its wrapper runs the kernel's
-    plain PyTorch version.
+    inside the kernel, launched (as a fused chain) with the plan that
+    ``exec.autotune`` installed for the conv's key, if any.  On CPU tensors its wrapper
+    runs the kernel's plain PyTorch version.
 
 A backend may additionally register a *fused* lowering: the signature
 covers the whole conv epilogue (conv + bias + relu + optional pool) in
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from ..core.graph import LayerSpec
 from ..kernels.conv2d import ops as conv_ops
+from .autotune import tuned_plan
 
 # conv backend signature: (spec, params, x, pad_w) -> y  (NHWC, VALID +
 # explicit pad_w/ph padding, no bias, no activation)
@@ -129,9 +131,13 @@ def _conv_cuda_fused(spec: LayerSpec, pool_spec: LayerSpec | None, p: dict,
     xp = pad_hw(x, spec.padding[1], pad_w).contiguous()
     pool = None if pool_spec is None \
         else (pool_spec.kernel[1], pool_spec.kernel[0])
-    return conv_ops.conv2d_fused(xp, p["w"], p["b"],
-                                 stride=(spec.stride[1], spec.stride[0]),
-                                 relu=relu, pool=pool)
+    stride = (spec.stride[1], spec.stride[0])
+    # the plan exec.autotune installed for this conv key, if any
+    tile, split = tuned_plan(xp.shape, p["w"].shape, stride, relu, pool) \
+        or (None, None)
+    return conv_ops.conv2d_fused(xp, p["w"], p["b"], stride=stride,
+                                 relu=relu, pool=pool, tile=tile,
+                                 split=split)
 
 
 register_backend("torch", _conv_torch)

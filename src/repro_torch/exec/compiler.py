@@ -20,7 +20,10 @@ Two bodies, under the JAX package's names, and an entry point each:
 A graph reads the weights at the addresses it captured, so a stage
 keeps one graph per (body, boundary shapes, :func:`params_key`), the
 last :data:`GRAPHS_PER_STAGE` of them; they are freed with the stage
-when the stage cache drops it.  A replay overwrites the graph's outputs,
+when the stage cache drops it.  A graph also holds the conv launch plans
+of its capture, so a stage drops its graphs when the installed tuned
+plans change (``exec.autotune.generation``); the stage itself resolves
+no plan and stays in the cache.  A replay overwrites the graph's outputs,
 so the entry points hand out copies unless the caller asks for the
 graph's own (``copy_out=False``).
 """
@@ -33,6 +36,7 @@ from typing import Mapping, Sequence
 import torch
 
 from ..pipeline.halo import TilePlan, split_inputs, stitch_outputs
+from . import autotune
 from . import graph as cuda_graph
 from .backends import DEFAULT_BACKEND, has_fused
 
@@ -132,6 +136,8 @@ class CompiledStage:
         self.fusion = fusable_chains(model.graph, self.nodes) \
             if self.fuse and has_fused(name) else {}
         self._graphs: OrderedDict[tuple, cuda_graph.Graph] = OrderedDict()
+        # the tuned plans the graphs were captured under
+        self._tuning = autotune.generation()
 
     # bodies --------------------------------------------------------------
 
@@ -180,6 +186,9 @@ class CompiledStage:
         bufs = [boundary[k] for k in self.needs]
         if not cuda_graph.enabled(bufs[0].device):
             return body(params, boundary)
+        if self._tuning != autotune.generation():
+            self._graphs.clear()
+            self._tuning = autotune.generation()
         key = (body.__name__,
                tuple((tuple(b.shape), b.dtype) for b in bufs),
                params_key(params, self.nodes))

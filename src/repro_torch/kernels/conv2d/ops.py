@@ -9,7 +9,9 @@ launch.
 
 The kernel's launch is planned per shape by :func:`plan`, in plain
 Python: its variant (``ring`` or ``general``), its output tile and how
-many blocks of a thread-block cluster split K.
+many blocks of a thread-block cluster split K.  A caller may override
+the tile and the split (``exec.autotune``'s winners do); an override
+the kernel does not take raises.
 
 :func:`launch_count` counts the launches since the last
 :func:`reset_launches`, so a run can show that it went through the
@@ -61,6 +63,8 @@ MIN_SPLIT_SLICES = 4
 LONG_SPLIT_SLICES = 64
 #: blocks of a thread-block cluster (the portable limit)
 MAX_SPLIT = 8
+#: the split-K factors a plan takes
+SPLITS = (1, 2, 4, 8)
 
 
 class Plan(NamedTuple):
@@ -71,13 +75,24 @@ class Plan(NamedTuple):
     split: int
 
 
+def check_override(tile, split) -> None:
+    """Raise ValueError for a tile or split that no plan takes: a tile
+    outside :data:`TILES`, a split outside :data:`SPLITS`."""
+    if tile is not None and tuple(tile) not in TILES:
+        raise ValueError(f"conv2d: tile {tile} is none of {TILES}")
+    if split is not None and split not in SPLITS:
+        raise ValueError(f"conv2d: split {split} is none of {SPLITS}")
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(n: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
          stride: tuple[int, int] = (1, 1),
-         pool: tuple[int, int] | None = None, aligned: bool = True) -> Plan:
+         pool: tuple[int, int] | None = None, aligned: bool = True,
+         tile: tuple[int, int] | None = None,
+         split: int | None = None) -> Plan:
     """The launch plan of x (n, h, w, ci), w (kh, kw, ci, co), from the
     shape alone (and 16-byte alignment, which every tensor the model
-    makes has).
+    makes has), or from an override of the tile and the split.
 
     - variant: ``ring`` where CI and CO are multiples of 4 and x and w
       aligned, else ``general``;
@@ -89,7 +104,15 @@ def plan(n: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
       split keeping :data:`LONG_SPLIT_SLICES` slices of K, as long as each
       keeps at least :data:`MIN_SPLIT_SLICES`.  Block r of a cluster
       walks the BK slices ``_build.split_ranges(ceil(K / BK), S)[r]``.
+
+    ``tile`` (one of :data:`TILES`) and ``split`` (one of
+    :data:`SPLITS`) override the choice, as far as the shape allows:
+    ``general`` takes 64 x 64 whatever the tile, and the split is halved
+    until each of its blocks keeps :data:`MIN_SPLIT_SLICES` slices of K.
+    Neither depends on the spatial size, so one override gives every
+    width of a layer the same plan.  Any other tile or split raises.
     """
+    check_override(tile, split)
     ph, pw = pool or (1, 1)
     hp, wp = out_size(h, w, kh, kw, stride, pool)
     windows = n * hp * wp
@@ -110,9 +133,15 @@ def plan(n: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
         return s
 
     tiles = TILES if variant == "ring" else TILES[-1:]
-    tile = next((t for t in tiles if blocks(t) * split_of(t) >= MIN_BLOCKS),
-                tiles[-1])
-    return Plan(variant, tile, split_of(tile))
+    if tile is None:
+        tile = next((t for t in tiles
+                     if blocks(t) * split_of(t) >= MIN_BLOCKS), tiles[-1])
+    tile = tuple(tile) if tuple(tile) in tiles else tiles[-1]
+    if split is None:
+        split = split_of(tile)
+    while split > 1 and slices < split * MIN_SPLIT_SLICES:
+        split //= 2
+    return Plan(variant, tile, split)
 
 
 #: launches of the kernel, and of each variant (a key of
@@ -169,16 +198,20 @@ def _check_cuda(x, w, b, pool):
 
 def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor | None = None, *, stride=(1, 1),
-                 relu: bool = False, pool: tuple[int, int] | None = None
-                 ) -> torch.Tensor:
+                 relu: bool = False, pool: tuple[int, int] | None = None,
+                 tile: tuple[int, int] | None = None,
+                 split: int | None = None) -> torch.Tensor:
     """VALID NHWC x HWIO conv with the fused epilogue: + bias, ReLU, then
     an optional non-overlapping max-pool (window == stride ``pool``).
 
     x: (N, H, W, CI); w: (KH, KW, CI, CO); b: (CO,) or None.  Returns
     (N, HO // ph, WO // pw, CO) in x's dtype (fp32 or bf16 on the GPU;
-    fp32 accumulation either way).
+    fp32 accumulation either way).  ``tile`` and ``split`` override the
+    launch plan (:func:`plan`); one that no plan takes raises on either
+    device.
     """
     stride = normalize_stride(stride)
+    check_override(tile, split)
     if pool is not None:
         pool = (int(pool[0]), int(pool[1]))
         if pool[0] < 1 or pool[1] < 1:
@@ -204,7 +237,8 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
         return y
     ph, pw = pool or (1, 1)
     p = plan(n, h, wd, ci, kh, kw, co, stride, pool,
-             x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+             x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+             None if tile is None else tuple(tile), split)
     err = _kernel()(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if b is None else b.data_ptr(), y.data_ptr(),

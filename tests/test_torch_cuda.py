@@ -20,7 +20,7 @@ import torch
 import repro_torch
 from repro_torch.core import make_pi_cluster
 from repro_torch import configs
-from repro_torch.exec import graph
+from repro_torch.exec import autotune, graph
 from repro_torch.exec.cache import clear_cache, set_cache_size
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ops as attn_ops
@@ -59,15 +59,18 @@ def _t(a, device):
     return None if a is None else torch.tensor(a, device=device)
 
 
-def _conv_case(x_shape, w_shape, stride, pool, relu, bias, want_plan, dev):
+def _conv_case(x_shape, w_shape, stride, pool, relu, bias, want_plan, dev,
+               tile=None, split=None):
     """fp32 kernel vs the plain version on the card: 1e-4 x max(1,
     max|ref|), for sums taken in another order than cuBLAS's; one launch
     through the planned variant; the same bits on a second call (the
-    split-K sum runs in rank order)."""
+    split-K sum runs in rank order).  ``tile`` and ``split`` override the
+    plan."""
     x, w, b = (_t(a, dev) for a in conv_inputs(x_shape, w_shape, bias))
-    kw = dict(stride=stride, relu=relu, pool=pool)
+    kw = dict(stride=stride, relu=relu, pool=pool, tile=tile, split=split)
     kh, kwd, _, co = w_shape
-    assert tuple(ops.plan(*x_shape, kh, kwd, co, stride, pool)) == want_plan
+    assert tuple(ops.plan(*x_shape, kh, kwd, co, stride, pool, True, tile,
+                          split)) == want_plan
     before = ops.launch_count()
     variants = dict(ops.variant_counts)
     got = ops.conv2d_fused(x, w, b, **kw)
@@ -75,7 +78,7 @@ def _conv_case(x_shape, w_shape, stride, pool, relu, bias, want_plan, dev):
     assert ops.launch_count() == before + 1
     variants[want_plan[0]] += 1
     assert ops.variant_counts == variants
-    want = ref.conv2d_fused_ref(x, w, b, **kw)
+    want = ref.conv2d_fused_ref(x, w, b, stride=stride, relu=relu, pool=pool)
     assert got.shape == want.shape
     tol = 1e-4 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol
@@ -97,6 +100,58 @@ def test_kernel_plan_edges_match_plain_version(case, cuda):
     cluster, K no multiple of S BK, CI = 12, the general variant, a 3x3
     pool in 128-row tiles, a batch of 8 frames."""
     _conv_case(*CONV_PLAN_CASES[case], cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("candidate", autotune.DEFAULT_CANDIDATES,
+                         ids=lambda c: f"{c[0][0]}x{c[0][1]}_s{c[1]}")
+@pytest.mark.parametrize("case", ["vgg_launch15", "k1800", "ci12", "ci13",
+                                  "pool3_bm128"])
+def test_every_candidate_plan_matches_plain_version(case, candidate, cuda):
+    """Each plan autotune times, as the shape resolves it (the tile where
+    the variant takes it, the split as deep as K allows), held to the
+    plain version like the heuristic's."""
+    x_shape, w_shape, stride, pool, relu, bias, _ = CONV_PLAN_CASES[case]
+    tile, split = candidate
+    kh, kw, _, co = w_shape
+    want_plan = tuple(ops.plan(*x_shape, kh, kw, co, stride, pool, True,
+                               tile, split))
+    _conv_case(x_shape, w_shape, stride, pool, relu, bias, want_plan, cuda,
+               tile=tile, split=split)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_an_override_no_plan_takes(cuda):
+    x = torch.zeros(1, 8, 8, 4, device=cuda)
+    w = torch.zeros(3, 3, 4, 8, device=cuda)
+    before = ops.launch_count()
+    for kw in ({"tile": (32, 32)}, {"tile": (128, 128)}, {"split": 3},
+               {"split": 16}):
+        with pytest.raises(ValueError):
+            ops.conv2d_fused(x, w, **kw)
+    assert ops.launch_count() == before
+
+
+@pytest.mark.cuda
+def test_autotune_conv_times_the_kernel_on_the_card(cuda):
+    """The search launches the kernel under each distinct plan (the
+    heuristic's among them), a warm-up call and ``ROUNDS`` rounds of
+    ``iters`` calls each, and picks the fastest median by device time
+    where it beats the heuristic's by more than the spread."""
+    before = ops.launch_count()
+    res = autotune.autotune_conv((1, 58, 33, 256), (3, 3, 256, 256),
+                                 relu=True, iters=2, device=cuda)
+    plans = [p for p, _ in res.trials]
+    assert res.heuristic in plans and len(plans) == len(set(plans)) > 1
+    assert ops.launch_count() - before \
+        == (1 + autotune.ROUNDS * 2) * len(plans)
+    best = min(t for _, t in res.trials) * 1e6
+    if (res.tile, res.split) == (res.heuristic.tile, res.heuristic.split):
+        assert res.best_us == res.heuristic_us > 0
+        assert res.heuristic_us - best <= res.spread_us
+    else:
+        assert res.best_us == best > 0
+        assert res.heuristic_us - best > res.spread_us
 
 
 @pytest.mark.cuda
@@ -701,3 +756,55 @@ def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
     assert calls == [0, 1] and not cs._graphs   # warm-up, then the capture
     torch.cuda.synchronize()
     assert float((torch.ones(4, device=cuda) * 2).sum()) == 8.0
+
+
+@pytest.mark.cuda
+def test_stage_graph_follows_an_installed_plan(cuda):
+    """Graphs captured under the heuristic plans are not replayed after
+    ``install`` changes the plans: the stage re-captures, and each replay
+    equals its eager body under the plans installed at the time, bit for
+    bit; the same after ``clear_installed``.  The launches a replay
+    credits stay the body's."""
+    clear_cache()
+    autotune.clear_installed()
+    m, ex, frames, (pa, _) = _tiny_stage(cuda)
+    bnd = ex.boundary_inputs({}, frames[0])
+    cs = ex._executable(bnd)
+    heuristic = cs(pa, bnd)
+    old = next(iter(cs._graphs.values()))
+    # every conv shape of the stage: a plan other than the heuristic's
+    # (the deepest split K allows on the other tile)
+    tuned = {}
+    for d in autotune.conv_shapes(m):
+        (n, h, w, ci), (kh, kw, _, co) = d["x_shape"], d["w_shape"]
+        p = ops.plan(n, h, w, ci, kh, kw, co, d["stride"], d["pool"])
+        tile = ops.TILES[0] if p.tile == ops.TILES[1] else ops.TILES[1]
+        tuned[autotune.shape_key(d["x_shape"], d["w_shape"], d["stride"],
+                                 d["relu"], d["pool"])] = {
+            "tile": list(tile), "split": 8 if p.split != 8 else 1,
+            "best_us": 1.0, "backend": "cuda"}
+    try:
+        for step in ("install", "clear"):
+            if step == "install":
+                autotune.install(tuned)
+            else:
+                autotune.clear_installed()
+            for _ in range(2):
+                ops.reset_launches()
+                got = cs(pa, bnd)
+                torch.cuda.synchronize()
+                n_graph = ops.launch_count()
+                ops.reset_launches()
+                with graph.eager():
+                    want = cs(pa, bnd)
+                torch.cuda.synchronize()
+                assert n_graph == ops.launch_count() > 0
+                for s in want:
+                    assert torch.equal(got[s], want[s]), (step, s)
+            assert len(cs._graphs) == 1
+            assert next(iter(cs._graphs.values())) is not old
+            old = next(iter(cs._graphs.values()))
+        for s in heuristic:             # the heuristic plans are back
+            assert torch.equal(got[s], heuristic[s])
+    finally:
+        autotune.clear_installed()

@@ -173,11 +173,3 @@ def test_stage_cache_hits_and_metrics():
     names = {k.split("{")[0] for k in repro_torch.obs.flatten(snap)}
     assert {"exec.cache.hits", "exec.cache.misses",
             "exec.cache.evictions", "exec.cache.entries"} <= names
-
-
-def test_unported_exec_options_are_refused():
-    m = zoo.vgg16(input_size=(40, 40), scale=0.1, head=False)
-    for spec in (ExecSpec(calibrate=True), ExecSpec(autotune=True)):
-        with pytest.raises(NotImplementedError):
-            repro_torch.compile(m, make_pi_cluster(FREQS), exec_spec=spec,
-                                device="cpu")
