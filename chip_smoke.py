@@ -49,7 +49,18 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    the path counted again (launches reset just before, read just after);
    the loaded deployment's outputs equal the compiled one's bit for bit
    and the ``"torch"`` backend's within the logit tolerance; the
-   ``[graph]`` checks again under the tuned plans;
+   ``[graph]`` checks again under the tuned plans.
+   4d: ``Deployment.runtime`` with real compute on the same deployment
+   (the event-driven cluster runtime): 24 seeded frames at half the
+   plan's period, up to 4 coalesced at stage 0, the plan's slowest
+   device leaving once a third have arrived.  ``[runtime]`` lines: 24
+   completed, one ``leave`` re-plan, the conv launches of the run
+   (reset just before, read just after), every frame's logits against
+   the ``"torch"`` backend's monolithic forward, single-frame batches
+   of the first plan equal to ``dep.run``'s stages bit for bit, each
+   frame's stage outputs unchanged by later replays, virtual time equal
+   to the timing-only run's, graphs captured under each plan, memory
+   before and after the churn, wall ms/frame beside ``dep.run``'s;
 5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
    random weights from a seed, batch 4, a 512-token prompt, 32 new
    greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
@@ -124,6 +135,13 @@ LM_FAMILIES = {LM_ARCH: ("flash_prefill", "decode_attention"),
                MOE_ARCH: ("flash_prefill", "decode_attention", "moe_gemm")}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
 GRAPH_STEPS = 6      # decode steps held bit for bit, eager against replayed
+# phase 4d: the event-driven runtime, frames arriving at half the plan's
+# period (stage 0 queues and coalesces up to RUNTIME_BATCH of them), the
+# plan's slowest device leaving once a third of them have arrived
+RUNTIME_FRAMES, RUNTIME_BATCH = 24, 4
+# a run's memory outside what its frames hold (their inputs and stage
+# outputs): growth allowed once every graph of the run is captured
+RUNTIME_MEM_SLACK = 16 << 20
 # kernel path vs backend="torch" on the same weights, x max|logit| over
 # the real vocab.  fp32: only the kernels differ (sums in another
 # order), through every layer.  bf16: both paths round the same tensors
@@ -1585,6 +1603,224 @@ def run_cnn_tuned(model, cluster, dep, frames, ref_t) -> None:
     autotune.clear_installed()
 
 
+def _held_bytes(frames, saved) -> int:
+    """Bytes of the distinct storages that the runtime's frames (their
+    inputs and stage outputs) and the dicts of tensors in ``saved``
+    hold."""
+    tensors = [t for fr in frames for t in [fr.image, *fr.produced.values()]
+               if t is not None]
+    tensors += [t for d in saved for t in d.values()]
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def run_cnn_runtime(model, dep) -> None:
+    """Phase 4d: ``Deployment.runtime`` with real compute on the card,
+    across a churn-triggered re-plan.  ``RUNTIME_FRAMES`` seeded frames
+    arrive at half the plan's period, so stage 0 queues and coalesces
+    batches of up to ``RUNTIME_BATCH``; the plan's slowest device leaves
+    once a third of them have arrived.  Every stage runs through its
+    compiled stage (CUDA graphs, the conv kernel)."""
+    import torch
+    from repro_torch.api.specs import DeploySpec
+    from repro_torch.exec import graph
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.runtime import DeviceLeave
+
+    n = RUNTIME_FRAMES
+    gap = dep.period / 2
+    devices = {d.name: d for st in dep.pipeline.stages for d in st.devices}
+    slow = min(devices.values(), key=lambda d: (d.capacity, d.name))
+    # between the arrivals of frames n/3 - 1 and n/3
+    t_leave = (n // 3 - 0.5) * gap
+    spec = DeploySpec(seed=0, max_batch=RUNTIME_BATCH)
+    churn = [DeviceLeave(t_leave, slow.name)]
+    w, h = model.input_size
+    g = torch.Generator(device=dep.device).manual_seed(2)
+    frames = list(torch.randn((n, 1, h, w, model.in_channels), generator=g,
+                              device=dep.device))
+    sink = model.graph.sinks()[0]
+
+    rt = dep.runtime(spec, churn=churn)
+    if rt.model is None or rt.device != dep.device:
+        fail("dep.runtime did not build a real-compute runtime on the "
+             "deployment's device")
+    # a spy around each stage's real compute: what ran (plan, stage,
+    # batch), each frame's stage outputs as they were right after their
+    # stage ran, the graphs captured and the memory at that moment
+    runs, saved, latest, mem = [], {}, {}, []
+    run_batch = rt._exec_batch
+
+    def spy(t, st, batch):
+        run_batch(t, st, batch)
+        plan = len(rt.replans)
+        runs.append((plan, st.index, len(batch),
+                     [fr.fid for fr in batch.frames]))
+        for fr in batch.frames:
+            outs = {k: fr.produced[k].clone() for k in st.executor.sinks}
+            saved[(plan, st.index, fr.fid)] = outs
+            latest.update({(fr.fid, k): v for k, v in outs.items()})
+        torch.cuda.synchronize()
+        mem.append((plan, graph.captures(), torch.cuda.memory_allocated()
+                    - _held_bytes(rt._all_frames, saved.values()),
+                    torch.cuda.max_memory_allocated()))
+
+    rt._exec_batch = spy
+    cap0 = graph.captures()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = rt.run(inputs=frames, interarrival=gap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_count()
+    captured = graph.captures() - cap0
+
+    # -- the run -------------------------------------------------------
+    print(f"[runtime] {n} frames every {gap * 1e3:.3f} ms (half the plan's "
+          f"period), max_batch {RUNTIME_BATCH}, {slow.name} leaves at "
+          f"{t_leave * 1e3:.3f} ms: completed {rep.completed}, dropped "
+          f"{rep.dropped}, restarts {rep.restarts}, re-plans "
+          + ", ".join(f"{r.reason} at {r.time * 1e3:.3f} ms (period "
+                      f"{r.old_period * 1e3:.3f} -> {r.new_period * 1e3:.3f}"
+                      f" ms, {r.n_devices} devices)" for r in rep.replans))
+    if rep.completed != n or rep.dropped != 0:
+        fail(f"runtime completed {rep.completed} of {n}, dropped "
+             f"{rep.dropped}")
+    if [r.reason for r in rep.replans] != ["leave"]:
+        fail(f"runtime re-plans {[r.reason for r in rep.replans]}, want one "
+             f"'leave'")
+    sizes = {}
+    for plan, si, b, _ in runs:
+        sizes.setdefault((plan, si), set()).add(b)
+    print(f"[runtime] stage runs: {len(runs)} ({sum(1 for r in runs if r[2] > 1)}"
+          f" of them batches of 2-{RUNTIME_BATCH} frames); per (plan, stage) "
+          f"the batch sizes: " + "; ".join(
+              f"{p}/{si} {sorted(b)}" for (p, si), b in sorted(sizes.items())))
+    print(f"[runtime] conv2d_fused launches {launches} in the run (reset "
+          f"just before, read just after; stages replayed from their CUDA "
+          f"graphs); frames that resumed after the re-plan needing a node "
+          f"an old stage kept inside, computed from the tensors they kept: "
+          f"{rt.metrics.value('runtime.boundary_fills'):.0f}, "
+          f"{rt.metrics.value('runtime.boundary_fill_layers'):.0f} layers "
+          f"that virtual time does not charge")
+    if launches <= 0:
+        fail("the runtime launched no conv kernel")
+    if not any(b > 1 for _, _, b, _ in runs):
+        fail("stage 0 coalesced no batch")
+
+    # -- the outputs ---------------------------------------------------
+    with graph.eager():
+        ref = model.forward(dep.params, torch.cat(frames),
+                            backend="torch")[sink]
+    scale = ref.abs().max().item()
+    tol = LOGIT_TOL * scale
+    worst = 0.0
+    for i in range(n):
+        y = rep.outputs[i][sink]
+        if y.shape[0] != 1 or y.numel() != 1000:
+            fail(f"runtime frame {i}: logits shape {tuple(y.shape)}")
+        if not bool(torch.isfinite(y).all()):
+            fail(f"runtime frame {i}: logits not finite")
+        worst = max(worst, (y.reshape(1, -1) - ref[i].reshape(1, -1))
+                    .abs().max().item())
+    print(f"[runtime] logits of every frame {tuple(rep.outputs[0][sink].shape)}"
+          f" finite; max |diff| vs the torch backend's monolithic forward "
+          f"{worst:.3g} (limit {tol:.3g} = {LOGIT_TOL:g} x max |logit| "
+          f"{scale:.3g})")
+    if worst > tol:
+        fail("runtime logits disagree with the torch backend")
+
+    # single-frame batches of the first plan against dep.run's path:
+    # dep.runner's stages (the executors dep.run calls) on the same frame,
+    # stage by stage, as long as the frame ran alone under that plan
+    compared = whole = 0
+    for i, x in enumerate(frames):
+        produced = {}
+        for si, ex in enumerate(dep.runner.stages):
+            if {b for p, s_, b, fids in runs
+                    if (p, s_) == (0, si) and i in fids} != {1}:
+                break
+            produced.update(ex(dep.params, produced, x))
+            if not _same({k: produced[k] for k in ex.sinks},
+                         saved[(0, si, i)]):
+                fail(f"runtime frame {i} stage {si}: a single-frame batch "
+                     f"differs from dep.run's stage")
+            compared += 1
+        else:
+            if not _same(dep.run(x), rep.outputs[i]):
+                fail(f"runtime frame {i}: differs from dep.run(frame)")
+            whole += 1
+    torch.cuda.synchronize()
+    print(f"[runtime] single-frame batches of the first plan equal "
+          f"dep.run's stages bit for bit: {compared} (frame, stage) pairs, "
+          f"{whole} whole frames equal to dep.run(frame)")
+    if compared == 0:
+        fail("no single-frame batch ran before the re-plan")
+
+    changed = [k for k, v in latest.items()
+               if not torch.equal(rt._all_frames[k[0]].produced[k[1]], v)]
+    print(f"[runtime] each frame's stage outputs, saved right after the "
+          f"stage ran: {len(latest) - len(changed)} of {len(latest)} "
+          f"unchanged at the end of the run")
+    if changed:
+        fail(f"runtime outputs changed after later replays: {changed[:4]}")
+
+    # -- virtual time ----------------------------------------------------
+    t1 = time.perf_counter()
+    timing = dep.runtime(spec, churn=churn, real_compute=False).run(
+        n, interarrival=gap)
+    t_wall = time.perf_counter() - t1
+    same_time = (timing.completions == rep.completions
+                 and timing.makespan == rep.makespan
+                 and [(r.time, r.reason, r.old_period, r.new_period)
+                      for r in timing.replans]
+                 == [(r.time, r.reason, r.old_period, r.new_period)
+                     for r in rep.replans])
+    print(f"[runtime] virtual time against the timing-only run: completions, "
+          f"makespan ({rep.makespan * 1e3:.3f} ms) and re-plan periods "
+          f"{'equal' if same_time else 'DIFFER'}")
+    if not same_time:
+        fail("real compute moved the runtime's virtual time")
+
+    # -- graphs, memory, times -----------------------------------------
+    before = [m_ for m_ in mem if m_[0] == 0]
+    cap_before = before[-1][1] - cap0
+    cap_after = captured - cap_before
+    print(f"[runtime] CUDA graphs captured: {cap_before} under the first "
+          f"plan, {cap_after} under the re-plan ({len(sizes)} (plan, stage) "
+          f"pairs, {sum(len(b) for b in sizes.values())} (plan, stage, batch "
+          f"size) forms)")
+    if cap_before + cap_after > sum(len(b) for b in sizes.values()):
+        fail("the runtime captured more graphs than it ran forms")
+    settled = [m_ for m_ in mem if m_[1] == cap0 + captured]
+    grown = max(m_[2] for m_ in settled) - settled[0][2]
+    print(f"[runtime] max_memory_allocated {before[-1][3] / 2**20:.1f} MiB "
+          f"before the churn, {mem[-1][3] / 2**20:.1f} MiB at the end; "
+          f"allocated outside the frames' inputs and outputs: "
+          f"{before[-1][2] / 2**20:.1f} MiB before the churn, "
+          f"{mem[-1][2] / 2**20:.1f} MiB at the end, grown "
+          f"{grown / 2**20:.2f} MiB over the last {len(settled)} stage runs "
+          f"(no capture among them; limit {RUNTIME_MEM_SLACK / 2**20:.0f} "
+          f"MiB)")
+    if grown > RUNTIME_MEM_SLACK:
+        fail("runtime memory grows with the frames")
+
+    dep.run(frames)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dep.run(frames)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t2
+    print(f"[runtime] wall {wall:.3f} s for the real-compute run, "
+          f"{wall / n * 1e3:.3f} ms/frame (capture of its graphs, the "
+          f"re-plan and the spy's clones included); dep.run([{n} frames]) "
+          f"{t_run / n * 1e3:.3f} ms/frame (its graph captured before); "
+          f"timing-only run {t_wall / n * 1e3:.3f} ms/frame (host clock "
+          f"around synchronized runs)")
+
+
 def run_cnn() -> dict:
     """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -1792,6 +2028,12 @@ def run_cnn() -> dict:
     t0 = time.perf_counter()
     run_cnn_tuned(model, cluster, dep, frames, ref_t)
     print(f"[time] CNN phase 4c {time.perf_counter() - t0:.1f} s")
+    clear_cache()                 # the stages' graphs
+
+    # -- 4d. the event-driven runtime with real compute ------------------
+    t0 = time.perf_counter()
+    run_cnn_runtime(model, dep)
+    print(f"[time] CNN phase 4d {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs, before the LMs
 
     path = [r for r in cases if r["per_call"]]

@@ -11,6 +11,7 @@ kernel:
     dep.run(frame)              # one (N, H, W, C) frame
     dep.run(frames)             # a list of frames, one batch-folded pass
     dep.save("plan.json")       # the JAX package's artifact format
+    dep.runtime(DeploySpec(), churn=[...]).run(inputs=frames)  # event-driven
 
 ``ExecSpec(calibrate=True, autotune=True)`` tunes the conv kernel's
 launch plans and times every stage on the device before the final plan.
@@ -27,13 +28,21 @@ _LAZY = {
     "PlanSpec": ("repro_torch.api.specs", "PlanSpec"),
     "ExecSpec": ("repro_torch.api.specs", "ExecSpec"),
     "DeploySpec": ("repro_torch.api.specs", "DeploySpec"),
+    "FleetSpec": ("repro_torch.api.specs", "FleetSpec"),
     "ObjectiveSpec": ("repro_torch.api.specs", "ObjectiveSpec"),
     "OBJECTIVE_PRESETS": ("repro_torch.api.specs", "OBJECTIVE_PRESETS"),
+    "plan_front": ("repro_torch.core.pareto", "plan_front"),
+    "ParetoFront": ("repro_torch.core.pareto", "ParetoFront"),
+    "PlanRegistry": ("repro_torch.fleet.registry", "PlanRegistry"),
+    "FleetRouter": ("repro_torch.fleet.router", "FleetRouter"),
     "api": ("repro_torch.api", None),
     "obs": ("repro_torch.obs", None),
+    "fleet": ("repro_torch.fleet", None),
 }
 
 __all__ = ["compile", "Deployment", "PlanSpec", "ExecSpec", "DeploySpec",
-           "ObjectiveSpec", "OBJECTIVE_PRESETS", "api", "obs"]
+           "FleetSpec", "ObjectiveSpec", "OBJECTIVE_PRESETS", "plan_front",
+           "ParetoFront", "PlanRegistry", "FleetRouter", "api", "obs",
+           "fleet"]
 
 __getattr__, __dir__ = lazy_exports(__name__, globals(), _LAZY)

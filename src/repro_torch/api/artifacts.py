@@ -31,8 +31,6 @@ bump the version — decoders default missing fields (``dict.get``).  A
 *breaking* payload-shape change must bump ``SCHEMA_VERSION`` and ship
 a version-dispatched migration in this module alongside it; until one
 exists, every version ``<=`` current decodes with the current codecs.
-The JAX package's Pareto-front and plan-registry codecs are not ported
-yet.
 """
 
 from __future__ import annotations
@@ -325,6 +323,66 @@ def model_from_dict(d: Mapping):
 
 
 # ---------------------------------------------------------------------------
+# pareto front (multi-objective planner output)
+# ---------------------------------------------------------------------------
+
+def _plan_metrics_to_dict(m) -> dict:
+    return {"period": m.period, "latency": m.latency,
+            "energy_j": m.energy_j, "memory_bytes": m.memory_bytes}
+
+
+def _plan_metrics_from_dict(d: Mapping):
+    from ..core.simulate import PlanMetrics
+    return PlanMetrics(d["period"], d["latency"], d["energy_j"],
+                       d["memory_bytes"])
+
+
+def _front_point_to_dict(p) -> dict:
+    return {"plan": plan_to_dict(p.plan),
+            "metrics": _plan_metrics_to_dict(p.metrics),
+            "n_devices": p.n_devices, "t_lim": p.t_lim}
+
+
+def _front_point_from_dict(d: Mapping):
+    from ..core.pareto import FrontPoint
+    return FrontPoint(plan_from_dict(d["plan"]),
+                      _plan_metrics_from_dict(d["metrics"]),
+                      d["n_devices"], d.get("t_lim", float("inf")))
+
+
+def pareto_front_to_dict(front) -> dict:
+    """Serialize a :class:`~repro_torch.core.pareto.ParetoFront`: the
+    sweep's :class:`~repro_torch.api.specs.PlanSpec` plus every
+    non-dominated point (full plan + priced metrics + sweep
+    coordinates)."""
+    return {"spec": front.spec.to_dict(),
+            "points": [_front_point_to_dict(p) for p in front.points]}
+
+
+def pareto_front_from_dict(d: Mapping):
+    from ..core.pareto import ParetoFront   # lazy: avoid import cycle
+    from .specs import PlanSpec
+    return ParetoFront([_front_point_from_dict(p) for p in d["points"]],
+                       PlanSpec.from_dict(d["spec"]))
+
+
+# ---------------------------------------------------------------------------
+# fleet plan registry
+# ---------------------------------------------------------------------------
+
+def plan_registry_to_dict(reg) -> dict:
+    """Serialize a :class:`~repro_torch.fleet.registry.PlanRegistry`
+    (entries in LRU order, oldest first; the payload shape is owned by
+    the registry so its key scheme and this codec evolve together)."""
+    return reg.to_payload()
+
+
+def plan_registry_from_dict(d: Mapping):
+    from ..fleet.registry import PlanRegistry   # lazy: avoid import cycle
+    return PlanRegistry.from_payload(d)
+
+
+# ---------------------------------------------------------------------------
 # public JSON entry points
 # ---------------------------------------------------------------------------
 
@@ -334,6 +392,8 @@ _CODECS = {
     "cost_table": (cost_table_to_dict, cost_table_from_dict),
     "cluster": (cluster_to_dict, cluster_from_dict),
     "model": (model_to_dict, model_from_dict),
+    "plan_registry": (plan_registry_to_dict, plan_registry_from_dict),
+    "pareto_front": (pareto_front_to_dict, pareto_front_from_dict),
 }
 
 

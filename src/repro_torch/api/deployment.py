@@ -8,6 +8,7 @@ splits into an offline optimizer and an online executor:
     dep.run(frames)                  # a list of frames, batch-folded
     dep.simulate()                   # closed-form steady-state report
     dep.replan(cluster2)             # the same pieces on another cluster
+    dep.runtime(deploy_spec, churn=[...]).run(inputs=frames)  # event-driven
     dep.save("plan.json")            # durable, versioned artifact
     dep2 = repro_torch.Deployment.load("plan.json")  # no re-plan or re-tune
 
@@ -18,15 +19,17 @@ kernel's launch plans are tuned first, and with ``calibrate=True`` each
 stage is timed on the device and the plan re-built on the measured
 :class:`CostTable`.  The artifact is the JAX package's document: one
 written by either package loads in the other, and neither the planner,
-the calibrator nor the tuner runs on load.  Not ported yet: the
-event-driven runtime, the servers and scheduler, distributed workers.
+the calibrator nor the tuner runs on load.  :meth:`Deployment.runtime`
+runs the plan on the event-driven cluster runtime, with real compute
+on the deployment's device.  Not ported yet: the servers and scheduler,
+and the distributed workers.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
@@ -37,7 +40,7 @@ from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, default_registry
 from ..obs.trace import Tracer
 from . import artifacts
-from .specs import ExecSpec, PlanSpec
+from .specs import DeploySpec, ExecSpec, PlanSpec
 
 
 def compile(model, cluster: Cluster,
@@ -253,6 +256,36 @@ class Deployment:
         """Write the lifecycle trace as Perfetto-loadable Chrome-trace
         JSON (one process row per device); returns the path."""
         return self.tracer.save(path)
+
+    # ---------------- online forms ----------------
+
+    def runtime(self, deploy_spec: DeploySpec | None = None, *,
+                churn: Sequence = (), real_compute: bool | None = None):
+        """Event-driven cluster runtime over this plan (no re-planning
+        up front), with real compute on the deployment's device.
+
+        ``real_compute`` defaults to "yes iff params are loaded"; pass
+        ``False`` for a timing-only run on a deployment that has
+        weights."""
+        from ..runtime.executor import PipelineRuntime
+        spec = deploy_spec or DeploySpec()
+        real = (self.params is not None if real_compute is None
+                else real_compute)
+        if real and self.params is None:
+            self.load_params()
+        kw = dict(cluster=self.cluster, pico=self.pico,
+                  config=spec.to_runtime_config(), churn=churn,
+                  plan_spec=self.plan_spec, exec_spec=self.exec_spec,
+                  cost_table=self.cost_table)
+        if spec.trace:
+            kw["tracer"] = self.tracer       # append to the lifecycle trace
+        if spec.metrics:
+            kw["metrics"] = self.metrics     # publish into this deployment
+        if real:
+            return PipelineRuntime(model=self.model, params=self.params,
+                                   device=self.device, **kw)
+        return PipelineRuntime(g=self.model.graph,
+                               input_size=self.model.input_size, **kw)
 
     # ---------------- re-planning ----------------
 

@@ -128,7 +128,7 @@ class ObjectiveSpec(_SpecBase):
     The default instance is *pure throughput* — it reproduces the
     single-objective planner bit-identically.  Weights are unit-free:
     :meth:`score` normalizes each metric by a reference point (the
-    front's elementwise minimum in :meth:`~repro.core.pareto.
+    front's elementwise minimum in :meth:`~repro_torch.core.pareto.
     ParetoFront.select`) before weighting, so ``latency=1.0`` means
     "one unit of relative latency costs as much as one unit of relative
     period".  Constraints are absolute: seconds for ``max_latency_s``,
@@ -365,15 +365,14 @@ class ExecSpec(_SpecBase):
 
 @dataclass(frozen=True)
 class DeploySpec(_SpecBase):
-    """Online runtime/serving configuration (maps onto the JAX
-    package's ``RuntimeConfig``; the runtime is not ported yet, so here
-    it is a spec only).
+    """Online runtime/serving configuration (maps onto
+    :class:`~repro_torch.runtime.executor.RuntimeConfig`).
 
     The default is *ideal* — no jitter, no noise, free inter-stage
     hand-off — which reproduces ``core.simulate`` exactly.
 
     ``objective`` names the :data:`OBJECTIVE_PRESETS` profile this
-    deployment optimizes for; :meth:`~repro.core.pareto.ParetoFront.
+    deployment optimizes for; :meth:`~repro_torch.core.pareto.ParetoFront.
     deployment` uses it to pick the Pareto-front point to ship, and the
     chosen plan carries the name as provenance
     (``PicoPlan.objective``).  ``None`` means unspecified (throughput).
@@ -392,8 +391,8 @@ class DeploySpec(_SpecBase):
     drift_cooldown: int = 24
     ewma_beta: float = 0.3
     migration_bandwidth: float | None = None
-    trace: bool = False         # record repro.obs spans during runs
-    metrics: bool = True        # publish runtime metrics (repro.obs)
+    trace: bool = False         # record repro_torch.obs spans during runs
+    metrics: bool = True        # publish runtime metrics (repro_torch.obs)
     objective: str | None = None  # OBJECTIVE_PRESETS profile to deploy
 
     _omit_if_none = ("objective",)
@@ -422,13 +421,32 @@ class DeploySpec(_SpecBase):
             if v is not None and v <= 0:
                 raise ValueError(f"{name} must be None or > 0, got {v}")
 
+    def to_runtime_config(self):
+        from ..runtime.executor import RuntimeConfig
+        return RuntimeConfig(
+            seed=self.seed,
+            compute_noise=self.compute_noise,
+            inter_stage_bandwidth=self.inter_stage_bandwidth,
+            link_latency_s=self.link_latency_s,
+            link_jitter_s=self.link_jitter_s,
+            mem_budget_bytes=self.mem_budget_bytes,
+            replan_on_churn=self.replan_on_churn,
+            replan_on_drift=self.replan_on_drift,
+            drift_threshold=self.drift_threshold,
+            drift_cooldown=self.drift_cooldown,
+            ewma_beta=self.ewma_beta,
+            migration_bandwidth=self.migration_bandwidth,
+            max_batch=self.max_batch,
+            trace=self.trace,
+            metrics=self.metrics)
+
 
 _ROUTE_POLICIES = ("least_loaded", "round_robin")
 
 
 @dataclass(frozen=True)
 class FleetSpec(_SpecBase):
-    """Fleet-tier configuration (:mod:`repro.fleet`).
+    """Fleet-tier configuration (:mod:`repro_torch.fleet`).
 
     ``registry_capacity`` bounds the LRU plan registry (entries =
     distinct (model, cluster signature, PlanSpec, CostTable) keys).

@@ -2,7 +2,8 @@
 
 Framework-free copies of the JAX package's ``repro.core`` modules that
 the planning half of the main path needs (graph, cost, partition,
-pipeline DP, heterogeneous adjustment, planner facade, simulator).
+pipeline DP, heterogeneous adjustment, planner facade, simulator), the
+Pareto front over plans and the baseline planners.
 """
 
 from .graph import Graph, LayerSpec, tile_widths, proportional_widths
@@ -19,6 +20,8 @@ from .planner import (PicoPlan, plan, plan_with_spec, replan, recost,
                       TenantShare)
 from .simulate import (simulate, SimReport, DeviceReport, PlanMetrics,
                        plan_metrics)
+from .pareto import FrontPoint, ParetoFront, dominates, plan_front
+from . import baselines
 
 __all__ = [
     "Graph", "LayerSpec", "tile_widths", "proportional_widths",
@@ -30,5 +33,6 @@ __all__ = [
     "adjust_stages", "PicoPlan", "plan", "plan_with_spec", "replan",
     "recost", "partition_cluster", "split_devices", "ClusterPartition",
     "TenantShare", "simulate", "SimReport", "DeviceReport", "PlanMetrics",
-    "plan_metrics",
+    "plan_metrics", "FrontPoint", "ParetoFront", "dominates", "plan_front",
+    "baselines",
 ]

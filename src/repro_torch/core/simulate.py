@@ -55,8 +55,7 @@ class SimReport:
 @dataclass(frozen=True)
 class PlanMetrics:
     """Steady-state per-frame metrics of one plan — the four axes the
-    multi-objective planner of the JAX package trades
-    (``repro.core.pareto``, not ported yet).
+    multi-objective planner trades (:mod:`repro_torch.core.pareto`).
 
     ``period`` and ``latency`` come straight off the plan;
     ``energy_j`` is the steady-state per-frame energy (the

@@ -31,6 +31,12 @@ import torch
 from ..kernels import _build
 
 _eager_depth = 0
+_captures = 0
+
+
+def captures() -> int:
+    """Graphs captured in this process so far."""
+    return _captures
 
 
 @contextlib.contextmanager
@@ -117,6 +123,8 @@ class Graph:
                 self.launches = _build.take_counts(before)
         #: host seconds of the capture and the instantiation
         self.capture_s = time.perf_counter() - t0
+        global _captures
+        _captures += 1
         current.wait_stream(side)
         for t in _tensors(self.warm):    # made on the side stream
             t.record_stream(current)

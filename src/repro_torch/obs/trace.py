@@ -41,6 +41,8 @@ SPAN_NAMES = (
     "stage.compute",    # one device's compute phase of one stage batch
     "stage.comm",       # inter-stage hand-off transfer
     "halo.exchange",    # intra-stage scatter/gather (tile boundaries)
+    "stage.refill",     # runtime: a resumed frame's missing boundary nodes
+                        # computed (real compute only; no virtual time)
     "plan",             # a full PICO optimization pass
     "replan",           # runtime churn/drift re-plan (incl. migration)
     "calibrate",        # one stage timed through its compiled executable

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, held to their plain versions.
 
-Every test here is marked ``cuda`` and skips where there is no card.
+Every test here but one is marked ``cuda`` and skips where there is no
+card; the runtime's refusal to run on a missing card runs anywhere.
 The file imports neither ``jax`` nor ``repro``, so it runs on the GPU
 machine, which has no JAX:
 
@@ -33,6 +34,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.cnn import params_from_numpy, zoo
 from repro_torch.models.transformer import model as M
 from repro_torch.pipeline import StageExecutor
+from repro_torch.runtime import PipelineRuntime, RuntimeConfig
 from repro_torch.serving import lm
 
 from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
@@ -808,3 +810,95 @@ def test_stage_graph_follows_an_installed_plan(cuda):
             assert torch.equal(got[s], heuristic[s])
     finally:
         autotune.clear_installed()
+
+
+def _runtime_deployment(dev):
+    m = zoo.vgg16(input_size=(40, 40), scale=0.1, head=True)
+    dep = repro_torch.compile(m, make_pi_cluster([1.5, 1.2, 1.0, 0.8]),
+                              params=params_from_numpy(np_params(m), dev),
+                              device=dev)
+    xs = [image(m, seed=s) for s in range(6)]
+    return m, dep, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_batch", [1, 3])
+def test_runtime_runs_the_stage_graphs_and_the_conv_kernel(max_batch, cuda):
+    """The event-driven runtime with real compute on the card, frames
+    arriving at half the plan's period: every frame completes; the conv
+    kernel's launches are counted (with single-frame batches, as many as
+    ``Deployment.run`` takes for the same frames); single-frame batches
+    equal ``dep.run(frame)`` bit for bit, and the rest its outputs
+    within 1e-4 x max|logit| (a batch folds frames into one pass); each
+    frame's outputs, saved right after its stage ran, are unchanged by
+    the replays of the frames after it.  The run captures the stages'
+    graphs; a second runtime over the same frames captures none and
+    launches as many kernels."""
+    clear_cache()
+    m, dep, xs = _runtime_deployment(cuda)
+    rt = dep.runtime(repro_torch.DeploySpec(seed=0, max_batch=max_batch))
+    assert rt.device == cuda and rt.model is m
+    saved, batches = {}, {}
+    run_batch = rt._exec_batch
+
+    def spy(t, st, batch):
+        run_batch(t, st, batch)
+        for fr in batch.frames:
+            batches.setdefault(fr.fid, set()).add(len(batch))
+            saved.update({(fr.fid, k): v.clone()
+                          for k, v in fr.produced.items()})
+
+    rt._exec_batch = spy
+    captured = graph.captures()
+    ops.reset_launches()
+    rep = rt.run(inputs=xs, interarrival=dep.period / 2)
+    torch.cuda.synchronize()
+    launches = ops.launch_count()
+    assert rep.completed == len(xs) and rep.dropped == 0
+    assert launches > 0 and graph.captures() > captured
+    captured = graph.captures()
+    ops.reset_launches()
+    again = dep.runtime(repro_torch.DeploySpec(
+        seed=0, max_batch=max_batch)).run(inputs=xs,
+                                          interarrival=dep.period / 2)
+    torch.cuda.synchronize()
+    assert graph.captures() == captured
+    assert ops.launch_count() == launches
+    for i in range(len(xs)):
+        for k, v in again.outputs[i].items():
+            assert torch.equal(v, rep.outputs[i][k])
+    for fr in rt._all_frames:
+        for k, v in fr.produced.items():
+            assert v.device.type == "cuda"
+            assert torch.equal(v, saved[(fr.fid, k)])
+    ops.reset_launches()
+    want = [dep.run(x) for x in xs]
+    torch.cuda.synchronize()
+    if max_batch == 1:
+        assert launches == ops.launch_count()
+    else:
+        assert any(max(b) > 1 for b in batches.values())
+    for i, w in enumerate(want):
+        got = rep.outputs[i]
+        assert got.keys() == w.keys()
+        for k in w:
+            if batches[i] == {1}:
+                assert torch.equal(got[k], w[k])
+            else:
+                tol = 1e-4 * w[k].abs().max().item()
+                assert (got[k] - w[k]).abs().max().item() <= tol
+
+
+def test_runtime_refuses_a_missing_card(monkeypatch):
+    """With no CUDA device, a real-compute runtime on the default device
+    raises at construction rather than running on the CPU; timing-only
+    and ``device="cpu"`` runtimes build."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m, dep, _ = _runtime_deployment("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineRuntime(model=m, params=dep.params, cluster=dep.cluster)
+    PipelineRuntime(g=m.graph, input_size=m.input_size, cluster=dep.cluster,
+                    config=RuntimeConfig())
+    rt = PipelineRuntime(model=m, params=dep.params, cluster=dep.cluster,
+                         device="cpu")
+    assert rt.device.type == "cpu"
