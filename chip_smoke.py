@@ -60,7 +60,34 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    of the first plan equal to ``dep.run``'s stages bit for bit, each
    frame's stage outputs unchanged by later replays, virtual time equal
    to the timing-only run's, graphs captured under each plan, memory
-   before and after the churn, wall ms/frame beside ``dep.run``'s;
+   before and after the churn, wall ms/frame beside ``dep.run``'s.
+   4e: ``Deployment.fleet`` on the same deployment, one worker per stage.
+   ``[dist]`` lines: ``repro_torch.dist.validate`` in thread mode over
+   memory links, 8 frames bit-identical to the in-process runner and 0
+   dropped, the observed/modeled compute ratios, and the conv launches
+   of the dist run alone (reset just before, read before the in-process
+   oracle starts: 15 x (8 frames + the warm-up probe)); then thread mode
+   over memory, thread mode over TCP with two frames a message, and
+   process mode (one spawned process per stage, TCP), each bit-identical
+   to the in-process runner chunked the same way, with start and run
+   ms/frame, bytes on each link, compute per stage, the device each
+   worker named in its ready message (each a CUDA device), memory and
+   captures; the ``"torch"`` backend not bit-equal to the kernel path;
+   a killed-worker drill (DeviceLeave, drops with reasons, re-plan on
+   the survivors, resubmission equal to the re-planned runner bit for
+   bit); ``dep.run`` ms/frame beside the workers'.
+   4f: ``[serve]`` lines: ``dep.server()`` and
+   ``dep.server(streaming=True)`` serve 8 requests, outputs equal to
+   ``dep.run``'s bit for bit and within the logit limit of the
+   ``"torch"`` backend; then the multi-tenant scheduler on
+   ``benchmarks/fig_serving_mt.py``'s two scenarios (squeezenet,
+   mobilenetv3 and resnet34 at 224, scale 1.0, on the 8 Pis; load 2.0,
+   then load 0.65 with the weakest device leaving at half the horizon)
+   with real compute on the card: 0 dropped in flight, virtual time
+   equal to the same scenario timing-only, every served frame's logits
+   within the limit of its tenant's ``"torch"`` forward, the throughput
+   ratio against time-sliced serving and the churn recovery (printed,
+   not held at full width), conv launches and wall time;
 5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
    random weights from a seed, batch 4, a 512-token prompt, 32 new
    greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
@@ -81,8 +108,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    equal the eager loop's, decode ms/step graphed and eager in turns,
    capture ms; profiled decode steps, eager and replayed (with granite,
    moe_gemm's time inside the eager step);
-6. one ``{"kernels": [...]}`` JSON line (five kernels), the card line,
-   and last ``{"ok": true, "device": {...}}``.
+6. one ``{"kernels": [...]}`` JSON line (five kernels; conv2d_fused's
+   launches are those of phases 4b, 4e and 4f), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
 IEEE fp32.  The script imports neither ``jax`` nor the JAX package.
@@ -142,6 +170,17 @@ RUNTIME_FRAMES, RUNTIME_BATCH = 24, 4
 # a run's memory outside what its frames hold (their inputs and stage
 # outputs): growth allowed once every graph of the run is captured
 RUNTIME_MEM_SLACK = 16 << 20
+# phase 4e: dep.fleet, one worker per stage: frames per run, and the
+# killed-worker drill's peer timeout (several seconds: a worker computes
+# between heartbeats)
+DIST_FRAMES, DIST_PEER_TIMEOUT_S = 8, 3.0
+# phase 4f: requests through each server; the scheduler's tenants and,
+# per scenario of benchmarks/fig_serving_mt.py, the load and the
+# duration of the arrivals (the benchmark's SMOKE durations)
+SERVE_REQUESTS = 8
+MT_TENANTS = ("squeezenet", "mobilenetv3", "resnet34")
+MT_SIZE, MT_SCALE = (224, 224), 1.0
+MT_LOADS = {"saturated": (2.0, 1.5), "churn": (0.65, 3.0)}
 # kernel path vs backend="torch" on the same weights, x max|logit| over
 # the real vocab.  fp32: only the kernels differ (sums in another
 # order), through every layer.  bf16: both paths round the same tensors
@@ -1821,6 +1860,431 @@ def run_cnn_runtime(model, dep) -> None:
           f"around synchronized runs)")
 
 
+def _dist_equal(a: dict, b: dict) -> bool:
+    """Two ``{fid: {sink: ndarray}}`` maps with the same bytes."""
+    return a.keys() == b.keys() and all(
+        a[f].keys() == b[f].keys()
+        and all(a[f][k].tobytes() == b[f][k].tobytes() for k in b[f])
+        for f in b)
+
+
+def _dist_diff(a: dict, b: dict) -> float:
+    """Max |a - b| over the frames and sinks of two such maps."""
+    import numpy as np
+    return max(float(np.max(np.abs(a[f][k].astype(np.float64)
+                                   - b[f][k].astype(np.float64))))
+               for f in b for k in b[f])
+
+
+def _dist_run(dep, spec, xs):
+    """``dep.fleet(spec)`` started, then run on ``xs``: the report and
+    host seconds of the start (workers up, the warm-up probe through)
+    and of the run (submit, collect, drain)."""
+    launcher = dep.fleet(spec)
+    t0 = time.perf_counter()
+    launcher.start()
+    t1 = time.perf_counter()
+    rep = launcher.run(xs)
+    t2 = time.perf_counter()
+    if rep.completed != len(xs) or rep.dropped:
+        fail(f"dist {spec.workers}/{spec.transport}/mb{spec.micro_batch}: "
+             f"completed {rep.completed} of {len(xs)}, dropped "
+             f"{rep.dropped[:3]}")
+    return rep, t1 - t0, t2 - t1
+
+
+def _dist_lines(label, rep, start_s, run_s, n) -> None:
+    """The ``[dist]`` lines of one run: wall, bytes per link, compute
+    per stage and the device each worker computed on."""
+    links = [f"feed->w0 {rep.link_stats['feed']['bytes_sent']}"]
+    for i in range(rep.n_stages):
+        out = "sink" if i == rep.n_stages - 1 else f"w{i + 1}"
+        links.append(f"w{i}->{out} {rep.worker_stats[f'w{i}']['bytes_out']}")
+    comp = rep.stage_compute_s()
+    print(f"[dist] {label}: start {start_s * 1e3:.1f} ms (workers up, "
+          f"warm-up probe through), run {run_s / n * 1e3:.3f} ms/frame "
+          f"({n} frames, host clock around run()); bytes on each link: "
+          + ", ".join(links))
+    print(f"[dist] {label}: compute_s per stage and frame (ms): "
+          + ", ".join(f"s{s} {comp[s] * 1e3:.3f}" for s in sorted(comp))
+          + "; worker devices: " + ", ".join(
+              f"{w} {st['device']}" for w, st in rep.worker_stats.items()))
+    bad = [w for w, st in rep.worker_stats.items()
+           if not str(st.get("device")).startswith("cuda")]
+    if bad:
+        fail(f"dist {label}: workers {bad} did not compute on a CUDA device")
+
+
+def run_cnn_dist(model, dep, planned: int) -> int:
+    """Phase 4e: ``dep.fleet`` on phase 4a's deployment (full-width
+    VGG16, the 8-Pi plan, one worker per stage).  Returns the conv
+    launches of the counted dist run."""
+    import importlib
+
+    import torch
+    from repro_torch.api.specs import DistSpec, ExecSpec
+    from repro_torch.exec import graph
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.pipeline.runner import PipelineRunner
+    from repro_torch.runtime.churn import DeviceLeave
+
+    vmod = importlib.import_module("repro_torch.dist.validate")
+    n = DIST_FRAMES
+    xs = vmod.make_frames(model, n, seed=0)
+    stages = len(dep.pipeline.stages)
+
+    # -- validate, thread mode, memory: the dist run counted alone; the
+    # in-process oracle starts after the count is read
+    real_oracle = vmod.reference_outputs
+    window = {}
+
+    def oracle(*args, **kwargs):
+        torch.cuda.synchronize()
+        window["launches"] = ops.launch_count()
+        window["captures"] = graph.captures()
+        return real_oracle(*args, **kwargs)
+
+    vmod.reference_outputs = oracle
+    try:
+        ops.reset_launches()
+        cap0 = graph.captures()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        v = vmod.validate(dep, DistSpec(), frames=n)
+    finally:
+        vmod.reference_outputs = real_oracle
+    wall = time.perf_counter() - t0
+    launches = window["launches"]
+    print(f"[dist] {v.describe()}")
+    print(f"[dist] validate, thread mode, memory: {stages} workers, "
+          f"observed/modeled compute ratios "
+          + ", ".join(f"s{k} {r:.4g}" for k, r in sorted(v.ratios.items()))
+          + f"; conv2d_fused launches of the dist run {launches} (want "
+          f"{planned} x ({n} frames + the warm-up probe) = "
+          f"{planned * (n + 1)}; stages replayed from CUDA graphs "
+          f"captured in the workers' threads: "
+          f"{window['captures'] - cap0}); validate {wall:.2f} s; launcher "
+          f"process max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (v.ok and v.bit_identical and v.dropped == 0):
+        fail(f"dist validate: {v.describe()}")
+    if launches != planned * (n + 1):
+        fail(f"dist run launched {launches} convs, want {planned * (n + 1)}")
+    oracle1 = dict(enumerate(real_oracle(dep, xs, 1)))
+
+    # -- the modes, timed, each against the in-process runner ------------
+    runs = {}
+    for label, spec in [
+            ("thread/memory/mb1", DistSpec()),
+            ("thread/tcp/mb2", DistSpec(transport="tcp", micro_batch=2)),
+            ("process/tcp/mb1", DistSpec(transport="tcp",
+                                         workers="process"))]:
+        torch.cuda.reset_peak_memory_stats()
+        cap0 = graph.captures()
+        rep, start_s, run_s = _dist_run(dep, spec, xs)
+        runs[label] = rep
+        want = (oracle1 if spec.micro_batch == 1 else
+                dict(enumerate(real_oracle(dep, xs, spec.micro_batch))))
+        same = _dist_equal(rep.outputs, want)
+        _dist_lines(label, rep, start_s, run_s, n)
+        print(f"[dist] {label}: {n}/{n} completed, 0 dropped; outputs "
+              f"{'equal' if same else 'DIFFER FROM'} the in-process runner "
+              f"chunked the same way, bit for bit; launcher process "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"CUDA graphs captured in this process "
+              f"{graph.captures() - cap0}"
+              + (f"; {len(rep.worker_stats)} worker processes"
+                 if spec.workers == "process" else ""))
+        if not same:
+            fail(f"dist {label} outputs differ from the in-process runner")
+    if not _dist_equal(runs["process/tcp/mb1"].outputs,
+                       runs["thread/memory/mb1"].outputs):
+        fail("process-mode outputs differ from the thread-mode run's")
+    if not _dist_equal(runs["thread/memory/mb1"].outputs, v.report.outputs):
+        fail("thread-mode outputs differ between two runs")
+    mb2_same = _dist_equal(runs["thread/tcp/mb2"].outputs, oracle1)
+    sink = model.graph.sinks()[0]
+    scale = max(float(abs(o[sink]).max()) for o in oracle1.values())
+    tol = LOGIT_TOL * scale
+    d_mb2 = 0.0 if mb2_same else _dist_diff(runs["thread/tcp/mb2"].outputs,
+                                           oracle1)
+    print(f"[dist] thread/tcp/mb2 against thread/memory/mb1: "
+          + ("equal byte for byte" if mb2_same else
+             f"max |diff| {d_mb2:.3g} (two frames a message are one "
+             f"batch-folded pass, whose launches may take other split-K "
+             f"plans), limit {tol:.3g}"))
+    if d_mb2 > tol:
+        fail("thread/tcp/mb2 logits disagree with the single-frame run")
+
+    # -- the kernel ran in the workers: the plain version differs ---------
+    params = dep.model.init(torch.Generator().manual_seed(0),
+                            device=dep.device)
+    plain = PipelineRunner(model, dep.pipeline,
+                           exec_spec=ExecSpec(backend="torch"))
+    with graph.eager():
+        ref_t = {i: {k: t.cpu().numpy() for k, t in plain(
+            params, torch.as_tensor(x, device=dep.device)).items()}
+            for i, x in enumerate(xs)}
+    d_t = _dist_diff(runs["process/tcp/mb1"].outputs, ref_t)
+    t_same = _dist_equal(runs["process/tcp/mb1"].outputs, ref_t)
+    print(f"[dist] the \"torch\" backend's outputs on the same stages and "
+          f"weights {'EQUAL' if t_same else 'are not bit-equal to'} the "
+          f"kernel path's (max |diff| {d_t:.3g}, limit {tol:.3g}); the "
+          f"process-mode workers' outputs equal the in-process kernel "
+          f"path's bit for bit, so each worker ran conv2d_fused")
+    if t_same or d_t > tol:
+        fail("the torch backend's outputs equal the kernel path's, or "
+             "disagree past the limit")
+
+    # -- the killed-worker drill ------------------------------------------
+    spec = DistSpec(heartbeat_s=0.05, peer_timeout_s=DIST_PEER_TIMEOUT_S)
+    launcher = dep.fleet(spec)
+    t0 = time.perf_counter()
+    launcher.start()
+    launcher.kill_worker(1)
+    rep = launcher.run(xs)
+    dead = {e.device_name for e in rep.churn_events}
+    reasons = sorted({r for _, r in rep.dropped})
+    print(f"[dist] killed-worker drill (thread mode, peer timeout "
+          f"{DIST_PEER_TIMEOUT_S} s): worker w1 killed; churn "
+          f"{[type(e).__name__ + ' ' + e.device_name for e in rep.churn_events]}"
+          f"; completed {rep.completed}, dropped {len(rep.dropped)} of "
+          f"{rep.submitted}; reasons {reasons}")
+    if not rep.churn_events or not all(isinstance(e, DeviceLeave)
+                                       for e in rep.churn_events):
+        fail("the killed worker surfaced no DeviceLeave")
+    if dead != set(launcher.workers[1].devices):
+        fail(f"churn names {dead}, the killed worker held "
+             f"{launcher.workers[1].devices}")
+    if (rep.completed + len(rep.dropped) != rep.submitted or not rep.dropped
+            or not all("dead" in r or "heartbeat" in r for r in reasons)):
+        fail("the drill lost a frame or dropped one without a reason")
+    if not _dist_equal(rep.outputs, {f: oracle1[f] for f in rep.outputs}):
+        fail("frames completed before the kill differ from the clean run")
+    alive = [d for d in dep.cluster.devices if d.name not in dead]
+    dep2 = dep.replan(dep.cluster.restricted(alive))
+    missing = sorted(set(range(n)) - set(rep.outputs))
+    rep2 = dep2.fleet(spec).run([xs[i] for i in missing])
+    drill_s = time.perf_counter() - t0
+    if rep2.dropped or rep2.completed != len(missing):
+        fail(f"resubmission on the survivors: completed {rep2.completed} of "
+             f"{len(missing)}, dropped {rep2.dropped[:3]}")
+    redo = dict(zip(missing, (rep2.outputs[k] for k in range(len(missing)))))
+    want2 = dict(zip(missing, real_oracle(dep2, [xs[i] for i in missing], 1)))
+    if not _dist_equal(redo, want2):
+        fail("resubmitted frames differ from the re-planned in-process "
+             "runner")
+    merged = {**rep.outputs, **redo}
+    m_same = _dist_equal(merged, oracle1)
+    d_m = 0.0 if m_same else _dist_diff(merged, oracle1)
+    print(f"[dist] drill recovery: dep.replan onto the {len(alive)} "
+          f"survivors ({len(dep2.pipeline.stages)} stages), {len(missing)} "
+          f"frames resubmitted, 0 dropped, equal to the re-planned "
+          f"in-process runner bit for bit; all {n} frames merged against "
+          f"the clean run: "
+          + ("equal bit for bit" if m_same else
+             f"max |diff| {d_m:.3g} (the new plan's tiles take other "
+             f"launch plans), limit {tol:.3g}")
+          + f"; drill {drill_s:.2f} s")
+    if d_m > tol:
+        fail("recovered frames disagree with the clean run")
+
+    # -- dep.run beside the workers --------------------------------------
+    frames = [torch.as_tensor(x, device=dep.device) for x in xs]
+    dep.run(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dep.run(frames)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 / n * 1e3
+    print(f"[dist] dep.run([{n} frames]) in process: {ms:.3f} ms/frame; "
+          f"the workers' runs: " + ", ".join(
+              f"{k} {r.wall_s / n * 1e3:.3f} ms/frame with the start"
+              for k, r in runs.items()))
+    return launches
+
+
+def _mt_tenants():
+    from repro_torch.models.cnn import zoo
+    from repro_torch.serving import TenantConfig
+    return [TenantConfig(name, zoo.build(name, input_size=MT_SIZE,
+                                         scale=MT_SCALE), max_batch=4)
+            for name in MT_TENANTS]
+
+
+def _mt_scenario(kind: str, real: bool, device):
+    """One of ``benchmarks/fig_serving_mt.py``'s scenarios at full width:
+    ``"saturated"`` (load 2.0, against time-sliced serving) or
+    ``"churn"`` (load 0.65, the weakest device leaving at half the
+    horizon).  With ``real``, every request carries a seeded frame on
+    ``device`` and the scheduler serves there with weights loaded.
+    Returns the
+    scheduler, the workload, the report and the scenario's figure
+    (throughput ratio or churn recovery)."""
+    import torch
+    from repro_torch.core import make_pi_cluster
+    from repro_torch.data.pipeline import Request
+    from repro_torch.runtime import DeviceLeave
+    from repro_torch.serving import (OpenLoopGenerator, SchedulerConfig,
+                                     ServingScheduler, serve_time_sliced)
+
+    tenants, cluster = _mt_tenants(), make_pi_cluster(CLUSTER_GHZ)
+    config = (SchedulerConfig() if kind == "saturated" else
+              SchedulerConfig(seed=3, migration_bandwidth=1e9))
+    sched = ServingScheduler(tenants, cluster, config=config, device=device)
+    load, duration = MT_LOADS[kind]
+    workload = {}
+    for i, ts in enumerate(sched._tenants.values()):
+        rate = load / ts.share.pico.period
+        reqs = OpenLoopGenerator(rate_per_s=rate, seed=17 + i).generate(
+            max(8, int(rate * duration)))
+        if real:
+            g = torch.Generator(device=device).manual_seed(17 + i)
+            xs = torch.randn((len(reqs), 1, MT_SIZE[1], MT_SIZE[0], 3),
+                             generator=g, device=device)
+            reqs = [Request(r.rid, r.arrival, xs[r.rid]) for r in reqs]
+        workload[ts.cfg.name] = reqs
+    if real:
+        sched.load()
+    if kind == "saturated":
+        rep = sched.serve(workload)
+        base = serve_time_sliced(tenants, cluster, workload)
+        return sched, workload, rep, (rep.throughput_per_min
+                                      / base.throughput_per_min)
+    horizon = max(r.arrival for reqs in workload.values() for r in reqs)
+    drop_t = 0.5 * horizon
+    weakest = min(cluster.devices, key=lambda d: d.capacity)
+    rep = sched.serve(workload, churn=[DeviceLeave(drop_t, weakest.name)])
+    mig_end = max((r.time + r.migration_s for r in rep.repartitions
+                   if r.reason == "leave"), default=drop_t)
+    reqs = [r for rs in workload.values() for r in rs]
+    pre = rep.windowed_throughput(0.0, drop_t)
+    post = rep.windowed_throughput(mig_end, max(horizon, mig_end + 1e-9))
+    off_pre = sum(1 for r in reqs if r.arrival < drop_t) / drop_t
+    off_post = (sum(1 for r in reqs if mig_end <= r.arrival < horizon)
+                / max(horizon - mig_end, 1e-9))
+    return sched, workload, rep, (post / off_post) / (pre / off_pre)
+
+
+def _virtual(rep) -> dict:
+    """What a serve decides on the virtual timeline: host clocks
+    (``wall_s``), outputs, the stage cache and metrics left out."""
+    import dataclasses
+    tenants = {}
+    for name, st in rep.tenants.items():
+        d = dataclasses.asdict(st)
+        d.pop("wall_s")
+        tenants[name] = d
+    reps = []
+    for r in rep.repartitions:
+        d = dataclasses.asdict(r)
+        d.pop("wall_s")
+        reps.append(d)
+    return {"tenants": tenants, "completions": rep.completions,
+            "repartitions": reps, "makespan": rep.makespan,
+            "dropped": rep.dropped_inflight, "busy": rep.device_busy_s,
+            "frames": rep.device_frames}
+
+
+def run_cnn_serving(model, dep) -> int:
+    """Phase 4f: the servers over phase 4a's deployment, and the
+    multi-tenant scheduler on ``fig_serving_mt``'s two scenarios at full
+    width with real compute on the card.  Returns the conv launches."""
+    import torch
+    from repro_torch.data.pipeline import Request
+    from repro_torch.exec import graph
+    from repro_torch.kernels.conv2d import ops
+
+    total = 0
+    n = SERVE_REQUESTS
+    g = torch.Generator(device=dep.device).manual_seed(3)
+    w, h = model.input_size
+    frames = list(torch.randn((n, 1, h, w, 3), generator=g,
+                              device=dep.device))
+    reqs = [Request(i, i * dep.period / 2, frames[i]) for i in range(n)]
+    want = [dep.run(f) for f in frames]
+    sink = model.graph.sinks()[0]
+    with graph.eager():
+        ref = model.forward(dep.params, torch.cat(frames),
+                            backend="torch")[sink]
+    tol = LOGIT_TOL * ref.abs().max().item()
+    for label, srv in [("dep.server()", dep.server()),
+                       ("dep.server(streaming=True)",
+                        dep.server(streaming=True))]:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, stats = srv.load().serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_count()
+        total += launches
+        same = all(_same(o, wnt) for o, wnt in zip(outs, want))
+        d = max((o[sink] - ref[i:i + 1]).abs().max().item()
+                for i, o in enumerate(outs))
+        print(f"[serve] {label}: {stats.served} of {n} requests served, "
+              f"outputs {'equal' if same else 'DIFFER FROM'} dep.run's bit "
+              f"for bit; logits vs the torch backend's monolithic forward "
+              f"max |diff| {d:.3g} (limit {tol:.3g}); conv2d_fused launches "
+              f"{launches}; modeled period {stats.period_model_s * 1e3:.3f} "
+              f"ms, mean latency {stats.mean_latency_s * 1e3:.3f} ms; wall "
+              f"{wall * 1e3:.1f} ms")
+        if stats.served != n or not same or d > tol or launches <= 0:
+            fail(f"{label} served wrong or launched no conv")
+
+    for kind in ("saturated", "churn"):
+        t0 = time.perf_counter()
+        _, _, timing, fig0 = _mt_scenario(kind, False, dep.device)
+        t1 = time.perf_counter()
+        ops.reset_launches()
+        sched, workload, rep, fig = _mt_scenario(kind, True, dep.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = ops.launch_count()
+        total += launches
+        same = _virtual(rep) == _virtual(timing)
+        worst, served = 0.0, 0
+        for name, outs in rep.outputs.items():
+            ts = sched._tenants.get(name) or sched._retired[name]
+            m = ts.cfg.model
+            tsink = m.graph.sinks()[0]
+            rids = sorted(outs)
+            xs = torch.cat([workload[name][r].payload for r in rids])
+            with graph.eager():
+                tref = m.forward(ts.params, xs, backend="torch")[tsink]
+            lim = LOGIT_TOL * tref.abs().max().item()
+            for i, r in enumerate(rids):
+                d = (outs[r][tsink] - tref[i:i + 1]).abs().max().item()
+                worst = max(worst, d / lim)
+            served += len(rids)
+        what = "throughput ratio against time-sliced" if kind == "saturated" \
+            else "churn recovery"
+        print(f"[serve] scheduler {kind} (load {MT_LOADS[kind][0]}, "
+              f"{', '.join(MT_TENANTS)} at {MT_SIZE[0]}, scale {MT_SCALE}, "
+              f"8 Pis"
+              + (", the weakest leaving at half the horizon"
+                 if kind == "churn" else "")
+              + f"): served {rep.served} of "
+              f"{sum(len(r) for r in workload.values())}, dropped in flight "
+              f"{rep.dropped_inflight}; {what} {fig:.4f} (printed, not held "
+              f"at full width); repartitions "
+              f"{[r.reason for r in rep.repartitions]}; virtual time "
+              f"{'equal to' if same else 'DIFFERS FROM'} the timing-only "
+              f"run's; every served frame's logits within the limit of the "
+              f"torch backend's monolithic forward (worst {worst:.3f} of "
+              f"LOGIT_TOL x max |logit|, {served} frames); conv2d_fused "
+              f"launches {launches}; wall {t2 - t1:.2f} s (timing-only "
+              f"{t1 - t0:.2f} s); stage cache {rep.cache.hits} hits, "
+              f"{rep.cache.misses} misses")
+        if (rep.dropped_inflight != 0 or not same or worst > 1.0
+                or served != rep.served or fig != fig0 or launches <= 0):
+            fail(f"scheduler {kind}: dropped, virtual time, logits or "
+                 f"launches wrong")
+    return total
+
+
 def run_cnn() -> dict:
     """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -2034,6 +2498,18 @@ def run_cnn() -> dict:
     t0 = time.perf_counter()
     run_cnn_runtime(model, dep)
     print(f"[time] CNN phase 4d {time.perf_counter() - t0:.1f} s")
+    clear_cache()                 # the stages' graphs
+
+    # -- 4e. dep.fleet: one worker per stage -----------------------------
+    t0 = time.perf_counter()
+    dist_launches = run_cnn_dist(model, dep, planned)
+    print(f"[time] CNN phase 4e {time.perf_counter() - t0:.1f} s")
+    clear_cache()
+
+    # -- 4f. the servers and the multi-tenant scheduler -----------------
+    t0 = time.perf_counter()
+    serve_launches = run_cnn_serving(model, dep)
+    print(f"[time] CNN phase 4f {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs, before the LMs
 
     path = [r for r in cases if r["per_call"]]
@@ -2043,11 +2519,14 @@ def run_cnn() -> dict:
           "summed over the launches of one single-frame runner call; "
           "max_abs_err over those shapes; device time (profiler) over the "
           f"same launches: {sum(r['dev_ms'] * r['per_call'] for r in path):.4f}"
-          f", cuDNN {sum(r['library_dev_ms'] * r['per_call'] for r in path):.4f}")
+          f", cuDNN {sum(r['library_dev_ms'] * r['per_call'] for r in path):.4f}"
+          f"; launches: phase 4b {launches} + 4e {dist_launches} + 4f "
+          f"{serve_launches}")
     return {
         "name": "conv2d_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/conv2d/csrc/conv2d_fused.cu",
-        "replaces": REPLACES["conv2d_fused"], "launches": launches,
+        "replaces": REPLACES["conv2d_fused"],
+        "launches": launches + dist_launches + serve_launches,
         "max_abs_err": max(r["err"] for r in path),
         "ms": sum(r["ms"] * r["per_call"] for r in path),
         "plain_ms": sum(r["plain_ms"] * r["per_call"] for r in path),

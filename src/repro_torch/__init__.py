@@ -12,6 +12,9 @@ kernel:
     dep.run(frames)             # a list of frames, one batch-folded pass
     dep.save("plan.json")       # the JAX package's artifact format
     dep.runtime(DeploySpec(), churn=[...]).run(inputs=frames)  # event-driven
+    dep.server(streaming=True).load().serve(requests)  # serving front-end
+    dep.scheduler(tenants).serve(workload)     # multi-tenant co-hosting
+    dep.fleet(DistSpec()).run(frames)          # one worker per stage
 
 ``ExecSpec(calibrate=True, autotune=True)`` tunes the conv kernel's
 launch plans and times every stage on the device before the final plan.
@@ -29,6 +32,8 @@ _LAZY = {
     "ExecSpec": ("repro_torch.api.specs", "ExecSpec"),
     "DeploySpec": ("repro_torch.api.specs", "DeploySpec"),
     "FleetSpec": ("repro_torch.api.specs", "FleetSpec"),
+    "DistSpec": ("repro_torch.api.specs", "DistSpec"),
+    "DistLauncher": ("repro_torch.dist.launcher", "DistLauncher"),
     "ObjectiveSpec": ("repro_torch.api.specs", "ObjectiveSpec"),
     "OBJECTIVE_PRESETS": ("repro_torch.api.specs", "OBJECTIVE_PRESETS"),
     "plan_front": ("repro_torch.core.pareto", "plan_front"),
@@ -38,11 +43,12 @@ _LAZY = {
     "api": ("repro_torch.api", None),
     "obs": ("repro_torch.obs", None),
     "fleet": ("repro_torch.fleet", None),
+    "dist": ("repro_torch.dist", None),
 }
 
 __all__ = ["compile", "Deployment", "PlanSpec", "ExecSpec", "DeploySpec",
-           "FleetSpec", "ObjectiveSpec", "OBJECTIVE_PRESETS", "plan_front",
-           "ParetoFront", "PlanRegistry", "FleetRouter", "api", "obs",
-           "fleet"]
+           "FleetSpec", "DistSpec", "DistLauncher", "ObjectiveSpec",
+           "OBJECTIVE_PRESETS", "plan_front", "ParetoFront", "PlanRegistry",
+           "FleetRouter", "api", "obs", "fleet", "dist"]
 
 __getattr__, __dir__ = lazy_exports(__name__, globals(), _LAZY)

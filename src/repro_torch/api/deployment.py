@@ -9,6 +9,9 @@ splits into an offline optimizer and an online executor:
     dep.simulate()                   # closed-form steady-state report
     dep.replan(cluster2)             # the same pieces on another cluster
     dep.runtime(deploy_spec, churn=[...]).run(inputs=frames)  # event-driven
+    dep.server(streaming=True)       # serving front-end
+    dep.scheduler(tenants=[...])     # multi-tenant co-hosting
+    dep.fleet(DistSpec())            # one real worker per stage
     dep.save("plan.json")            # durable, versioned artifact
     dep2 = repro_torch.Deployment.load("plan.json")  # no re-plan or re-tune
 
@@ -20,9 +23,12 @@ stage is timed on the device and the plan re-built on the measured
 :class:`CostTable`.  The artifact is the JAX package's document: one
 written by either package loads in the other, and neither the planner,
 the calibrator nor the tuner runs on load.  :meth:`Deployment.runtime`
-runs the plan on the event-driven cluster runtime, with real compute
-on the deployment's device.  Not ported yet: the servers and scheduler,
-and the distributed workers.
+runs the plan on the event-driven cluster runtime,
+:meth:`Deployment.server` serves requests through it or through the
+closed-form pipeline, :meth:`Deployment.scheduler` co-hosts several
+tenants on the cluster, and :meth:`Deployment.fleet` runs each stage in
+a worker of its own (threads or spawned processes), all with real
+compute on the deployment's device.
 """
 
 from __future__ import annotations
@@ -286,6 +292,62 @@ class Deployment:
                                    device=self.device, **kw)
         return PipelineRuntime(g=self.model.graph,
                                input_size=self.model.input_size, **kw)
+
+    def server(self, deploy_spec: DeploySpec | None = None, *,
+               streaming: bool = False, churn: Sequence = ()):
+        """Serving front-end over this plan on the deployment's device:
+        the closed-form :class:`~repro_torch.serving.server.PipelineServer`,
+        or (with ``streaming=True``) the runtime-backed streaming
+        server.  Weights loaded here carry over; ``load()`` draws the
+        seeded default otherwise."""
+        from ..serving.server import PipelineServer, StreamingPipelineServer
+        kw = dict(plan_spec=self.plan_spec, exec_spec=self.exec_spec,
+                  cost_table=self.cost_table, pico=self.pico,
+                  device=self.device)
+        if streaming:
+            srv = StreamingPipelineServer(
+                self.model, self.cluster, deploy_spec=deploy_spec
+                or DeploySpec(), churn=churn, **kw)
+        else:
+            if deploy_spec is not None:
+                raise TypeError("deploy_spec applies to the runtime-backed "
+                                "server; pass streaming=True (the "
+                                "closed-form PipelineServer has no deploy "
+                                "knobs)")
+            if churn:
+                raise TypeError("churn applies to the runtime-backed "
+                                "server; pass streaming=True")
+            srv = PipelineServer(self.model, self.cluster, **kw)
+        if self.params is not None:
+            srv.params = self.params
+        return srv
+
+    def fleet(self, dist_spec=None, **kw):
+        """Real distributed execution of this deployment
+        (:class:`~repro_torch.dist.launcher.DistLauncher`): one worker per
+        pipeline stage — persistent threads or spawned processes per
+        :class:`~repro_torch.api.specs.DistSpec` — each rebuilt from
+        this deployment's versioned JSON artifact and computing on its
+        device.  ``launcher.run(frames)`` executes and drains;
+        ``repro_torch.dist.validate(dep)`` pins the outputs bit-identical
+        to the in-process runner.
+
+        Workers re-initialize weights deterministically from
+        ``DistSpec.seed`` (the artifact ships no weights), so results
+        match :meth:`run` under the same seeded params."""
+        from ..dist.launcher import DistLauncher
+        return DistLauncher(self, dist_spec, **kw)
+
+    def scheduler(self, tenants: Sequence, config=None):
+        """Multi-tenant scheduler co-hosting ``tenants``
+        (:class:`~repro_torch.serving.scheduler.TenantConfig`) on this
+        deployment's cluster and device, inheriting its exec spec and
+        cost table."""
+        from ..serving.scheduler import ServingScheduler
+        return ServingScheduler(tenants, self.cluster, config=config,
+                                exec_spec=self.exec_spec,
+                                cost_table=self.cost_table,
+                                device=self.device)
 
     # ---------------- re-planning ----------------
 

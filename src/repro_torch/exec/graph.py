@@ -17,12 +17,21 @@ what the capture added to them is taken back, and each replay credits it
 Graphs are for CUDA devices, chosen by the device's type
 (:func:`enabled`); :func:`eager` runs the bodies eagerly on CUDA too,
 to time the eager path beside the graphed one or to hold one against the
-other.  A capture that fails raises; nothing falls back to eager.
+other, in the thread that enters it.  A capture that fails raises;
+nothing falls back to eager.
+
+Several threads may build and replay graphs at once (thread-mode
+``repro_torch.dist`` workers).  A capture runs in CUDA's thread-local
+capture mode, so another thread's allocations and synchronising copies
+during it are legal, and captures take turns under the count lock
+(``kernels._build.capture_counts``), which also keeps each capture's
+launch accounting its own thread's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Sequence
 
@@ -30,7 +39,12 @@ import torch
 
 from ..kernels import _build
 
-_eager_depth = 0
+
+class _EagerDepth(threading.local):
+    n = 0                    # nesting of eager() in this thread
+
+
+_eager = _EagerDepth()
 _captures = 0
 
 
@@ -41,20 +55,20 @@ def captures() -> int:
 
 @contextlib.contextmanager
 def eager():
-    """Within the block, bodies run eagerly on CUDA devices too: no graph
-    is captured or replayed."""
-    global _eager_depth
-    _eager_depth += 1
+    """Within the block, bodies that this thread runs run eagerly on CUDA
+    devices too: no graph is captured or replayed.  Other threads keep
+    their graphs."""
+    _eager.n += 1
     try:
         yield
     finally:
-        _eager_depth -= 1
+        _eager.n -= 1
 
 
 def enabled(device: torch.device) -> bool:
     """Whether a body on ``device`` runs as a CUDA graph: on a CUDA
-    device, outside :func:`eager`."""
-    return device.type == "cuda" and not _eager_depth
+    device, outside this thread's :func:`eager`."""
+    return device.type == "cuda" and not _eager.n
 
 
 def _tensors(tree):
@@ -104,27 +118,27 @@ class Graph:
         side.wait_stream(current)
         with _build.owned_scratch(self.scratch), torch.cuda.stream(side):
             self.warm = fn(*self.inputs)
-            before = _build.count_snapshot()
             t0 = time.perf_counter()
             # capture_begin / capture_end, not ``torch.cuda.graph``: that
             # one also collects garbage and empties the allocator's cache
             # at each capture, which a capture per generate call would pay
             # for (and the next prefill again, in cudaMalloc)
-            try:
-                self.graph.capture_begin()
+            with _build.capture_counts() as self.launches:
                 try:
-                    self.outputs = fn(*self.inputs)
-                finally:
-                    self.graph.capture_end()
-            except RuntimeError as err:
-                raise RuntimeError(f"{name}: CUDA graph capture or "
-                                   f"instantiation failed: {err}") from err
-            finally:
-                self.launches = _build.take_counts(before)
+                    self.graph.capture_begin(
+                        capture_error_mode="thread_local")
+                    try:
+                        self.outputs = fn(*self.inputs)
+                    finally:
+                        self.graph.capture_end()
+                except RuntimeError as err:
+                    raise RuntimeError(f"{name}: CUDA graph capture or "
+                                       f"instantiation failed: {err}"
+                                       ) from err
+                global _captures
+                _captures += 1
         #: host seconds of the capture and the instantiation
         self.capture_s = time.perf_counter() - t0
-        global _captures
-        _captures += 1
         current.wait_stream(side)
         for t in _tensors(self.warm):    # made on the side stream
             t.record_stream(current)

@@ -17,6 +17,14 @@ capture launches nothing) and credit it at each replay
 (:func:`credit`).  And a kernel's scratch buffers (:func:`scratch`) come
 from the table of the graph being captured while there is one, so they
 live as long as the graph that reads them.
+
+Thread workers (``repro_torch.dist`` in thread mode) launch kernels and
+capture graphs in one process at once.  So the stack of scratch tables
+being built is each thread's own, every count goes through :func:`bump`
+under :data:`COUNT_LOCK`, and a graph holds that lock across its capture
+(:func:`capture_counts`): another thread's launches in that window wait
+to be counted until the capture has taken back its own, so what it
+takes back is its thread's alone.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,8 +54,25 @@ _LOADED: dict[Path, ctypes.CDLL] = {}
 COUNT_TABLES: list[dict[str, int]] = []
 #: scratch tensors of launches outside a capture, per (device, stream)
 _SCRATCH: dict[tuple, dict[str, torch.Tensor]] = {}
-#: the scratch tables of the graphs being built, innermost last
-_OWNED: list[dict[str, torch.Tensor]] = []
+#: guards every count table: each count goes through :func:`bump` under
+#: it, and a graph's capture holds it (:func:`capture_counts`)
+COUNT_LOCK = threading.RLock()
+#: one build or load of a library at a time in this process
+_LIBRARY_LOCK = threading.Lock()
+
+
+class _ThreadStack(threading.local):
+    """A stack of its own in each thread; false while empty."""
+
+    def __init__(self):
+        self.items: list = []
+
+    def __bool__(self) -> bool:
+        return bool(self.items)
+
+
+#: the scratch tables of the graphs this thread is building, innermost last
+_OWNED = _ThreadStack()
 #: seconds each library took to build in this process (0.0 = reused),
 #: and the compiler's output (``-Xptxas -v``: registers, spills, smem)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -91,9 +117,10 @@ def build(src: Path) -> Path:
 def library(src: Path) -> ctypes.CDLL:
     """The loaded library built from ``src`` (built on first call)."""
     src = Path(src).resolve()
-    lib = _LOADED.get(src)
-    if lib is None:
-        lib = _LOADED[src] = ctypes.CDLL(str(build(src)))
+    with _LIBRARY_LOCK:
+        lib = _LOADED.get(src)
+        if lib is None:
+            lib = _LOADED[src] = ctypes.CDLL(str(build(src)))
     return lib
 
 
@@ -116,9 +143,18 @@ def count_table(table: dict[str, int]) -> dict[str, int]:
     return table
 
 
+def bump(table: dict[str, int], name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name`` in ``table`` (a :func:`count_table`),
+    under :data:`COUNT_LOCK`: no thread's count is lost to another's, and
+    none lands inside another thread's capture window."""
+    with COUNT_LOCK:
+        table[name] += n
+
+
 def count_snapshot() -> list[dict[str, int]]:
     """A copy of every count table, to diff against later."""
-    return [dict(t) for t in COUNT_TABLES]
+    with COUNT_LOCK:
+        return [dict(t) for t in COUNT_TABLES]
 
 
 def take_counts(before: list[dict[str, int]]) -> list[dict[str, int]]:
@@ -126,32 +162,51 @@ def take_counts(before: list[dict[str, int]]) -> list[dict[str, int]]:
     and return what was added since, table by table: the launches a
     graph's capture recorded and did not run."""
     delta = []
-    for i, table in enumerate(COUNT_TABLES):
-        old = before[i] if i < len(before) else {}
-        delta.append({k: n - old.get(k, 0) for k, n in table.items()
-                      if n != old.get(k, 0)})
-        for k in table:
-            table[k] = old.get(k, 0)
+    with COUNT_LOCK:
+        for i, table in enumerate(COUNT_TABLES):
+            old = before[i] if i < len(before) else {}
+            delta.append({k: n - old.get(k, 0) for k, n in table.items()
+                          if n != old.get(k, 0)})
+            for k in table:
+                table[k] = old.get(k, 0)
     return delta
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Around a graph's capture: holds :data:`COUNT_LOCK` (so captures in
+    one process take turns) and fills the list it yields, on exit, with
+    what the capture added to the count tables (:func:`take_counts`).
+    Other threads keep launching meanwhile; their counts wait for the
+    lock, so the launches taken back are this capture's alone."""
+    with COUNT_LOCK:
+        before = count_snapshot()
+        delta: list[dict[str, int]] = []
+        try:
+            yield delta
+        finally:
+            delta.extend(take_counts(before))
 
 
 def credit(delta: list[dict[str, int]], times: int = 1) -> None:
     """Add ``times`` x ``delta`` (a :func:`take_counts` result) to the
     count tables: ``times`` replays of a graph launch its nodes again."""
-    for table, d in zip(COUNT_TABLES, delta):
-        for k, n in d.items():
-            table[k] += n * times
+    with COUNT_LOCK:
+        for table, d in zip(COUNT_TABLES, delta):
+            for k, n in d.items():
+                table[k] += n * times
 
 
 @contextlib.contextmanager
 def owned_scratch(table: dict[str, torch.Tensor]):
     """Within the block, :func:`scratch` hands out ``table``: the scratch
-    of a graph being warmed up and captured, kept on the graph."""
-    _OWNED.append(table)
+    of a graph being warmed up and captured, kept on the graph.  The
+    stack is this thread's: another thread's scratch is not affected."""
+    _OWNED.items.append(table)
     try:
         yield table
     finally:
-        _OWNED.pop()
+        _OWNED.items.pop()
 
 
 def scratch(device: torch.device, name: str, numel: int,
@@ -163,7 +218,7 @@ def scratch(device: torch.device, name: str, numel: int,
     may not do (an earlier node may read the old tensor): the warm-up
     before a capture sizes it, and a capture that would grow it raises."""
     if _OWNED:
-        table = _OWNED[-1]
+        table = _OWNED.items[-1]
     else:
         key = (device, torch.cuda.current_stream(device).cuda_stream)
         table = _SCRATCH.setdefault(key, {})
@@ -209,7 +264,7 @@ class Launchers:
                  torch.cuda.current_stream(like.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-        self.counts[name] += 1
+        bump(self.counts, name)
 
     def launch_count(self, name: str) -> int:
         """Launches of kernel ``name`` since creation or :meth:`reset`:

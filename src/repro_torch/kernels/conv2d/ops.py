@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import count_table, library
+from .._build import bump, count_table, library
 from .ref import conv2d_fused_ref, out_size
 
 SOURCE = Path(__file__).parent / "csrc" / "conv2d_fused.cu"
@@ -249,8 +249,8 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"conv2d_fused launch failed with CUDA error "
                            f"{err} for x {tuple(x.shape)} w {tuple(w.shape)} "
                            f"stride {stride} pool {pool} plan {p}")
-    _counts["conv2d_fused"] += 1
-    variant_counts[p.variant] += 1
+    bump(_counts, "conv2d_fused")
+    bump(variant_counts, p.variant)
     return y
 
 

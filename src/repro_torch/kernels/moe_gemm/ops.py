@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, count_table, scratch
+from .._build import DTYPE_CODES, Launchers, bump, count_table, scratch
 from .ref import moe_gemm_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -169,5 +169,5 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         ws, counters = _scratch(x, n_part, n_count)
     _KERNELS.launch("moe_gemm", x, x.data_ptr(), w.data_ptr(), y.data_ptr(),
                     E, C, D, F, VARIANTS.index(v), rows, ws, counters)
-    variant_counts[v] += 1
+    bump(variant_counts, v)
     return y

@@ -1,7 +1,17 @@
-"""Serving of the port: the LM decode loop.  The CNN servers and the
-multi-tenant scheduler of the JAX package are not ported yet (ROADMAP
-Queue 1, item 8)."""
+"""Serving: pipelined CNN inference servers, the multi-tenant
+asynchronous scheduler, and the LM decode loop."""
 
+from .server import PipelineServer, ServeStats, StreamingPipelineServer
+from .queueing import (OpenLoopGenerator, TenantQueue, WeightedArbiter,
+                       coalesce)
+from .scheduler import (RepartitionRecord, SchedulerConfig, ServeReport,
+                        ServingScheduler, TenantConfig, TenantJoin,
+                        TenantLeave, serve_time_sliced, tenant_seed)
 from .lm import generate
 
-__all__ = ["generate"]
+__all__ = ["PipelineServer", "ServeStats", "StreamingPipelineServer",
+           "OpenLoopGenerator", "TenantQueue", "WeightedArbiter", "coalesce",
+           "RepartitionRecord", "SchedulerConfig", "ServeReport",
+           "ServingScheduler", "TenantConfig", "TenantJoin", "TenantLeave",
+           "serve_time_sliced", "tenant_seed",
+           "generate"]
