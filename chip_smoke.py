@@ -107,7 +107,18 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    ``decode_step``'s bit for bit, the graphed generate's greedy tokens
    equal the eager loop's, decode ms/step graphed and eager in turns,
    capture ms; profiled decode steps, eager and replayed (with granite,
-   moe_gemm's time inside the eager step);
+   moe_gemm's time inside the eager step).  Then zamba2-2.7b the same
+   way (the hybrid: 54 ssd_chunk, 9 flash_prefill and 9 x 32
+   decode_attention a generate, one attention a shared-block site), with
+   its attention at D = 64 and 128 beside the path's D = 80 (padded to
+   128: ``[pad]`` lines), and ``forward`` / ``loss_fn`` on its fp32
+   weights (``[forward]`` lines: 54 ssd_chunk and 9 flash_prefill,
+   counted; the last position against ``prefill``, the loss against
+   ``backend="torch"``).  Last, the ``embeds`` input mode with
+   musicgen-medium: seeded embeddings through ``prefill`` and 32
+   ``Decoder`` steps (48 flash_prefill, 48 x 32 decode_attention),
+   fp32 and bf16, its kernels held at the path's shapes, logits against
+   ``backend="torch"``, replays bit-equal to eager;
 6. one ``{"kernels": [...]}`` JSON line (five kernels; conv2d_fused's
    launches are those of phases 4b, 4e and 4f), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -158,9 +169,15 @@ CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
 # give the flash_prefill / decode_attention entries of the kernels line.
 LM_ARCH, SSM_ARCH, MOE_ARCH = ("llama3.2-1b", "mamba2-370m",
                                "granite-moe-3b-a800m")
+# zamba2: 54 Mamba2 layers and the shared attention block at 9 sites, head
+# dim 80; musicgen-medium takes embeddings (no token loop: its prefill and
+# decode steps are driven directly)
+HYBRID_ARCH, EMBEDS_ARCH = "zamba2-2.7b", "musicgen-medium"
 LM_FAMILIES = {LM_ARCH: ("flash_prefill", "decode_attention"),
                SSM_ARCH: ("ssd_chunk",),
-               MOE_ARCH: ("flash_prefill", "decode_attention", "moe_gemm")}
+               MOE_ARCH: ("flash_prefill", "decode_attention", "moe_gemm"),
+               HYBRID_ARCH: ("flash_prefill", "decode_attention",
+                             "ssd_chunk")}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
 GRAPH_STEPS = 6      # decode steps held bit for bit, eager against replayed
 # phase 4d: the event-driven runtime, frames arriving at half the plan's
@@ -380,7 +397,8 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
                 + _prefill_plan_text(pl)
                 + ("" if same else " NOT BIT-REPRODUCIBLE")
                 + ("" if same_layout else " PLAN AND KERNEL DIFFER"),
-                plan=pl, dtype=dtype_name, err=err, of_limit=of_limit,
+                plan=pl, shape=tuple(shape), dtype=dtype_name, err=err,
+                of_limit=of_limit,
                 ok=ok and same and same_layout,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
@@ -613,9 +631,13 @@ def _record_shapes(names, fn) -> dict:
 
 def _want_launches(cfg, names) -> dict:
     """Launches of one generate (prefill of LM_PROMPT - 1 tokens, LM_NEW
-    decode steps) by construction of the model."""
+    decode steps) by construction of the model: attention once a layer,
+    or in a hybrid once a shared-block site."""
+    from repro_torch.models.transformer import model as M
+
     L = cfg.n_layers
-    per = {"flash_prefill": L, "decode_attention": L * LM_NEW,
+    attn = M.n_shared_apps(cfg) if cfg.shared_attn_every else L
+    per = {"flash_prefill": attn, "decode_attention": attn * LM_NEW,
            "ssd_chunk": L, "moe_gemm": 3 * L * (1 + LM_NEW)}
     return {n: per[n] for n in names}
 
@@ -639,7 +661,9 @@ def _check_variants(cfg, dtype_name, counts) -> None:
 def _extra_cases(cfg) -> list[dict]:
     """Kernel cases beyond the path's own shapes: edge cases of the
     attention kernels (with Llama), of moe_gemm's variants (with
-    granite) and a longer Mamba2 prompt."""
+    granite), a longer Mamba2 prompt (with mamba2), and zamba2's
+    attention shapes at D = 64 and D = 128 beside its D = 80 (padded to
+    128) and its decode cache full and partly filled."""
     cases = []
     if cfg.name == LM_ARCH:
         b, k, g, d = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,\
@@ -703,7 +727,19 @@ def _extra_cases(cfg) -> list[dict]:
                            ((4, 12, 1024), 256), ((40, 16, 1536), 512)]:
             cases += [moe_case(x_shape, f, dt)
                       for dt in ("float32", "bfloat16")]
-    if cfg.is_ssm:
+    if cfg.shared_attn_every:
+        b, k, g = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        w = LM_PROMPT + LM_NEW
+        for d in (64, 128):
+            for dt in ("float32", "bfloat16"):
+                r = prefill_case((b, LM_PROMPT - 1, k, g, d), 0, dt)
+                if r["plan"].dp != d:
+                    fail(f"flash_prefill {r['desc']} {dt}: want DP {d}")
+                cases.append(r)
+        for vl in (w, w // 2 + 28):
+            cases += [decode_case((b, k, g, cfg.hd), w, vl, dt)
+                      for dt in ("float32", "bfloat16")]
+    if cfg.name == SSM_ARCH:
         hp, n = cfg.ssm_head_dim, cfg.ssm_state
         # shape, and the heads a y block that ops.plan must choose in fp32
         # and in bf16 (G = 2 where G = 4's grid is short of a wave)
@@ -728,13 +764,40 @@ def _extra_cases(cfg) -> list[dict]:
     return cases
 
 
-def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True) -> None:
+def _padding_cost(cfg, cases) -> None:
+    """zamba2's prefill attention: the head dim D = 80 runs padded to
+    DP = 128, so (128 - 80) / 128 of the padded work is padding.  Device
+    ms at D = 64, 80 and 128 on the same (B, S, K, G), beside the bound
+    at the real D = 80 and SDPA's time at D = 80."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    for dt in ("float32", "bfloat16"):
+        at = {r["shape"][4]: r for r in cases
+              if r["kernel"] == "flash_prefill" and r["dtype"] == dt
+              and r["shape"][:4] == (LM_BATCH, LM_PROMPT - 1,
+                                     cfg.n_kv_heads, g)}
+        r, dp = at[cfg.hd], at[cfg.hd]["plan"].dp
+        print(f"[pad] {cfg.name} {dt} flash_prefill q{r['shape']}: D "
+              f"{cfg.hd} runs padded to DP {dp}, "
+              f"{100 * (dp - cfg.hd) / dp:.1f}% of the padded work padding; "
+              f"device ms at D " + " / ".join(map(str, sorted(at))) + ": "
+              + " / ".join(f"{at[d]['dev_ms']:.4f}" for d in sorted(at))
+              + f" (D {cfg.hd} takes {r['dev_ms'] / at[128]['dev_ms']:.3f} "
+              f"of D 128's time); bound at D {cfg.hd} {r['bound_ms']:.5f} "
+              f"({r['bound_by']}; {100 * r['bound_ms'] / r['dev_ms']:.1f}% "
+              f"of the kernel's device time); SDPA at D {cfg.hd} "
+              f"{r['library_ms']:.4f} ms, device {r['library_dev_ms']:.4f}")
+
+
+def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True,
+                  feeds=None) -> None:
     """Prefill and each teacher-forced decode step of the kernel path
     against ``backend="torch"`` on the same weights, fed the kernel
-    path's tokens.  fp32: logits within LM_LOGIT_TOL x max|logit|, and
-    the kernel path's greedy token equal to the plain path's wherever
-    the plain path's top-2 gap exceeds twice that; bf16: the band only.
-    With ``hold`` false the band is printed, not enforced.
+    path's tokens (``toks``), or for an embeds model the LM_NEW
+    embeddings ``feeds`` (``toks`` None).  fp32: logits within
+    LM_LOGIT_TOL x max|logit|, and the kernel path's greedy token equal
+    to the plain path's wherever the plain path's top-2 gap exceeds
+    twice that; bf16: the band only.  With ``hold`` false the band is
+    printed, not enforced.
     """
     import torch
     from repro_torch.models.transformer import model as M
@@ -757,7 +820,7 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True) -> None:
             fail(f"{dtype_name} {'prefill' if i == 0 else f'decode {i}'} "
                  f"logits differ by {diff:.3g} > {tol:.3g} from the torch "
                  f"backend")
-        if i and dtype_name == "float32":
+        if i and toks is not None and dtype_name == "float32":
             top2 = lt.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
             same = lt.argmax(dim=-1) == toks[:, i - 1].long()
@@ -767,9 +830,12 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True) -> None:
             n_differ += int((~same).sum())
         if i == LM_NEW:
             break
-        tok = prompt[:, -1] if i == 0 else toks[:, i - 1]
+        if feeds is not None:
+            inp = {"embed": feeds[i]}
+        else:
+            inp = {"token": prompt[:, -1] if i == 0 else toks[:, i - 1]}
         (lc, cc), (lt, ct) = (
-            M.decode_step(cfg, params, c, {"token": tok}, backend=be)
+            M.decode_step(cfg, params, c, inp, backend=be)
             for c, be in ((cc, "cuda"), (ct, "torch")))
     held = "within" if hold else "not held; worst"
     print(f"[slice] {cfg.name} {dtype_name} logits vs torch backend: "
@@ -779,7 +845,8 @@ def _lm_agreement(cfg, params, prompt, toks, dtype_name, hold=True) -> None:
              f"differ from the plain path's"
              + (", none where its top-2 gap exceeds 2 x tol" if hold
                 else "")
-             if dtype_name == "float32" else "; bf16: logit band only"))
+             if dtype_name == "float32" and toks is not None
+             else "; logit band only"))
 
 
 def _gated_terms(moe, p, x, top_k, capacity_factor):
@@ -946,6 +1013,35 @@ def _decode_profile(cfg, params, prompt, dtype_name, alone_ms=None,
     return out
 
 
+def _replays_equal_eager(cfg, params, prompt, head, feeds=None) -> None:
+    """A ``Decoder``'s first (eager) step and its replays against eager
+    ``decode_step`` from the same cache, bit for bit over GRAPH_STEPS
+    teacher-forced steps: fed each step's greedy token, or for an embeds
+    model the embeddings ``feeds``."""
+    import torch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    decoder = lm.Decoder(cfg, params, cache)
+    x = prompt[:, -1].long() if feeds is None else feeds[0]
+    for i in range(GRAPH_STEPS):
+        want, eager_cache = M.decode_step(cfg, params, eager_cache,
+                                          {decoder.key: x})
+        got = decoder(x)
+        if not torch.equal(got, want):
+            fail(f"{head}: decode step {i} "
+                 f"{'(eager warm-up)' if i == 0 else 'replayed'} differs "
+                 f"from eager decode_step by "
+                 f"{(got.float() - want.float()).abs().max().item():.3g}")
+        x = want.argmax(dim=-1) if feeds is None else feeds[i + 1]
+    print(f"{head}: {GRAPH_STEPS} decode steps (the first eager, then "
+          f"{GRAPH_STEPS - 1} replays) equal eager decode_step from the "
+          f"same cache bit for bit; capture and instantiation "
+          f"{decoder.graph.capture_s * 1e3:.1f} ms")
+
+
 def _decode_graph(cfg, params, prompt, dtype_name, toks, pre_ms,
                   busy) -> None:
     """``[graph]`` lines of one LM and dtype: a ``Decoder``'s first
@@ -958,30 +1054,10 @@ def _decode_graph(cfg, params, prompt, dtype_name, toks, pre_ms,
     (``busy``, from ``_decode_profile``)."""
     import torch
     from repro_torch.exec import graph
-    from repro_torch.models.transformer import model as M
     from repro_torch.serving import lm
 
     head = f"[graph] {cfg.name} {dtype_name}"
-    _, cache = lm.prefill_prompt(cfg, params, prompt, LM_NEW)
-    eager_cache = {k: v.clone() for k, v in cache.items()}
-    decoder = lm.Decoder(cfg, params, cache)
-    tok = prompt[:, -1].long()
-    for i in range(GRAPH_STEPS):
-        want, eager_cache = M.decode_step(cfg, params, eager_cache,
-                                          {"token": tok})
-        got = decoder(tok)
-        if not torch.equal(got, want):
-            fail(f"{head}: decode step {i} "
-                 f"{'(eager warm-up)' if i == 0 else 'replayed'} differs "
-                 f"from eager decode_step by "
-                 f"{(got.float() - want.float()).abs().max().item():.3g}")
-        tok = want.argmax(dim=-1)
-    capture_ms = decoder.graph.capture_s * 1e3
-    print(f"{head}: {GRAPH_STEPS} decode steps (the first eager, then "
-          f"{GRAPH_STEPS - 1} replays) equal eager decode_step from the "
-          f"same cache bit for bit; capture and instantiation "
-          f"{capture_ms:.1f} ms")
-    del decoder, cache, eager_cache
+    _replays_equal_eager(cfg, params, prompt, head)
 
     # one generate each, in turns; the steps alone, after the first
     gen = {"eager": [], "graph": []}
@@ -1027,11 +1103,95 @@ def _decode_graph(cfg, params, prompt, dtype_name, toks, pre_ms,
           f"{share['graph']}, eager {share['eager']}")
 
 
+def _held_cases(launched, held_vl=None) -> list[dict]:
+    """Each recorded (kernel, shape, argument, dtype) as a case held
+    against its plain version, with its launches; decode_attention at
+    the valid lengths ``held_vl`` (default: the first, every eighth and
+    the last)."""
+    vls = sorted({a for (n, _, a, _) in launched if n == "decode_attention"})
+    held = set(vls[::8] + vls[-1:]) if held_vl is None else held_vl
+    cases = []
+    for (name, shape, arg, dt), cnt in sorted(launched.items()):
+        if name == "decode_attention" and arg not in held:
+            continue
+        r = CASES[name](shape, arg, dt)
+        r["per_call"] = cnt
+        cases.append(r)
+    return cases
+
+
+def _forward_loss(cfg, params, prompt, served) -> None:
+    """zamba2 fp32, on the weights of the served path: ``forward`` over
+    the whole prompt (B, LM_PROMPT) with its kernels counted (reset just
+    before, read just after: one ssd_chunk a layer, one flash_prefill a
+    shared-block site), each kernel held against its plain version at
+    the shapes ``forward`` gives it that the served path did not
+    (``served``, from ``_record_shapes``); its last position against
+    ``prefill``'s logits, and ``loss_fn`` (labels the next tokens)
+    against ``backend="torch"``'s, within LM_LOGIT_TOL x max|logit|."""
+    import torch
+    from repro_torch.models.transformer import model as M
+
+    ops = _kernel_ops()
+    names = ("ssd_chunk", "flash_prefill")
+    V, rel = cfg.vocab_size, LM_LOGIT_TOL["float32"]
+    batch = {"tokens": prompt, "labels": torch.roll(prompt, -1, dims=1)}
+    launched = _record_shapes(names, lambda: M.forward(cfg, params, batch))
+    seen = {k[:2] for k in served}
+    new = _held_cases({k: n for k, n in launched.items()
+                       if k[:2] not in seen})
+    print(f"[forward] {cfg.name} float32: {len(new)} kernel cases at the "
+          f"shapes forward gives the kernels and the served path did not:")
+    _print_cases(new)
+    if any(not r["ok"] for r in new):
+        fail(f"{cfg.name} forward's kernel cases disagree with the plain "
+             f"versions")
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = M.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    got = {n: ops[n].launch_count(n) for n in names}
+    want = {"ssd_chunk": cfg.n_layers, "flash_prefill": M.n_shared_apps(cfg)}
+    print(f"[forward] {cfg.name} float32 forward of {tuple(prompt.shape)} "
+          f"tokens: " + ", ".join(f"{n} launches {got[n]} (want {want[n]})"
+                                  for n in names)
+          + f"; {fwd_ms:.2f} ms (host clock, synchronized)")
+    if got != want:
+        fail(f"{cfg.name} forward launched {got}, want {want}")
+    real = logits[..., :V]
+    if tuple(logits.shape) != (LM_BATCH, LM_PROMPT, cfg.vocab_padded) or \
+            not bool(torch.isfinite(real).all()):
+        fail(f"{cfg.name} forward logits {tuple(logits.shape)}, or not "
+             f"finite")
+    last, _ = M.prefill(cfg, params, {"tokens": prompt})
+    tol = rel * last[:, :V].abs().max().item()
+    diff = (real[:, -1] - last[:, :V]).abs().max().item()
+    scale = real.abs().max().item()
+    del logits, real
+    loss, loss_t = (M.loss_fn(cfg, params, batch, backend=be).item()
+                    for be in ("cuda", "torch"))
+    print(f"[forward] {cfg.name} float32: last position vs prefill's logits "
+          f"{diff:.3g} ({diff / tol:.3f} of {rel:g} x max|logit|); loss_fn "
+          f"{loss:.6f}, torch backend {loss_t:.6f}, difference "
+          f"{abs(loss - loss_t):.3g} ({abs(loss - loss_t) / (rel * scale):.3f}"
+          f" of {rel:g} x max|logit| {scale:.3f})")
+    if diff > tol or not abs(loss - loss_t) <= rel * scale:
+        fail(f"{cfg.name} forward or loss_fn outside the limit")
+
+
 def _describe(cfg) -> str:
     if cfg.is_ssm:
+        sites = cfg.n_layers // max(cfg.shared_attn_every, 1)
+        shared = (f"; the shared attention+MLP block after every "
+                  f"{cfg.shared_attn_every}th layer ({sites} sites): "
+                  f"{cfg.n_heads} q-heads, {cfg.n_kv_heads} kv-heads, hd "
+                  f"{cfg.hd}, ff {cfg.d_ff}" if cfg.shared_attn_every else "")
         return (f"{cfg.n_layers} Mamba2 layers, d {cfg.d_model}, d_inner "
                 f"{cfg.d_inner}, N {cfg.ssm_state}, {cfg.ssm_heads} heads of "
-                f"{cfg.ssm_head_dim}, conv {cfg.ssm_conv}")
+                f"{cfg.ssm_head_dim}, conv {cfg.ssm_conv}{shared}")
     moe = (f", {cfg.n_experts} experts of ff {cfg.d_ff}, top-"
            f"{cfg.moe_top_k}" if cfg.is_moe else f", ff {cfg.d_ff}")
     return (f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
@@ -1071,17 +1231,10 @@ def run_lm(arch: str) -> dict[str, dict]:
 
     # -- 3. kernel vs plain on the card ----------------------------------
     vls = sorted({a for (n, _, a, _) in launched if n == "decode_attention"})
-    # Llama holds every valid length; granite the first, every eighth and
-    # the last
+    # Llama holds every valid length; the others the first, every eighth
+    # and the last
     held_vl = set(vls if arch == LM_ARCH else vls[::8] + vls[-1:])
-    cases = []
-    for (name, shape, arg, dt), cnt in sorted(launched.items()):
-        if name == "decode_attention" and arg not in held_vl:
-            continue
-        r = CASES[name](shape, arg, dt)
-        r["per_call"] = cnt
-        cases.append(r)
-    cases += _extra_cases(cfg)
+    cases = _held_cases(launched, held_vl) + _extra_cases(cfg)
     print(f"[kernel] {cfg.name}: {len(cases)} cases of {', '.join(names)}: "
           f"shape, dtype, launches per generate | max_abs_err (worst error "
           f"/ its limit) | ms kernel / plain / library / bound (CUDA "
@@ -1094,6 +1247,8 @@ def run_lm(arch: str) -> dict[str, dict]:
     if bad:
         fail(f"{len(bad)} {cfg.name} kernel case(s) disagree with the plain "
              f"version")
+    if cfg.shared_attn_every:
+        _padding_cost(cfg, cases)
 
     # -- 5. the path, counted, per dtype ----------------------------------
     want = _want_launches(cfg, names)
@@ -1147,6 +1302,8 @@ def run_lm(arch: str) -> dict[str, dict]:
                  / sum(r["per_call"] for r in dec)) if dec else None
         busy = _decode_profile(cfg, p, prompt, dt, alone)
         _decode_graph(cfg, p, prompt, dt, tokens[dt], prefill_ms[dt], busy)
+    if cfg.shared_attn_every:
+        _forward_loss(cfg, params["float32"], prompt, launched)
     del params
     torch.cuda.empty_cache()
 
@@ -1205,6 +1362,122 @@ def run_lm(arch: str) -> dict[str, dict]:
                           f"{total(vr, 'dev_ms'):.4f}, library "
                           f"{total(vr, 'library_dev_ms'):.4f}")
     return out
+
+
+def run_embeds(arch: str) -> None:
+    """Phases 3 and 5 for the ``embeds`` input mode at full width: seeded
+    (B, LM_PROMPT - 1, d) embeddings through ``prefill``, then LM_NEW
+    decode steps each fed a seeded (B, d) embedding through a
+    ``Decoder`` (the first eager, the rest replayed from its CUDA graph),
+    in fp32 and bf16.  The attention kernels are held against their plain
+    versions at the path's shapes and counted (reset just before, read
+    just after: flash_prefill once a layer, decode_attention once a
+    layer and step); logits against ``backend="torch"`` within
+    LM_LOGIT_TOL; replays bit-equal to eager ``decode_step``; prefill ms
+    and decode ms/step graphed and eager."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.exec import graph
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    cfg = configs.get(arch)
+    names = ("flash_prefill", "decode_attention")
+    ops = _kernel_ops()
+    params = {dt: M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        dtype=getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+    # the prompt's LM_PROMPT embeddings (its last is the first decode
+    # step's input) and the LM_NEW - 1 steps' after it
+    xs = torch.randn((LM_BATCH, LM_PROMPT + LM_NEW - 1, cfg.d_model),
+                     generator=torch.Generator(device="cuda").manual_seed(1),
+                     device="cuda")
+    inputs = {dt: xs.to(getattr(torch, dt)) for dt in params}
+    print(f"[lm] {cfg.name}: {_describe(cfg)}, input embeddings of d "
+          f"{cfg.d_model} (no embedding table), vocab {cfg.vocab_size} "
+          f"padded to {cfg.vocab_padded}, {cfg.param_count() / 1e9:.2f} G "
+          f"params; batch {LM_BATCH}, {LM_PROMPT - 1} embeddings "
+          f"prefilled, {LM_NEW} decode steps fed seeded embeddings")
+
+    def prompt_of(x):
+        return x[:, :LM_PROMPT]
+
+    def feeds_of(x):
+        return [x[:, LM_PROMPT - 1 + i] for i in range(LM_NEW)]
+
+    def run(p, x, steps_ms=None):
+        """Prefill, then LM_NEW steps; the last step's logits.  With
+        ``steps_ms`` (a list), appends the mean ms of steps 2..LM_NEW
+        (host clock, synchronized)."""
+        _, cache = lm.prefill_prompt(cfg, p, prompt_of(x), LM_NEW)
+        decoder = lm.Decoder(cfg, p, cache)
+        feeds = feeds_of(x)
+        logits = decoder(feeds[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in feeds[1:]:
+            logits = decoder(f)
+        if steps_ms is not None:
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3 / (LM_NEW - 1))
+        return logits
+
+    with graph.eager():
+        launched = _record_shapes(names, lambda: [
+            run(p, inputs[dt]) for dt, p in params.items()])
+    cases = _held_cases(launched)
+    print(f"[kernel] {cfg.name}: {len(cases)} cases of {', '.join(names)} "
+          f"at the embeds path's shapes (columns as above)")
+    _print_cases(cases)
+    if any(not r["ok"] for r in cases):
+        fail(f"{cfg.name} kernel case(s) disagree with the plain version")
+
+    want = {"flash_prefill": cfg.n_layers,
+            "decode_attention": cfg.n_layers * LM_NEW}
+    for dt, p in params.items():
+        x = inputs[dt]
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = run(p, x)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        got = {n: ops[n].launch_count(n) for n in names}
+        print(f"[slice] {cfg.name} {dt} prefill + {LM_NEW} decode steps "
+              f"(embeds): " + ", ".join(f"{n} launches {got[n]} (want "
+                                       f"{want[n]})" for n in names))
+        if got != want:
+            fail(f"{cfg.name} {dt} launched {got}, want {want}")
+        if tuple(logits.shape) != (LM_BATCH, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            fail(f"{cfg.name} {dt} logits {tuple(logits.shape)}, or not "
+                 f"finite")
+        reps = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            lm.prefill_prompt(cfg, p, prompt_of(x), LM_NEW)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) / reps * 1e3
+        steps = {"graph": [], "eager": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            with graph.eager() if mode == "eager" \
+                    else contextlib.nullcontext():
+                run(p, x, steps[mode])
+        print(f"[slice] {cfg.name} {dt}: prefill of {LM_PROMPT - 1} "
+              f"embeddings x {LM_BATCH} {pre_ms:.2f} ms (mean of {reps}); "
+              f"decode {(run_ms - pre_ms) / LM_NEW:.3f} ms/step (the counted "
+              f"run less prefill, over {LM_NEW} steps, the graph's capture "
+              f"included); steps 2..{LM_NEW} alone in the turns eager, "
+              f"graph, graph, eager: graphed " + " / ".join(
+                  f"{v:.3f}" for v in steps["graph"]) + ", eager "
+              + " / ".join(f"{v:.3f}" for v in steps["eager"])
+              + " ms/step (host clock, synchronized)")
+        _lm_agreement(cfg, p, prompt_of(x), None, dt, feeds=feeds_of(x))
+        _replays_equal_eager(cfg, p, prompt_of(x), f"[graph] {cfg.name} {dt}",
+                             feeds=feeds_of(x))
+    del params, inputs
+    torch.cuda.empty_cache()
 
 
 def _entry_name(mangled: str) -> str:
@@ -2571,6 +2844,9 @@ def main() -> None:
         # earlier runs); granite's attention launches are in its lines
         entries.update({n: e for n, e in got.items() if n not in entries})
         print(f"[time] {arch} phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_embeds(EMBEDS_ARCH)
+    print(f"[time] {EMBEDS_ARCH} phases {time.perf_counter() - t0:.1f} s")
     kernels += [entries[n] for n in ("flash_prefill", "decode_attention",
                                      "ssd_chunk", "moe_gemm")]
     print("[kernels] ssd_chunk: library_ms null: no single PyTorch call "

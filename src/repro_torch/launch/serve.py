@@ -8,11 +8,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
-Dense, MoE (granite, mixtral) and Mamba2 archs run.  Weights are random
-from ``--seed``, as in the JAX package's launcher.  What the port lacks
-yet (zamba2's shared block, the embeddings input of llava and musicgen)
-stops with a message naming ROADMAP Queue 1, item 10d.
+Dense, MoE (granite, mixtral), Mamba2 and hybrid (zamba2) archs run.
+Weights are random from ``--seed``, as in the JAX package's launcher.
+The archs that take embeddings (llava, musicgen) have no token loop and
+stop as the reference's launcher stops them, pointing at the dry run
+(ROADMAP Queue 1, item 13); their ``prefill`` and ``decode_step`` run
+from the library.
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     if args.reduced:
         cfg = cfg.reduced(n_layers=2, d_model=128)
     if cfg.input_mode != "tokens":
-        raise SystemExit(f"{args.arch} takes embeddings, which the port "
-                         f"does not serve yet (ROADMAP Queue 1, item 10d)")
+        raise SystemExit(f"{args.arch} takes embeddings; use the dry-run "
+                         f"for its serve_step (not ported yet: ROADMAP "
+                         f"Queue 1, item 13)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "

@@ -1,23 +1,32 @@
-"""Decoder LM assembly over torch tensors: init, prefill, one-token decode.
+"""Decoder LM assembly over torch tensors: init, forward, prefill and
+one-token decode.
 
-The port of the JAX package's ``models/transformer/model.py`` for three
-families: dense attention (``layer_pattern == "attn"``, with or without
-QKV bias and sliding window), MoE (the same with ``moe`` in place of
-the MLP) and SSM (``layer_pattern == "mamba"``, Mamba2 blocks).
+The port of the JAX package's ``models/transformer/model.py`` for every
+family it has: dense attention (``layer_pattern == "attn"``, with or
+without QKV bias and sliding window), MoE (the same with ``moe`` in
+place of the MLP), SSM (``layer_pattern == "mamba"``, Mamba2 blocks),
+hybrid (zamba2: Mamba2 layers and one *shared* attention+MLP block
+applied after every ``shared_attn_every``-th layer, one weight set and
+a k/v cache per application site), each fed token ids or, with
+``input_mode == "embeds"`` (llava, musicgen), precomputed embeddings.
 Parameters keep the reference's tree: ``{"embed", "head", "final_norm",
-"layers": {...}}`` with ``layers`` holding ``ln1`` and ``attn``/``ln2``/
-``mlp`` (dense), ``attn``/``ln2``/``moe`` (MoE) or ``mamba`` (SSM), every
-leaf stacked on a leading L axis and weights stored ``(in, out)``, so
-:func:`params_from_numpy` moves the reference's parameters over with no
-transposes.  Layers run in a Python loop (the reference's ``lax.scan``).
+"layers": {...}, "shared": {...}}`` (``embed`` for token inputs only,
+``shared`` for hybrids only).  ``layers`` holds ``ln1`` and
+``attn``/``ln2``/``mlp`` (dense), ``attn``/``ln2``/``moe`` (MoE) or
+``mamba`` (SSM), every leaf stacked on a leading L axis; ``shared``
+holds ``ln1``, ``attn``, ``ln2`` and ``mlp`` with no L axis.  Weights
+are stored ``(in, out)``, so :func:`params_from_numpy` moves the
+reference's parameters over with no transposes.
 
-``prefill`` and ``decode_step`` take ``backend="cuda"`` (the default:
-the Hopper kernels, or their plain versions on CPU tensors) or
-``backend="torch"`` (the plain versions on any device).
+Layers run in a Python loop (the reference's ``lax.scan``), so the
+layers the shared block follows, and its site in the cache, are Python
+ints: no step reads a device value on the host, and a decode step
+captures into one CUDA graph.
 
-Not ported yet, and refused with ``NotImplementedError``: the shared
-attention block of zamba2 and the ``embeds`` input mode (ROADMAP Queue
-1, item 10d); ``forward`` and ``loss_fn`` come with training (item 11).
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take
+``backend="cuda"`` (the default: the Hopper kernels, or their plain
+versions on CPU tensors) or ``backend="torch"`` (the plain versions on
+any device).
 """
 
 from __future__ import annotations
@@ -37,18 +46,37 @@ Cache = dict
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port lacks yet."""
-    if cfg.shared_attn_every or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the shared attention block and the 'embeds' "
-            f"input mode are not ported yet (ROADMAP Queue 1, item 10d)")
+    """Raise ``ValueError`` for a layer pattern neither package has."""
     if cfg.layer_pattern not in ("attn", "mamba"):
         raise ValueError(f"{cfg.name}: layer_pattern {cfg.layer_pattern!r}")
 
 
-#: the per-layer parameter groups, by key of ``params["layers"]``
+#: the parameter groups, by key of ``params["layers"]`` and
+#: ``params["shared"]``
 GROUPS = {"attn": AttnParams, "mlp": MlpParams, "moe": MoeParams,
           "mamba": MambaParams}
+
+
+# ---------------------------------------------------------------------------
+# the shared (zamba2) block's sites
+# ---------------------------------------------------------------------------
+
+def shared_apply_flags(cfg: ArchConfig) -> tuple[list[bool], list[int]]:
+    """Per layer: whether the shared block follows it, and the block's
+    application index there (its site in ``shared_k``/``shared_v``),
+    clamped to 0 before the first application as in the reference's
+    ``_shared_apply_flags``.  Plain Python, from the config alone."""
+    L, k = cfg.n_layers, cfg.shared_attn_every
+    if not k:
+        return [False] * L, [0] * L
+    apply = [(i + 1) % k == 0 for i in range(L)]
+    return apply, [max((i + 1) // k - 1, 0) for i in range(L)]
+
+
+def n_shared_apps(cfg: ArchConfig) -> int:
+    """Applications of the shared block over the layers (0 without it)."""
+    return (cfg.n_layers // cfg.shared_attn_every
+            if cfg.shared_attn_every else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -77,37 +105,43 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def per_layer(row):      # an (n,) fp32 row stacked on L
         return row.to(device=device, dtype=dtype).expand(L, -1).clone()
 
-    p: Params = {
-        "embed": normal((V, d), 0.02),
-        "head": normal((d, V), 1 / math.sqrt(d)),
-        "final_norm": const((d,), 1.0),
-    }
-    layers: dict = {"ln1": const((L, d), 1.0)}
-    if cfg.layer_pattern == "attn":
-        nq, nkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    def attn_params(*stack):     # stack: () or (L,)
+        nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
         def bias(n):
-            return const((L, n), 0.0) if cfg.qkv_bias else None
+            return const((*stack, n), 0.0) if cfg.qkv_bias else None
 
-        layers["attn"] = AttnParams(
-            wq=normal((L, d, nq * hd), 1 / math.sqrt(d)),
-            wk=normal((L, d, nkv * hd), 1 / math.sqrt(d)),
-            wv=normal((L, d, nkv * hd), 1 / math.sqrt(d)),
-            wo=normal((L, nq * hd, d), 1 / math.sqrt(nq * hd)),
+        return AttnParams(
+            wq=normal((*stack, d, nq * hd), 1 / math.sqrt(d)),
+            wk=normal((*stack, d, nkv * hd), 1 / math.sqrt(d)),
+            wv=normal((*stack, d, nkv * hd), 1 / math.sqrt(d)),
+            wo=normal((*stack, nq * hd, d), 1 / math.sqrt(nq * hd)),
             bq=bias(nq * hd), bk=bias(nkv * hd), bv=bias(nkv * hd))
+
+    def mlp_params(*stack):
+        ff = cfg.d_ff
+        return MlpParams(w1=normal((*stack, d, ff), 1 / math.sqrt(d)),
+                         w3=normal((*stack, d, ff), 1 / math.sqrt(d)),
+                         w2=normal((*stack, ff, d), 1 / math.sqrt(ff)))
+
+    p: Params = {}
+    if cfg.input_mode == "tokens":
+        p["embed"] = normal((V, d), 0.02)
+    p["head"] = normal((d, V), 1 / math.sqrt(d))
+    p["final_norm"] = const((d,), 1.0)
+    layers: dict = {"ln1": const((L, d), 1.0)}
+    if cfg.layer_pattern == "attn":
+        layers["attn"] = attn_params(L)
         layers["ln2"] = const((L, d), 1.0)
         if cfg.is_moe:
-            E = cfg.n_experts
+            E, ff = cfg.n_experts, cfg.d_ff
             layers["moe"] = MoeParams(
                 router=normal((L, d, E), 1 / math.sqrt(d)),
                 w1=normal((L, E, d, ff), 1 / math.sqrt(d)),
                 w3=normal((L, E, d, ff), 1 / math.sqrt(d)),
                 w2=normal((L, E, ff, d), 1 / math.sqrt(ff)))
         else:
-            layers["mlp"] = MlpParams(
-                w1=normal((L, d, ff), 1 / math.sqrt(d)),
-                w3=normal((L, d, ff), 1 / math.sqrt(d)),
-                w2=normal((L, ff, d), 1 / math.sqrt(ff)))
+            layers["mlp"] = mlp_params(L)
     else:
         di, N, H, CK = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
             cfg.ssm_conv
@@ -124,6 +158,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             norm_w=const((L, di), 1.0),
             w_out=normal((L, di, d), 1 / math.sqrt(di)))
     p["layers"] = layers
+    if cfg.shared_attn_every:
+        p["shared"] = {"ln1": const((d,), 1.0), "attn": attn_params(),
+                       "ln2": const((d,), 1.0), "mlp": mlp_params()}
     return p
 
 
@@ -141,23 +178,32 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
                       device: str | torch.device = "cuda") -> Params:
     """The reference's parameter tree (leaves convertible by
     ``np.asarray``, e.g. ``jax.tree.map(np.asarray, params)``) as the
-    port's: same keys, each per-layer group as its NamedTuple of
-    :data:`GROUPS` (from the reference's NamedTuple of the same fields),
-    leaves copied to ``device`` in their own dtype."""
+    port's: same keys, each parameter group as its NamedTuple of
+    :data:`GROUPS` (from the reference's NamedTuple of the same fields,
+    or a plain tuple in the fields' order, which the reference's model
+    also takes for ``shared["attn"]``), leaves copied to ``device`` in
+    their own dtype.  A tree of the ``embeds`` input mode has no
+    ``embed``, and only a hybrid's has ``shared``."""
     check_supported(cfg)
 
-    def fields(obj, cls):
-        return cls(**{f: _tensor(getattr(obj, f), device)
-                      for f in cls._fields})
+    def convert(group: dict) -> dict:
+        out = {}
+        for k, v in group.items():
+            if k not in GROUPS:
+                out[k] = _tensor(v, device)
+            elif hasattr(v, "_fields"):
+                out[k] = GROUPS[k](**{f: _tensor(getattr(v, f), device)
+                                      for f in GROUPS[k]._fields})
+            else:
+                out[k] = GROUPS[k](*(_tensor(t, device) for t in v))
+        return out
 
-    return {
-        "embed": _tensor(tree["embed"], device),
-        "head": _tensor(tree["head"], device),
-        "final_norm": _tensor(tree["final_norm"], device),
-        "layers": {k: fields(v, GROUPS[k]) if k in GROUPS
-                   else _tensor(v, device)
-                   for k, v in tree["layers"].items()},
-    }
+    p = convert({k: v for k, v in tree.items()
+                 if k in ("embed", "head", "final_norm")})
+    p["layers"] = convert(tree["layers"])
+    if "shared" in tree:
+        p["shared"] = convert(tree["shared"])
+    return p
 
 
 def _layer(params: Params, i: int) -> dict:
@@ -176,50 +222,64 @@ def _mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor
     return logits.masked_fill(pad, -1e30)
 
 
+def _embed(cfg: ArchConfig, params: Params, batch: dict, tokens: str,
+           embeds: str) -> torch.Tensor:
+    """The decoder's input: ``params["embed"]`` at ``batch[tokens]``, or
+    ``batch[embeds]`` itself in the ``embeds`` input mode (the
+    reference's keys: ``tokens``/``embeds`` for a sequence,
+    ``token``/``embed`` for one decode step)."""
+    if cfg.input_mode == "tokens":
+        return params["embed"][batch[tokens].long()]
+    return batch[embeds]
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+
+def _window(cfg: ArchConfig, seq_len: int) -> int:
+    """Cache entries of an attention layer: the window for sliding-window
+    configs, else ``seq_len``."""
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+        else seq_len
+
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                dtype: torch.dtype = torch.float32,
                device: str | torch.device = "cuda") -> Cache:
     """An empty cache: ``len`` (0-d int32) and, for attention, k/v
-    (L, B, W, K, D), W the window for sliding-window configs, else
-    ``seq_len``; for Mamba2, ``conv`` (L, B, CK-1, di+2N) and ``ssm``
-    (L, B, H, P, N)."""
+    (L, B, W, K, D), W from :func:`_window`; for Mamba2, ``conv``
+    (L, B, CK-1, di+2N) and ``ssm`` (L, B, H, P, N); for a hybrid also
+    ``shared_k``/``shared_v`` (A, B, W, K, D), A = :func:`n_shared_apps`."""
     check_supported(cfg)
-    L = cfg.n_layers
+    L, W = cfg.n_layers, _window(cfg, seq_len)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     cache: Cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.layer_pattern == "attn":
-        W = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
-            else seq_len
         cache["k"] = zeros(L, batch, W, cfg.n_kv_heads, cfg.hd)
         cache["v"] = zeros(L, batch, W, cfg.n_kv_heads, cfg.hd)
     else:
         CK, di, N = cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
         cache["conv"] = zeros(L, batch, CK - 1, di + 2 * N)
         cache["ssm"] = zeros(L, batch, cfg.ssm_heads, cfg.ssm_head_dim, N)
+    if cfg.shared_attn_every:
+        A = n_shared_apps(cfg)
+        cache["shared_k"] = zeros(A, batch, W, cfg.n_kv_heads, cfg.hd)
+        cache["shared_v"] = zeros(A, batch, W, cfg.n_kv_heads, cfg.hd)
     return cache
 
 
 # ---------------------------------------------------------------------------
-# prefill and decode
+# the layer loop: forward and prefill
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str
-         ) -> torch.Tensor:
-    """The attention block's second half: MoE or SwiGLU MLP on the
-    normed residual (the MoE aux loss is dropped, as in the reference's
-    serving path)."""
-    xn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    if cfg.is_moe:
-        return moe(lp["moe"], xn, cfg.moe_top_k, cfg.capacity_factor,
-                   backend=backend)[0]
-    return mlp(lp["mlp"], xn)
+def _attn_dims(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                rope_theta=cfg.rope_theta,
+                sliding_window=cfg.sliding_window)
 
 
 def _ssm_dims(cfg: ArchConfig) -> dict:
@@ -228,15 +288,32 @@ def _ssm_dims(cfg: ArchConfig) -> dict:
                 norm_eps=cfg.norm_eps)
 
 
-def prefill(cfg: ArchConfig, params: Params, batch: dict,
-            backend: str = "cuda") -> tuple[torch.Tensor, Cache]:
-    """batch: {'tokens': (B, S)}.  Returns (logits of the last position
-    (B, vocab_padded), a cache holding the prompt's k/v, or the Mamba2
-    conv and ssm states)."""
-    check_backend(backend)
-    x = params["embed"][batch["tokens"].long()]
+def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str
+         ) -> torch.Tensor:
+    """The attention block's second half: MoE or SwiGLU MLP on the
+    normed residual (the MoE aux loss is dropped, as in the reference's
+    forward and serving path)."""
+    xn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        return moe(lp["moe"], xn, cfg.moe_top_k, cfg.capacity_factor,
+                   backend=backend)[0]
+    return mlp(lp["mlp"], xn)
+
+
+def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
+            backend: str, caches: bool) -> tuple[torch.Tensor, Cache]:
+    """x (B, S, d) through every layer and, after each layer the shared
+    block follows, the shared block; returns (the last hidden state,
+    before the final norm; with ``caches``, the prefill's cache entries:
+    k/v (the last W of them, ring-aligned) or the Mamba2 conv and ssm
+    states per layer, and each shared-block site's k/v).
+
+    The reference computes the shared block after every layer and keeps
+    its result where the layer's flag is set (``jnp.where``; its k/v
+    through a 0/1 blend into site ``app_idx``).  Computing it only where
+    the flag is set gives the same values."""
     B, S, _ = x.shape
-    W = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    W = _window(cfg, S)
 
     def keep_window(t):   # (B, S, K, D) -> last W entries, ring-aligned
         if W >= S:
@@ -245,55 +322,116 @@ def prefill(cfg: ArchConfig, params: Params, batch: dict,
         # (S-W+i) % W == (i + S) % W, so roll by S % W
         return torch.roll(t[:, -W:], shifts=S % W, dims=1)
 
+    apply, app_idx = shared_apply_flags(cfg)
+    shared = params.get("shared")
     per_layer: dict[str, list] = {}
+    sites: dict[str, dict[int, torch.Tensor]] = {"shared_k": {},
+                                                 "shared_v": {}}
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
-            h, kv = attention_prefill(
-                lp["attn"], xn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                hd=cfg.hd, rope_theta=cfg.rope_theta,
-                sliding_window=cfg.sliding_window, backend=backend)
+            h, layer_cache = attention_prefill(lp["attn"], xn,
+                                               **_attn_dims(cfg),
+                                               backend=backend)
             x = x + h
             x = x + _ffn(cfg, lp, x, backend)
-            layer_cache = {k: keep_window(t) for k, t in kv.items()}
         else:
             h, layer_cache = mamba2_prefill(lp["mamba"], xn,
                                             **_ssm_dims(cfg),
                                             backend=backend)
             x = x + h
-        for k, t in layer_cache.items():
-            per_layer.setdefault(k, []).append(t)
+        if caches:
+            for k, t in layer_cache.items():
+                per_layer.setdefault(k, []).append(
+                    keep_window(t) if k in ("k", "v") else t)
+        if apply[i]:
+            h, kv = attention_prefill(
+                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+                **_attn_dims(cfg), backend=backend)
+            x = x + h
+            x = x + mlp(shared["mlp"],
+                        rms_norm(x, shared["ln2"], cfg.norm_eps))
+            if caches:
+                for k in ("k", "v"):
+                    sites["shared_" + k][app_idx[i]] = keep_window(kv[k])
+    cache: Cache = {}
+    if caches:
+        cache = {k: torch.stack(ts) for k, ts in per_layer.items()}
+        if shared is not None:
+            cache.update({k: torch.stack([s[a] for a in range(len(s))])
+                          for k, s in sites.items()})
+    return x, cache
+
+
+def forward(cfg: ArchConfig, params: Params, batch: dict,
+            backend: str = "cuda") -> torch.Tensor:
+    """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns the
+    logits (B, S, vocab_padded), padded vocab slots masked; the MoE aux
+    loss is dropped, as in the reference's ``forward``.
+
+    The reference's other arguments have no counterpart yet: ``remat``
+    and ``unroll`` (rematerialisation matters only under a backward
+    pass, which comes with training, ROADMAP Queue 1 item 11; the loop
+    here is Python), ``act_pspec``, ``moe_pspec`` and ``ring`` (sharding
+    and ring attention, item 12)."""
+    check_backend(backend)
+    x = _embed(cfg, params, batch, "tokens", "embeds")
+    x, _ = _layers(cfg, params, x, backend, caches=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mask_padded_vocab(cfg, x @ params["head"])
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
+            backend: str = "cuda") -> torch.Tensor:
+    """Mean next-token cross entropy of :func:`forward`'s logits against
+    ``batch['labels']`` (B, S), in fp32; a 0-d tensor."""
+    logits = forward(cfg, params, batch, backend=backend).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
+def prefill(cfg: ArchConfig, params: Params, batch: dict,
+            backend: str = "cuda") -> tuple[torch.Tensor, Cache]:
+    """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns
+    (logits of the last position (B, vocab_padded), a cache holding the
+    prompt's k/v, or the Mamba2 conv and ssm states, and a hybrid's
+    shared-block k/v at each site)."""
+    check_backend(backend)
+    x = _embed(cfg, params, batch, "tokens", "embeds")
+    S = x.shape[1]
+    x, layer_caches = _layers(cfg, params, x, backend, caches=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, x[:, -1] @ params["head"])
     cache = {"len": torch.full((), S, dtype=torch.int32, device=x.device)}
-    cache.update({k: torch.stack(ts) for k, ts in per_layer.items()})
+    cache.update(layer_caches)
     return logits, cache
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
                 backend: str = "cuda") -> tuple[torch.Tensor, Cache]:
-    """inputs: {'token': (B,) int}.  Returns (logits (B, vocab_padded),
-    the cache one token longer).
+    """inputs: {'token': (B,) int} or {'embed': (B, d)}.  Returns
+    (logits (B, vocab_padded), the cache one token longer).
 
-    The new token's k/v (attention) or the new conv and ssm states
-    (Mamba2) are written into the cache's tensors in place (the
-    reference returns new arrays); the returned cache holds those same
-    tensors and a new ``len``.  The host never reads ``len``: one step
-    queues its work on the card without waiting.
+    The new token's k/v (attention and the shared block's site) or the
+    new conv and ssm states (Mamba2) are written into the cache's
+    tensors in place (the reference returns new arrays); the returned
+    cache holds those same tensors and a new ``len``.  The host never
+    reads ``len``: one step queues its work on the card without waiting.
     """
     check_backend(backend)
-    x = params["embed"][inputs["token"].long()][:, None, :]   # (B, 1, d)
+    x = _embed(cfg, params, inputs, "token", "embed")[:, None, :]  # (B,1,d)
     cache_len = cache["len"]
+    apply, app_idx = shared_apply_flags(cfg)
+    shared = params.get("shared")
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
             h, _, _ = attention_decode(
                 lp["attn"], xn, cache["k"][i], cache["v"][i], cache_len,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-                rope_theta=cfg.rope_theta,
-                sliding_window=cfg.sliding_window, backend=backend)
+                **_attn_dims(cfg), backend=backend)
             x = x + h
             x = x + _ffn(cfg, lp, x, backend)
         else:
@@ -303,6 +441,15 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
             x = x + h
             cache["conv"][i] = new["conv"]
             cache["ssm"][i] = new["ssm"]
+        if apply[i]:
+            ai = app_idx[i]
+            h, _, _ = attention_decode(
+                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+                cache["shared_k"][ai], cache["shared_v"][ai], cache_len,
+                **_attn_dims(cfg), backend=backend)
+            x = x + h
+            x = x + mlp(shared["mlp"],
+                        rms_norm(x, shared["ln2"], cfg.norm_eps))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, (x @ params["head"])[:, 0])
     return logits, {**cache, "len": cache_len + 1}

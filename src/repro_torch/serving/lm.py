@@ -17,32 +17,38 @@ from ..models.transformer.config import ArchConfig
 def prefill_prompt(cfg: ArchConfig, params, prompt: torch.Tensor,
                    n_new: int, backend: str = "cuda"
                    ) -> tuple[torch.Tensor, dict]:
-    """Prefill all but the last prompt token, and give a k/v cache room
-    for the ``n_new`` tokens to come (+1 for the fed-back last prompt
-    token).  A sliding-window cache is a ring buffer and keeps its size,
-    and a Mamba2 cache (conv and ssm states) has none to grow.
+    """Prefill all but the last prompt entry, and give a k/v cache room
+    for the ``n_new`` entries to come (+1 for the fed-back last prompt
+    entry).  ``prompt`` is (B, S) token ids, or (B, S, d) embeddings for
+    a config with ``input_mode == "embeds"``.  The k/v of attention
+    layers and of a hybrid's shared-block sites grow; a sliding-window
+    cache is a ring buffer and keeps its size, and a Mamba2 cache (conv
+    and ssm states) has none to grow.
     Returns (the prefill's last logits, the cache).
     """
-    logits, cache = M.prefill(cfg, params, {"tokens": prompt[:, :-1]},
+    key = "tokens" if cfg.input_mode == "tokens" else "embeds"
+    logits, cache = M.prefill(cfg, params, {key: prompt[:, :-1]},
                               backend=backend)
-    if not cfg.sliding_window and "k" in cache:
-        for key in ("k", "v"):
-            c = cache[key]
-            room = c.new_zeros((*c.shape[:2], n_new + 1, *c.shape[3:]))
-            cache[key] = torch.cat([c, room], dim=2)
+    if not cfg.sliding_window:
+        for key in ("k", "v", "shared_k", "shared_v"):
+            if key in cache:
+                c = cache[key]
+                room = c.new_zeros((*c.shape[:2], n_new + 1, *c.shape[3:]))
+                cache[key] = torch.cat([c, room], dim=2)
     return logits, cache
 
 
 class Decoder:
-    """Decode steps on one cache: ``decoder(token)`` runs one step for
-    ``token`` (B,) int and returns its logits (B, vocab_padded).
+    """Decode steps on one cache: ``decoder(x)`` runs one step for ``x``,
+    (B,) token ids or, for a config with ``input_mode == "embeds"``,
+    (B, d) embeddings, and returns its logits (B, vocab_padded).
 
     ``decode_step`` writes the cache's k/v (or conv and ssm states) in
     place; the decoder advances the cache's length in place too, in a
     ``len`` of its own, so every step reads and writes the same tensors.
     On a CUDA device (:func:`repro_torch.exec.graph.enabled`) and with
     ``capture``, the first call runs the step eagerly (the graph's
-    warm-up) and captures it; every later call copies the token in and
+    warm-up) and captures it; every later call copies its input in and
     replays the graph.  The logits of a replay are the graph's own
     tensor, which the next call overwrites.  No step reads a device
     value on the host.
@@ -54,20 +60,20 @@ class Decoder:
         self.cache = {**cache, "len": cache["len"].clone()}
         self.capture = capture
         self.graph: cuda_graph.Graph | None = None
+        self.key = "token" if cfg.input_mode == "tokens" else "embed"
 
-    def _step(self, token: torch.Tensor) -> torch.Tensor:
+    def _step(self, x: torch.Tensor) -> torch.Tensor:
         logits, cache = M.decode_step(self.cfg, self.params, self.cache,
-                                      {"token": token},
-                                      backend=self.backend)
+                                      {self.key: x}, backend=self.backend)
         self.cache["len"].copy_(cache["len"])
         return logits
 
-    def __call__(self, token: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.graph is not None:
-            return self.graph(token)
-        if not (self.capture and cuda_graph.enabled(token.device)):
-            return self._step(token)
-        self.graph = cuda_graph.Graph(self._step, (token,),
+            return self.graph(x)
+        if not (self.capture and cuda_graph.enabled(x.device)):
+            return self._step(x)
+        self.graph = cuda_graph.Graph(self._step, (x,),
                                       name=f"{self.cfg.name} decode step")
         return self.graph.take_warm()
 
@@ -86,7 +92,15 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
     Sampling, outside the graph, draws from ``generator`` (default: a
     generator on the prompt's device seeded with 0).  The loop never
     reads a token on the host.
+
+    A config with ``input_mode == "embeds"`` has no token loop (each
+    step's input is an embedding from a frontend the repo stubs): it
+    raises ``ValueError``; drive its ``prefill_prompt`` and
+    :class:`Decoder` directly.
     """
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"{cfg.name}: input_mode {cfg.input_mode!r} takes "
+                         f"embeddings, and generate feeds tokens back")
     B, S = prompt.shape
     if S < 2:
         raise ValueError("prompt must have at least 2 tokens")

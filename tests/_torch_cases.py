@@ -307,9 +307,9 @@ def moe_gemm_inputs(e, c, d, f, seed=0):
 
 
 # LM configs of the parity tests: an arch reduced as the serve launcher's
-# --reduced does (2 layers, d_model 128), or explicit ArchConfig fields;
-# "window" swaps in the sliding-window variant; "prefill" sets the
-# prefilled length (default: LM_PROMPT tokens in all)
+# --reduced does (d_model 128, 2 layers or "n_layers"), or explicit
+# ArchConfig fields; "window" swaps in the sliding-window variant;
+# "prefill" sets the prefilled length (default: LM_PROMPT tokens in all)
 LM_CASES = {
     "llama": dict(arch="llama3.2-1b"),
     "qwen_bias": dict(arch="qwen1.5-0.5b"),
@@ -322,6 +322,19 @@ LM_CASES = {
     # 512 prefilled tokens: ssd_chunked takes Q = 256, two chunks, so the
     # inter-chunk scan runs through the model
     "mamba2_q256": dict(arch="mamba2-370m", prefill=512),
+    # the shared block after layers 1 and 3: two sites (A = 2), so a k/v
+    # written to the wrong site shows
+    "zamba2": dict(arch="zamba2-2.7b", n_layers=4),
+    # tests/test_transformer.py's hybrid and embeds families
+    "hybrid": dict(fields=dict(name="hybrid", n_layers=4, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               vocab_size=500, ssm_state=16, ssm_head_dim=16,
+                               layer_pattern="mamba", shared_attn_every=2,
+                               family="hybrid")),
+    "embeds": dict(fields=dict(name="embeds", n_layers=2, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               vocab_size=500, input_mode="embeds")),
+    "musicgen": dict(arch="musicgen-medium"),
 }
 LM_BATCH, LM_PROMPT = 2, 24     # the prompt is longer than the window
 
@@ -332,7 +345,8 @@ def lm_config(configs, case):
     if "fields" in spec:
         cfg = configs.ArchConfig(**spec["fields"])
     else:
-        cfg = configs.get(spec["arch"]).reduced(n_layers=2, d_model=128)
+        cfg = configs.get(spec["arch"]).reduced(
+            n_layers=spec.get("n_layers", 2), d_model=128)
     return cfg.with_sliding_window(spec["window"]) if "window" in spec \
         else cfg
 
@@ -341,6 +355,16 @@ def lm_tokens(cfg, n=LM_PROMPT, batch=LM_BATCH, seed=2):
     """(batch, n) int32 token ids below the config's vocab size."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, (batch, n)).astype(np.int32)
+
+
+def lm_inputs(cfg, n=LM_PROMPT, batch=LM_BATCH, seed=2):
+    """A config's input sequence: :func:`lm_tokens`, or for the
+    ``embeds`` input mode (batch, n, d_model) fp32 standard normal
+    embeddings."""
+    if cfg.input_mode == "tokens":
+        return lm_tokens(cfg, n, batch, seed)
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, n, cfg.d_model)).astype(np.float32)
 
 
 def qkv_biases(cfg, seed=3):

@@ -532,7 +532,7 @@ def test_generate_runs_through_the_ssd_and_moe_kernels(case, cuda):
 
 # -- compiled execution: CUDA graphs of the decode step and of a stage ------
 
-GRAPH_LM_CASES = ["llama", "mamba2", "granite_moe"]
+GRAPH_LM_CASES = ["llama", "mamba2", "granite_moe", "zamba2"]
 
 
 def _kernel_counts():
@@ -610,6 +610,9 @@ def test_graphed_generate_equals_the_eager_loop(case, dtype, cuda):
     L = cfg.n_layers
     if cfg.layer_pattern == "attn":
         assert attn_ops.launch_count("decode_attention") == 2 * L * n_new
+    else:     # one a shared-block site and token
+        assert attn_ops.launch_count("decode_attention") == \
+            2 * M.n_shared_apps(cfg) * n_new
 
 
 def _tiny_stage(dev, name="vgg16"):
