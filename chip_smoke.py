@@ -119,8 +119,28 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    ``Decoder`` steps (48 flash_prefill, 48 x 32 decode_attention),
    fp32 and bf16, its kernels held at the path's shapes, logits against
    ``backend="torch"``, replays bit-equal to eager;
-6. one ``{"kernels": [...]}`` JSON line (five kernels; conv2d_fused's
-   launches are those of phases 4b, 4e and 4f), the card line, and last
+6. training Llama-3.2-1B at full width in fp32 (``[train]`` lines):
+   (a) the ``flash_prefill`` backward kernel (``flash_prefill_bwd``)
+   against its plain version at the path's (4, 512, 8, 4, 64) and at
+   G = 1, D = 80, D = 128, S = 511 and a window of 128, each within
+   1e-4 x max|ref| per output and called twice for the same bits, with
+   its ms, device ms, bound, plain ms and SDPA's backward beside it;
+   (b) ``loss_fn`` and its gradient through the kernels against
+   ``backend="torch"`` on the same weights and ``TokenStream`` batch
+   (batch 4, seq 512): the loss within 1e-5 relative, every parameter
+   leaf with a finite gradient within 1e-3 x max|g| of its leaf, the
+   worst leaf named; (c) five AdamW steps through
+   ``repro_torch.launch.train.main`` with the kernels counted (reset
+   just before, read just after: 32 ``flash_prefill`` a step, 16 of the
+   forward and 16 of remat's recompute, and 16 ``flash_prefill_bwd``),
+   finite losses, step ms from step 2 on, tokens/s and peak memory, then
+   one profiled step (device time by kernel, the backward kernel's
+   share); (d) reduced mamba2 and granite, whose ``ssd_chunk`` and
+   ``moe_gemm`` have no backward kernel yet, refused with
+   ``NotImplementedError`` naming the kernel and its ROADMAP item;
+7. one ``{"kernels": [...]}`` JSON line (six kernels; conv2d_fused's
+   launches are those of phases 4b, 4e and 4f, flash_prefill_bwd's those
+   of the five training steps), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -162,7 +182,10 @@ REPLACES = {"conv2d_fused": "src/repro/kernels/conv2d/conv2d.py:110",
             "decode_attention":
                 "src/repro/kernels/attention/decode_attn.py:71",
             "ssd_chunk": "src/repro/kernels/ssd/ssd_chunk.py:54",
-            "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:48"}
+            "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:48",
+            "flash_prefill_bwd": "none: the reference differentiates "
+                                 "src/repro/models/transformer/layers.py:86 "
+                                 "(blockwise_causal_attention) in XLA"}
 CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
 # LMs, all at full width (src/repro_torch/configs/): each arch's serving
 # path and the kernels it launches.  Llama-3.2-1B's attention kernels
@@ -205,6 +228,18 @@ MT_LOADS = {"saturated": (2.0, 1.5), "churn": (0.65, 3.0)}
 # relative) apart, and that carries through the layers: a logit band
 # only, and no token check
 LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 6: training Llama-3.2-1B (LM_ARCH) in fp32.  The backward kernel
+# per element within BWD_TOL x max|ref| of each output (fp32 sums in
+# another order); the kernel path's loss within LOSS_TOL relative and each
+# gradient leaf within GRAD_TOL x max|g| of backend="torch"'s (every
+# layer's attention, its backward and the embedding's scatter sum in other
+# orders, through 16 layers).  Cases: (q shape (B, S, K, G, D), window):
+# the path's, G = 1, zamba2's D = 80, D = 128, S = 511, a window of 128
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+BWD_TOL, LOSS_TOL, GRAD_TOL = 1e-4, 1e-5, 1e-3
+BWD_CASES = [((4, 512, 8, 4, 64), 0), ((2, 256, 16, 1, 64), 0),
+             ((4, 512, 32, 1, 80), 0), ((2, 512, 8, 4, 128), 0),
+             ((4, 511, 8, 4, 64), 0), ((4, 512, 8, 4, 64), 128)]
 
 
 def fail(msg: str) -> None:
@@ -228,19 +263,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_ms's state: how many windows a call tries before it times with
+# CUDA events instead (one after a call found the profiler blind, so a
+# profiler that stays blind costs one window a call), and how many
+# readings fell back so far.
+_PROFILER = {"tries": 5, "fallbacks": 0}
+
+
 def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
     """Mean device time of ``fn`` a call: the kernels' own durations as
     ``torch.profiler`` records them (host time between launches not
     counted; ``time_ms`` counts it when the host is the slower).  Each
     kernel's mean over the launches the profiler caught, times its
     launches a call (the profiler can miss the first few of a window).
-    Now and then a window records no kernel at all; it is taken again,
-    up to ``tries`` windows, and then the run fails."""
+    Now and then a window records no kernel at all; it is taken again, up
+    to ``tries`` windows.  If none records a kernel, the reading is
+    ``time_ms`` over ``iters`` calls (CUDA events, host gaps included),
+    said so on a line of its own, and later calls try one window only
+    until the profiler records again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    n = min(tries, _PROFILER["tries"])
+    for _ in range(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -251,10 +297,17 @@ def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.count) / 1e3
         if ms > 0:
+            _PROFILER["tries"] = tries
             return ms
         time.sleep(0.1)
-    fail(f"torch.profiler recorded no kernel in {tries} windows of "
-         f"{iters} calls")
+    _PROFILER["tries"] = 1
+    _PROFILER["fallbacks"] += 1
+    ms = time_ms(fn, iters)
+    print(f"[profile] torch.profiler recorded no kernel in {n} window(s) of "
+          f"{iters} calls; this device ms, {ms:.4f}, is CUDA events' time "
+          f"instead (host gaps included; fallback "
+          f"{_PROFILER['fallbacks']} of the run)")
+    return ms
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
@@ -569,8 +622,8 @@ def _kernel_ops() -> dict:
     from repro_torch.kernels.attention import ops as attn
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.ssd import ops as ssd
-    return {"flash_prefill": attn, "decode_attention": attn,
-            "ssd_chunk": ssd, "moe_gemm": moe}
+    return {"flash_prefill": attn, "flash_prefill_bwd": attn,
+            "decode_attention": attn, "ssd_chunk": ssd, "moe_gemm": moe}
 
 
 def _reset_counts() -> None:
@@ -1478,6 +1531,259 @@ def run_embeds(arch: str) -> None:
                              feeds=feeds_of(x))
     del params, inputs
     torch.cuda.empty_cache()
+
+
+# -- training (phase 6) ---------------------------------------------------
+
+def bwd_case(shape, window, seed=0) -> dict:
+    """flash_prefill_bwd (fp32) against flash_prefill_bwd_ref at q shape
+    (B, S, K, G, D): each of dq, dk, dv within BWD_TOL x max|ref| per
+    element, two calls the same bits.  The library call is SDPA's
+    backward (``enable_gqa``, causal or windowed mask): autograd.grad of
+    one forward kept with its graph.  The bound counts the five products
+    of a backward (Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 10 D FLOP a live
+    pair) at the fp32 peak, or q, k, v, o, dO read and dq, dk, dv
+    written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    b, s, k, g, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(shape, generator=gen, device="cuda")
+    kk, vv = (torch.randn((b, s, k, d), generator=gen, device="cuda")
+              for _ in range(2))
+    do = torch.randn(shape, generator=gen, device="cuda")
+    o = ops.flash_prefill(q, kk, vv, sliding_window=window)
+
+    def kernel():
+        return ops.flash_prefill_bwd(q, kk, vv, o, do, sliding_window=window)
+
+    got, again = kernel(), kernel()
+    want = ref.flash_prefill_bwd_ref(q, kk, vv, o, do, window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    errs = [(x - y).abs().max().item() for x, y in zip(got, want)]
+    of_limit = max(e / (BWD_TOL * y.abs().max().item())
+                   for e, y in zip(errs, want))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+
+    qh = q.reshape(b, s, k * g, d).transpose(1, 2).detach().requires_grad_()
+    kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (kk, vv))
+    doh = do.reshape(b, s, k * g, d).transpose(1, 2)
+    mask = None
+    if window:
+        pos = torch.arange(s, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         is_causal=mask is None,
+                                         enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: ref.flash_prefill_bwd_ref(q, kk, vv, o, do,
+                                                         window), iters=5)
+    library_ms = time_ms(sdpa_bwd)
+    dev = (device_ms(kernel), device_ms(sdpa_bwd))
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    nbytes = 4 * 4 * (q.numel() + kk.numel())   # q o do dq, k v dk dv
+    del out
+    return dict(kernel="flash_prefill_bwd", desc=f"q{tuple(shape)} w{window}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE"),
+                shape=tuple(shape), dtype="float32", err=max(errs),
+                of_limit=of_limit, ok=of_limit <= 1.0 and same and finite,
+                per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dev_ms=dev[0], library_dev_ms=dev[1],
+                **bound(10.0 * b * k * g * d * pairs, nbytes, "float32"))
+
+
+def _grads(cfg, params, batch, backend):
+    """(loss, [(leaf path, gradient)]) of ``loss_fn`` on ``backend``
+    (``training.loss_and_grads``: autograd over every leaf, which raises
+    if one has no gradient)."""
+    from repro_torch.training import loss_and_grads, tree
+
+    loss, grads = loss_and_grads(cfg, params, batch, backend=backend)
+    return loss.item(), tree.named_leaves(grads)
+
+
+def _train_step_profile(cfg, batch) -> None:
+    """One profiled train step (after one warm-up step) on fresh weights:
+    device time by kernel, the backward kernel's share, busy share of the
+    step's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import AdamW, make_train_step
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    params, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        print(f"[train] profiled step (torch.profiler): the profiler saw no "
+              f"device time in {wall:.2f} ms wall; shares not measured")
+        del params, state, loss, step
+        return
+    bwd = sum(ms for k, ms, _ in rows if "flash_prefill_bwd" in k)
+    fwd = sum(ms for k, ms, _ in rows
+              if "flash_prefill" in k and "bwd" not in k)
+    print(f"[train] profiled step (torch.profiler): device busy "
+          f"{busy:.2f} of {wall:.2f} ms wall ({100 * busy / wall:.1f}%); "
+          f"flash_prefill_bwd kernels {bwd:.3f} ms ({100 * bwd / busy:.2f}% "
+          f"of the device time), flash_prefill {fwd:.3f} ms "
+          f"({100 * fwd / busy:.2f}%)")
+    top = sorted(rows, key=lambda r: -r[1])
+    for key, ms, n in top[:8] + [r for r in top[8:] if "flash" in r[0]]:
+        print(f"[train]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} "
+              f"{key[:90]}")
+    del params, state, loss, step
+
+
+def run_train() -> dict:
+    """Phase 6, training Llama-3.2-1B at full width in fp32: (a) the
+    backward kernel against its plain version (the path's shape and
+    edges); (b) loss_fn's gradients on the kernel path against
+    backend="torch" on the same weights and batch, every leaf; (c) five
+    steps through ``launch.train.main``, its kernels counted (reset just
+    before, read just after); (d) reduced mamba2 and granite refused by
+    the guard of ``ssd_chunk`` and ``moe_gemm``.  Returns the kernels
+    entry of ``flash_prefill_bwd``, summed over one train step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import model as M
+
+    cfg = configs.get(LM_ARCH)
+    ops = _kernel_ops()
+    attn = ops["flash_prefill"]
+    print(f"[train] {cfg.name}: {_describe(cfg)}, "
+          f"{cfg.param_count() / 1e9:.2f} G params, fp32, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, TokenStream seed 0")
+
+    # -- (a) the backward kernel against its plain version ----------------
+    cases = [bwd_case(shape, w) for shape, w in BWD_CASES]
+    print(f"[train] flash_prefill_bwd: {len(cases)} cases | max_abs_err "
+          f"(worst of dq, dk, dv over {BWD_TOL:g} x max|ref|) | ms kernel / "
+          f"plain / SDPA backward / bound | device ms kernel / SDPA "
+          f"backward")
+    _print_cases(cases)
+    if any(not r["ok"] for r in cases):
+        fail("flash_prefill_bwd disagrees with its plain version, or is "
+             "not bit-repeatable")
+    path = cases[0]
+    path["per_call"] = cfg.n_layers       # one backward a layer a step
+
+    # -- (b) gradients: kernel path against backend="torch" ---------------
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    batch = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                        device="cuda").batches(1)[0]
+    _reset_counts()
+    loss, grads = _grads(cfg, params, batch, "cuda")
+    counted = (attn.launch_count("flash_prefill"),
+               attn.launch_count("flash_prefill_bwd"))
+    loss_t, grads_t = _grads(cfg, params, batch, "torch")
+    del params
+    worst, name = 0.0, ""
+    for (n, g), (_, gt) in zip(grads, grads_t):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"gradient of {n} is not finite")
+        share = ((g - gt).abs().max() / (GRAD_TOL * gt.abs().max())).item()
+        if not share <= worst:
+            worst, name = share, n
+    rel = abs(loss - loss_t) / abs(loss_t)
+    print(f"[train] loss_fn + backward, kernel path (flash_prefill "
+          f"{counted[0]}, flash_prefill_bwd {counted[1]} launches) vs "
+          f"backend=\"torch\": loss {loss:.6f} / {loss_t:.6f} ({rel:.2e} "
+          f"relative, limit {LOSS_TOL:g}); {len(grads)} gradient leaves, all "
+          f"finite; worst leaf {name}: {worst:.3f} of {GRAD_TOL:g} x "
+          f"max|g| of its leaf")
+    del grads, grads_t
+    torch.cuda.empty_cache()
+    if not rel <= LOSS_TOL or not worst <= 1.0:
+        fail("the kernel path's loss or gradients outside the limits")
+    if counted != (2 * cfg.n_layers, cfg.n_layers):
+        fail(f"loss_fn + backward launched flash_prefill {counted[0]} and "
+             f"flash_prefill_bwd {counted[1]} times, want "
+             f"{2 * cfg.n_layers} (remat runs each layer again) and "
+             f"{cfg.n_layers}")
+
+    # -- (c) training through the launcher, counted ------------------------
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rep = launcher.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--seed", "0", "--device", "cuda"])
+    got = {n: ops[n].launch_count(n) for n in ops}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {n: 0 for n in ops}
+    want["flash_prefill"] = TRAIN_STEPS * 2 * cfg.n_layers   # + remat's
+    want["flash_prefill_bwd"] = TRAIN_STEPS * cfg.n_layers
+    print(f"[train] launch.train.main, {TRAIN_STEPS} steps: "
+          + ", ".join(f"{n} launches {got[n]} (want {want[n]})" for n in got))
+    if got != want:
+        fail(f"training launched {got}, want {want}")
+    if len(rep.losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in rep.losses):
+        fail(f"training losses {rep.losses}")
+    later = rep.step_s[1:]
+    step_ms = 1e3 * sum(later) / len(later)
+    print(f"[train] losses {', '.join(f'{x:.4f}' for x in rep.losses)}; "
+          f"step ms {', '.join(f'{1e3 * t:.1f}' for t in rep.step_s)} "
+          f"(host clock, each ending in the loss read); steps 2-"
+          f"{TRAIN_STEPS} {step_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s; peak "
+          f"memory {peak:.2f} GiB")
+    _train_step_profile(cfg, batch)
+    torch.cuda.empty_cache()
+
+    # -- (d) the guard: no backward kernel yet -----------------------------
+    for arch, kernel, item in ((SSM_ARCH, "ssd_chunk", "11c"),
+                               (MOE_ARCH, "moe_gemm", "11b")):
+        small = configs.get(arch).reduced(n_layers=2, d_model=128)
+        p = M.init_params(small, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        b = TokenStream(small.vocab_size, 2, 64, seed=0,
+                        device="cuda").batches(1)[0]
+        try:
+            _grads(small, p, b, "cuda")
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            fail(f"{arch}: a backward through {kernel} was not refused")
+        print(f"[train] {small.name}: loss.backward() refused: {msg}")
+        if kernel not in msg or f"item {item}" not in msg:
+            fail(f"{arch}: the refusal does not name {kernel} and item "
+                 f"{item}")
+
+    t_ops, t_bytes = path["t_ops_ms"], path["t_bytes_ms"]
+    n = path["per_call"]
+    return {"name": "flash_prefill_bwd", "route": "cuda",
+            "source": str(attn.SOURCES["flash_prefill_bwd"].relative_to(ROOT)),
+            "replaces": REPLACES["flash_prefill_bwd"],
+            "launches": got["flash_prefill_bwd"],
+            "max_abs_err": path["err"],
+            **{key: path[key] * n
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def _entry_name(mangled: str) -> str:
@@ -2849,9 +3155,16 @@ def main() -> None:
     print(f"[time] {EMBEDS_ARCH} phases {time.perf_counter() - t0:.1f} s")
     kernels += [entries[n] for n in ("flash_prefill", "decode_attention",
                                      "ssd_chunk", "moe_gemm")]
+    t0 = time.perf_counter()
+    kernels.append(run_train())
+    print(f"[time] training phases {time.perf_counter() - t0:.1f} s")
     print("[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           "computes the intra-chunk SSD; moe_gemm: library_ms is torch.bmm "
-          "on the same (E, C, D) x (E, D, F)")
+          "on the same (E, C, D) x (E, D, F); flash_prefill_bwd: one train "
+          "step's 16 launches at the path's shape, library_ms SDPA's "
+          "backward")
+    print(f"[profile] device-ms readings from CUDA events because "
+          f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
     # -- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": kernels}))

@@ -233,6 +233,22 @@ def scratch(device: torch.device, name: str, numel: int,
     return held
 
 
+def refuse_grad(kernel: str, why: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (``None`` allowed) requires grad: the kernel ``kernel``
+    has no backward, and its output would carry no ``grad_fn``, so a
+    backward through it would leave its inputs' gradients silently
+    missing.  ``why`` says where its backward stands.  Reads host flags
+    only, so it is legal inside a CUDA graph capture.  The wrappers call
+    it on their CUDA path; on the CPU they run their plain versions,
+    which autograd differentiates."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: inputs require grad, and the kernel has no "
+            f"backward on the card: {why}")
+
+
 class Launchers:
     """The ``extern "C"`` launchers ``<name>_launch`` of a set of kernel
     sources, bound with ctypes at first use, each with a count of its

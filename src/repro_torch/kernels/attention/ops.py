@@ -5,6 +5,13 @@ GPU a wrapper launches its kernel or raises; for tensors on the CPU it
 runs the plain version (:mod:`.ref`).  There is no fallback: a dtype,
 layout or head dim the kernel does not take is an error.
 
+:class:`FlashPrefill` is ``flash_prefill`` with a backward,
+``flash_prefill_bwd`` (fp32): the autograd path of the LM's attention.
+On the card the kernels' outputs carry no ``grad_fn``, so each wrapper
+refuses inputs that require grad while grad mode is on
+(``_build.refuse_grad``): ``flash_prefill`` is differentiated through
+:class:`FlashPrefill` only, and ``decode_attention`` serves decoding.
+
 :func:`prefill_plan` is how ``flash_prefill`` runs a shape (rows a
 block, padded head dim, grid, tile order, shared memory), in plain
 Python; the C side derives the same from the shape, and its
@@ -23,11 +30,12 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, library
-from .ref import decode_attention_ref, flash_prefill_ref
+from .._build import DTYPE_CODES, Launchers, library, refuse_grad
+from .ref import decode_attention_ref, flash_prefill_bwd_ref, flash_prefill_ref
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"flash_prefill": CSRC / "flash_prefill.cu",
+           "flash_prefill_bwd": CSRC / "flash_prefill_bwd.cu",
            "decode_attention": CSRC / "decode_attn.cu"}
 #: largest query-group size G (query heads per kv head) a block holds
 MAX_GROUP = 64
@@ -44,10 +52,18 @@ ARGTYPES = {
     # dtype; q, k, v, o; b, s, kh, g, d, window; stream
     "flash_prefill": ([ctypes.c_int] + [ctypes.c_void_p] * 4
                       + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    # dtype; q, k, v, o, do, dq, dk, dv, lse2, delta; b, s, kh, g, d,
+    # window; stream
+    "flash_prefill_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                          + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     # dtype; q, k, v, valid_len, o; b, w, kh, g, d, splits; stream
     "decode_attention": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
+#: what the card says to a differentiated bf16 attention
+BF16_GRAD = ("flash_prefill: no bf16 backward yet (ROADMAP Queue 1, item "
+             "11: training runs in fp32, as the reference's; bf16 training "
+             "is later kernel work)")
 #: decode: the blocks a launch may reach (one on each of an H100's 132
 #: SMs: the S blocks of a cluster must find room in one GPC together, and
 #: grids past one a SM waited for it), the most splits of a (batch, kv
@@ -59,7 +75,9 @@ MIN_SPLIT_ENTRIES = 32
 
 _KERNELS = Launchers(SOURCES, ARGTYPES)
 #: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
-#: start or :func:`reset_launches`
+#: start or :func:`reset_launches`; one ``flash_prefill_bwd`` launch is
+#: its two kernel launches (the rows' stats, then the dK/dV and dQ
+#: blocks) on one stream
 launch_count = _KERNELS.launch_count
 reset_launches = _KERNELS.reset
 
@@ -199,6 +217,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_prefill_ref(q, k, v, sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
+    refuse_grad("flash_prefill", "differentiate it through "
+                "FlashPrefill.apply", q, k, v)
     _check_cuda("flash_prefill", q, k, v)
     B, S, K, G, D = q.shape
     grid = prefill_plan(B, S, K, G, D, q.dtype).grid
@@ -214,6 +234,73 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     v.data_ptr(), o.data_ptr(), B, S, K, G, D,
                     sliding_window)
     return o
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      sliding_window: int = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`flash_prefill` at (q, k, v) for
+    the output gradient ``do``; ``o`` is the forward's output.  q, o, do:
+    (B, S, K, G, D); k/v: (B, S, K, D).  fp32 on the GPU (the rows' LSE
+    and Delta, then the dK/dV and dQ blocks in one launch; no atomics, so
+    two calls give the same bits); :func:`.ref.flash_prefill_bwd_ref` on the CPU."""
+    if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape \
+            or tuple(k.shape) != (*q.shape[:3], q.shape[4]) \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_prefill_bwd: want q, o, do (B,S,K,G,D), "
+                         f"k/v (B,S,K,D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    sliding_window = int(sliding_window)
+    if sliding_window < 0:
+        raise ValueError(f"flash_prefill_bwd: sliding_window "
+                         f"{sliding_window}")
+    if q.device.type == "cpu":
+        return flash_prefill_bwd_ref(q, k, v, o, do, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill_bwd: no kernel for device "
+                         f"{q.device}")
+    if q.dtype != torch.float32:
+        raise NotImplementedError(BF16_GRAD)
+    refuse_grad("flash_prefill_bwd", "no double backward", q, k, v, o, do)
+    _check_cuda("flash_prefill_bwd", q, k, v, o, do)
+    check_aligned("flash_prefill_bwd", q, k, v, o, do)
+    B, S, K, G, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse2 = q.new_empty((B, S, K, G))     # the rows' log-sum-exp, log2 units
+    delta = q.new_empty((B, S, K, G))    # rowsum(do o o)
+    _KERNELS.launch("flash_prefill_bwd", q, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
+                    delta.data_ptr(), B, S, K, G, D, sliding_window)
+    return dq, dk, dv
+
+
+class FlashPrefill(torch.autograd.Function):
+    """:func:`flash_prefill` with its backward, :func:`flash_prefill_bwd`:
+    ``FlashPrefill.apply(q, k, v, sliding_window)``.  Saves q, k, v and
+    the output.  Kernels on CUDA tensors, the plain versions on CPU
+    tensors.  A bf16 input that needs a gradient raises
+    ``NotImplementedError`` (fp32 training only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sliding_window=0):
+        if any(ctx.needs_input_grad[:3]) and q.dtype != torch.float32:
+            raise NotImplementedError(BF16_GRAD)
+        o = flash_prefill(q, k, v, sliding_window=sliding_window)
+        ctx.sliding_window = sliding_window
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, o, do.contiguous(),
+                                       sliding_window=ctx.sliding_window)
+        return dq, dk, dv, None
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,6 +327,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")
+    refuse_grad("decode_attention", "it serves decoding; training runs "
+                "through flash_prefill", q, k, v)
     _check_cuda("decode_attention", q, k, v)
     if valid_len.device != q.device:
         raise ValueError(f"decode_attention: valid_len on "

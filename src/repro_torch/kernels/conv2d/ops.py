@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import bump, count_table, library
+from .._build import bump, count_table, library, refuse_grad
 from .ref import conv2d_fused_ref, out_size
 
 SOURCE = Path(__file__).parent / "csrc" / "conv2d_fused.cu"
@@ -230,6 +230,7 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
         return conv2d_fused_ref(x, w, b, stride=stride, relu=relu, pool=pool)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d: no kernel for device {x.device}")
+    refuse_grad("conv2d_fused", "the CNN path runs inference only", x, w, b)
     _check_cuda(x, w, b, pool)
     hp, wp = out_size(h, wd, kh, kw, stride, pool)
     y = torch.empty((n, hp, wp, co), device=x.device, dtype=x.dtype)

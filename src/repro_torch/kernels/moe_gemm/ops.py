@@ -24,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, bump, count_table, scratch
+from .._build import (DTYPE_CODES, Launchers, bump, count_table, refuse_grad,
+                      scratch)
 from .ref import moe_gemm_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -158,6 +159,8 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm: no kernel for device {x.device}")
+    refuse_grad("moe_gemm", "its backward is ROADMAP Queue 1, item 11b "
+                "(granite and mixtral train on the CPU until then)", x, w)
     v, rows, n_part, n_count = _check_cuda(x, w)
     E, C, D = x.shape
     F = w.shape[2]

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, library
+from .._build import DTYPE_CODES, Launchers, library, refuse_grad
 from .ref import ssd_chunk_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -203,6 +203,9 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_chunk_ref(x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    refuse_grad("ssd_chunk", "its backward is ROADMAP Queue 1, item 11c "
+                "(mamba2 and zamba2 train on the CPU until then)",
+                x, dt, A, Bm, Cm)
     _check_cuda(x, dt, A, Bm, Cm)
     BC, Q, H, P = x.shape
     N = Bm.shape[-1]

@@ -1,1 +1,2 @@
-"""Launchers of the port: the LM serving launcher (``launch/serve.py``)."""
+"""Launchers of the port: LM serving (``launch/serve.py``) and training
+(``launch/train.py``) on one device."""

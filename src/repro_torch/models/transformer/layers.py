@@ -3,7 +3,7 @@ JAX package's ``models/transformer/layers.py``.
 
 * ``attention_prefill`` — causal attention over a whole sequence; its
   core, :func:`blockwise_causal_attention`, is the Hopper
-  ``flash_prefill`` kernel;
+  ``flash_prefill`` kernel, differentiated by ``flash_prefill_bwd``;
 * ``attention_decode`` — one token against a KV cache, through the
   Hopper ``decode_attention`` kernel;
 * ``mlp`` — SwiGLU;
@@ -113,12 +113,14 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, sliding_window: int = 0,
                                backend: str = "cuda") -> torch.Tensor:
     """Flash-style causal attention; q (B, S, K, G, D) with rope applied,
-    k/v (B, S, K, D).  Returns (B, S, K, G, D)."""
+    k/v (B, S, K, D).  Returns (B, S, K, G, D).  ``backend="cuda"`` goes
+    through ``FlashPrefill``, so a backward runs the ``flash_prefill_bwd``
+    kernel; ``"torch"`` is the plain version, differentiated by
+    autograd."""
     if check_backend(backend) == "torch":
         return attn_ref.flash_prefill_ref(q, k, v, sliding_window)
-    return attn_ops.flash_prefill(q.contiguous(), k.contiguous(),
-                                  v.contiguous(),
-                                  sliding_window=sliding_window)
+    return attn_ops.FlashPrefill.apply(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), sliding_window)
 
 
 def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,

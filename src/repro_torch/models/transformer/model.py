@@ -26,7 +26,11 @@ captures into one CUDA graph.
 ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take
 ``backend="cuda"`` (the default: the Hopper kernels, or their plain
 versions on CPU tensors) or ``backend="torch"`` (the plain versions on
-any device).
+any device).  ``loss_fn`` is differentiable on both: attention through
+``FlashPrefill`` and its backward kernel on the card; ``moe_gemm`` and
+``ssd_chunk`` have no backward kernel yet and refuse inputs that require
+grad there (ROADMAP Queue 1, items 11b and 11c), while on the CPU every
+family trains through the plain versions.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import (AttnParams, MambaParams, MlpParams, MoeParams,
@@ -206,11 +211,22 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
     return p
 
 
-def _layer(params: Params, i: int) -> dict:
-    """Layer ``i``'s slice of ``params["layers"]`` (same keys)."""
-    return {k: type(v)(*(None if t is None else t[i] for t in v))
-            if k in GROUPS else v[i]
-            for k, v in params["layers"].items()}
+def _unbind_layers(params: Params) -> list[dict]:
+    """Every layer's slice of ``params["layers"]`` (same keys), from one
+    ``unbind`` of each stacked leaf.  Under autograd a stacked leaf's
+    gradient is then one stack of its layers' gradients; indexing it
+    layer by layer makes each layer's gradient a zero-padded tensor of
+    the whole stack, and L of them are added."""
+    out: list[dict] = [{} for _ in range(params["layers"]["ln1"].shape[0])]
+    for k, v in params["layers"].items():
+        if k in GROUPS:
+            cols = [None if t is None else t.unbind(0) for t in v]
+            for i, lp in enumerate(out):
+                lp[k] = type(v)(*(None if c is None else c[i] for c in cols))
+        else:
+            for lp, t in zip(out, v.unbind(0)):
+                lp[k] = t
+    return out
 
 
 def _mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor
@@ -301,7 +317,8 @@ def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str
 
 
 def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
-            backend: str, caches: bool) -> tuple[torch.Tensor, Cache]:
+            backend: str, caches: bool, remat: bool = False
+            ) -> tuple[torch.Tensor, Cache]:
     """x (B, S, d) through every layer and, after each layer the shared
     block follows, the shared block; returns (the last hidden state,
     before the final norm; with ``caches``, the prefill's cache entries:
@@ -311,7 +328,13 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
     The reference computes the shared block after every layer and keeps
     its result where the layer's flag is set (``jnp.where``; its k/v
     through a 0/1 blend into site ``app_idx``).  Computing it only where
-    the flag is set gives the same values."""
+    the flag is set gives the same values.
+
+    ``remat`` (without ``caches``, with grad mode on): each layer and
+    each shared-block application runs under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant), the
+    counterpart of the reference's ``jax.checkpoint(body)``: only its
+    input is kept, and the backward runs it again."""
     B, S, _ = x.shape
     W = _window(cfg, S)
 
@@ -327,31 +350,43 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
     per_layer: dict[str, list] = {}
     sites: dict[str, dict[int, torch.Tensor]] = {"shared_k": {},
                                                  "shared_v": {}}
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+
+    def layer(x, lp):
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
             h, layer_cache = attention_prefill(lp["attn"], xn,
                                                **_attn_dims(cfg),
                                                backend=backend)
             x = x + h
-            x = x + _ffn(cfg, lp, x, backend)
-        else:
-            h, layer_cache = mamba2_prefill(lp["mamba"], xn,
-                                            **_ssm_dims(cfg),
-                                            backend=backend)
-            x = x + h
+            return x + _ffn(cfg, lp, x, backend), layer_cache
+        h, layer_cache = mamba2_prefill(lp["mamba"], xn, **_ssm_dims(cfg),
+                                        backend=backend)
+        return x + h, layer_cache
+
+    def shared_block(x):
+        h, kv = attention_prefill(
+            shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+            **_attn_dims(cfg), backend=backend)
+        x = x + h
+        return x + mlp(shared["mlp"],
+                       rms_norm(x, shared["ln2"], cfg.norm_eps)), kv
+
+    def run(fn, *args):
+        """fn(*args)[0] under checkpoint where ``remat`` asks for it,
+        else fn(*args) whole."""
+        if remat and not caches and torch.is_grad_enabled():
+            return checkpoint(lambda *a: fn(*a)[0], *args,
+                              use_reentrant=False), None
+        return fn(*args)
+
+    for i, lp in enumerate(_unbind_layers(params)):
+        x, layer_cache = run(layer, x, lp)
         if caches:
             for k, t in layer_cache.items():
                 per_layer.setdefault(k, []).append(
                     keep_window(t) if k in ("k", "v") else t)
         if apply[i]:
-            h, kv = attention_prefill(
-                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
-                **_attn_dims(cfg), backend=backend)
-            x = x + h
-            x = x + mlp(shared["mlp"],
-                        rms_norm(x, shared["ln2"], cfg.norm_eps))
+            x, kv = run(shared_block, x)
             if caches:
                 for k in ("k", "v"):
                     sites["shared_" + k][app_idx[i]] = keep_window(kv[k])
@@ -365,28 +400,34 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
 
 def forward(cfg: ArchConfig, params: Params, batch: dict,
+            remat: bool = True, unroll: bool = False,
             backend: str = "cuda") -> torch.Tensor:
     """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns the
     logits (B, S, vocab_padded), padded vocab slots masked; the MoE aux
     loss is dropped, as in the reference's ``forward``.
 
-    The reference's other arguments have no counterpart yet: ``remat``
-    and ``unroll`` (rematerialisation matters only under a backward
-    pass, which comes with training, ROADMAP Queue 1 item 11; the loop
-    here is Python), ``act_pspec``, ``moe_pspec`` and ``ring`` (sharding
-    and ring attention, item 12)."""
+    ``remat`` (the reference's default, True): under grad mode, each
+    layer and each shared-block application keeps only its input and is
+    run again in the backward (``torch.utils.checkpoint``, the
+    counterpart of ``jax.checkpoint``); it changes no value.  ``unroll``
+    is accepted for the reference's signature and does nothing: the
+    layers are a Python loop, not a ``lax.scan``.  The reference's
+    ``act_pspec``, ``moe_pspec`` and ``ring`` (sharding and ring
+    attention) have no counterpart yet (ROADMAP Queue 1, item 12)."""
     check_backend(backend)
     x = _embed(cfg, params, batch, "tokens", "embeds")
-    x, _ = _layers(cfg, params, x, backend, caches=False)
+    x, _ = _layers(cfg, params, x, backend, caches=False, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _mask_padded_vocab(cfg, x @ params["head"])
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
-            backend: str = "cuda") -> torch.Tensor:
-    """Mean next-token cross entropy of :func:`forward`'s logits against
-    ``batch['labels']`` (B, S), in fp32; a 0-d tensor."""
-    logits = forward(cfg, params, batch, backend=backend).float()
+            unroll: bool = False, backend: str = "cuda") -> torch.Tensor:
+    """Mean next-token cross entropy of :func:`forward`'s logits (with
+    remat, as the reference's) against ``batch['labels']`` (B, S), in
+    fp32; a 0-d tensor.  ``unroll`` does nothing (see :func:`forward`)."""
+    logits = forward(cfg, params, batch, unroll=unroll,
+                     backend=backend).float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return (lse - picked).mean()
@@ -425,8 +466,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
     cache_len = cache["len"]
     apply, app_idx = shared_apply_flags(cfg)
     shared = params.get("shared")
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_unbind_layers(params)):
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
             h, _, _ = attention_decode(

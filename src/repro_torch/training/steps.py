@@ -1,0 +1,53 @@
+"""Train and eval steps of the decoder substrate (the reference's
+``jax.value_and_grad`` step, with ``torch.autograd``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.transformer.config import ArchConfig
+from ..models.transformer.model import loss_fn
+from . import tree
+from .optim import AdamW, AdamWState
+
+
+def loss_and_grads(cfg: ArchConfig, params, batch, unroll: bool = False,
+                   backend: str = "cuda"):
+    """(loss, grads): ``loss_fn`` at ``params`` (remat on) and its
+    gradient, a tree of ``params``' structure (the reference's
+    ``jax.value_and_grad``).  Every leaf reaches the loss in every
+    family; autograd raises if one does not.  The params passed in are
+    not changed."""
+    live = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
+    loss = loss_fn(cfg, tree.unflatten(params, live), batch, unroll=unroll,
+                   backend=backend)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), tree.unflatten(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamW, unroll: bool = False,
+                    act_pspec=None, moe_pspec=None, backend: str = "cuda"):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    loss): :func:`loss_and_grads` (the loss a 0-d tensor, not read on
+    the host), then ``opt.update``.  The params passed in are not
+    changed.  ``act_pspec``/``moe_pspec`` (sharding) are not ported
+    yet (ROADMAP Queue 1, item 12) and must be ``None``."""
+    if act_pspec is not None or moe_pspec is not None:
+        raise NotImplementedError("act_pspec / moe_pspec: sharded training "
+                                  "is ROADMAP Queue 1, item 12")
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, grads = loss_and_grads(cfg, params, batch, unroll=unroll,
+                                     backend=backend)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig, backend: str = "cuda"):
+    """Returns eval_step(params, batch) -> the loss, without gradients."""
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return loss_fn(cfg, params, batch, backend=backend)
+    return eval_step

@@ -36,6 +36,9 @@ from repro_torch.models.transformer import model as M
 from repro_torch.pipeline import StageExecutor
 from repro_torch.runtime import PipelineRuntime, RuntimeConfig
 from repro_torch.serving import lm
+from repro_torch.data.pipeline import TokenStream
+from repro_torch.launch import train as train_launcher
+from repro_torch.training import loss_and_grads, tree
 
 from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           DECODE_CASES, DECODE_SPLIT_CASES, MOE_GEMM_CASES,
@@ -905,3 +908,131 @@ def test_runtime_refuses_a_missing_card(monkeypatch):
     rt = PipelineRuntime(model=m, params=dep.params, cluster=dep.cluster,
                          device="cpu")
     assert rt.device.type == "cpu"
+
+
+# -- training: the prefill's backward kernel and the grad guard ------------
+
+def _bwd_inputs(case, dev):
+    b, s, k, g, d, w = PREFILL_CASES[case]
+    q, kk, vv = (_t(a, dev) for a in prefill_inputs(b, s, k, g, d))
+    do = torch.tensor(np.random.default_rng(9).standard_normal(q.shape),
+                      dtype=torch.float32, device=dev)
+    return q, kk, vv, do, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_flash_prefill_bwd_kernel_matches_plain_version(case, cuda):
+    """dq, dk, dv of the backward kernel (one counted launch: its stats
+    kernel, then its dK/dV and dQ blocks)
+    within 1e-4 x max|ref| of ``flash_prefill_bwd_ref``, and the same
+    bits on a second call (no atomics)."""
+    q, kk, vv, do, w = _bwd_inputs(case, cuda)
+    o = attn_ops.flash_prefill(q, kk, vv, sliding_window=w)
+    before = attn_ops.launch_count("flash_prefill_bwd")
+    got = attn_ops.flash_prefill_bwd(q, kk, vv, o, do, sliding_window=w)
+    again = attn_ops.flash_prefill_bwd(q, kk, vv, o, do, sliding_window=w)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count("flash_prefill_bwd") == before + 2
+    want = attn_ref.flash_prefill_bwd_ref(q, kk, vv, o, do, w)
+    for x, y, z in zip(got, again, want):
+        assert x.shape == z.shape and x.dtype == torch.float32
+        assert torch.equal(x, y)
+        assert (x - z).abs().max().item() <= 1e-4 * z.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_prefill_function_differentiates_through_the_kernels(cuda):
+    """``FlashPrefill.apply`` on the card: the forward kernel, and in the
+    backward the backward kernel (its gradients bit-equal to a direct
+    call), within 1e-4 x max|g| of plain autograd."""
+    q, kk, vv, do, w = _bwd_inputs("s200_g4_w32", cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, kk, vv)]
+    before = (attn_ops.launch_count("flash_prefill"),
+              attn_ops.launch_count("flash_prefill_bwd"))
+    out = attn_ops.FlashPrefill.apply(*leaves, w)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (attn_ops.launch_count("flash_prefill"),
+            attn_ops.launch_count("flash_prefill_bwd")) == \
+        (before[0] + 1, before[1] + 1)
+    direct = attn_ops.flash_prefill_bwd(q, kk, vv, out.detach(), do,
+                                        sliding_window=w)
+    plain = [t.clone().requires_grad_() for t in (q, kk, vv)]
+    want = torch.autograd.grad(attn_ref.flash_prefill_ref(*plain, w),
+                               plain, do)
+    for g, d, p in zip(got, direct, want):
+        assert torch.equal(g, d)
+        assert (g - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
+    """On the card a kernel's output has no grad_fn, so each wrapper
+    raises on an input that requires grad while grad mode is on (the
+    message names the kernel and where its backward stands), and runs
+    under ``torch.no_grad``; a bf16 prefill that needs a gradient is
+    refused too (fp32 training only)."""
+    q, kk, vv, _, _ = _bwd_inputs("s64", cuda)
+    x, dt, A, Bm, Cm = (_t(a, cuda) for a in ssd_inputs(2, 64, 2, 16, 16))
+    xe, we = (_t(a, cuda) for a in moe_gemm_inputs(2, 8, 16, 16))
+    xc, wc, bc = (_t(a, cuda) for a in conv_inputs((1, 9, 11, 8),
+                                                   (3, 3, 8, 16), True))
+    vl = torch.tensor(8, dtype=torch.int32, device=cuda)
+    calls = {
+        "flash_prefill": lambda g: attn_ops.flash_prefill(g, kk, vv),
+        "decode_attention": lambda g: attn_ops.decode_attention(
+            g[:, 0].contiguous(), kk, vv, vl),
+        "ssd_chunk.*item 11c": lambda g: ssd_ops.ssd_chunk(x, dt, A, g, Cm),
+        "moe_gemm.*item 11b": lambda g: moe_ops.moe_gemm(xe, g),
+        "conv2d_fused": lambda g: ops.conv2d_fused(xc, g, bc),
+    }
+    marked = {"flash_prefill": q, "decode_attention": q,
+              "ssd_chunk.*item 11c": Bm, "moe_gemm.*item 11b": we,
+              "conv2d_fused": wc}
+    for name, call in calls.items():
+        g = marked[name].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match=name):
+            call(g)
+        with torch.no_grad():
+            call(g)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        attn_ops.FlashPrefill.apply(q.bfloat16().requires_grad_(),
+                                    kk.bfloat16(), vv.bfloat16(), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "musicgen-medium"])
+def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
+    """Reduced Llama (tokens) and musicgen (the ``embeds`` mode) on the
+    card: ``loss_and_grads`` through the kernels (remat: two
+    flash_prefill a layer, one flash_prefill_bwd) against
+    ``backend="torch"``: loss within 1e-5 relative, each leaf within
+    1e-3 x max|g| of its leaf."""
+    cfg = configs.get(arch).reduced(n_layers=2, d_model=128)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=cuda)
+    batch = TokenStream(cfg.vocab_size, 2, 96, device=str(cuda)).batches(1)[0]
+    if cfg.input_mode == "embeds":
+        rng = np.random.default_rng(4)
+        batch = {"embeds": _t(rng.standard_normal(
+            (2, 96, cfg.d_model)).astype(np.float32), cuda),
+            "labels": batch["labels"]}
+    attn_ops.reset_launches()
+    loss, grads = loss_and_grads(cfg, params, batch)
+    assert (attn_ops.launch_count("flash_prefill"),
+            attn_ops.launch_count("flash_prefill_bwd")) == (4, 2)
+    loss_t, grads_t = loss_and_grads(cfg, params, batch, backend="torch")
+    assert abs(loss.item() - loss_t.item()) <= 1e-5 * abs(loss_t.item())
+    for g, gt in zip(tree.leaves(grads), tree.leaves(grads_t)):
+        assert torch.isfinite(g).all()
+        assert (g - gt).abs().max().item() <= 1e-3 * gt.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_train_launcher_trains_on_the_card(cuda):
+    attn_ops.reset_launches()
+    rep = train_launcher.main(["--reduced", "--steps", "2", "--batch", "2",
+                               "--seq", "64"])
+    assert len(rep.losses) == 2 and all(np.isfinite(rep.losses))
+    assert (attn_ops.launch_count("flash_prefill"),
+            attn_ops.launch_count("flash_prefill_bwd")) == (8, 4)
