@@ -61,6 +61,17 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    frame's stage outputs unchanged by later replays, virtual time equal
    to the timing-only run's, graphs captured under each plan, memory
    before and after the churn, wall ms/frame beside ``dep.run``'s.
+   Then the abort run, traced: one device of stage 0 leaves in the
+   middle of a coalesced batch (the first such ``stage.compute`` span
+   once a third of the frames have arrived, from a traced timing-only
+   run of the same arrivals; else a single-frame run of any stage), so
+   the runtime aborts the batch and restarts its frames under the new
+   plan.  ``[runtime]`` lines: what was aborted (stage, batch size,
+   frame ids) and each frame re-run under the new plan, restarts equal
+   to the timing-only run's and at least 1, 24 completed, 0 dropped, one
+   ``leave`` re-plan, the conv launches of the run, the logits, virtual
+   time, graphs and memory as in the first run, wall ms/frame; the
+   run's trace is saved for 4g.
    4e: ``Deployment.fleet`` on the same deployment, one worker per stage.
    ``[dist]`` lines: ``repro_torch.dist.validate`` in thread mode over
    memory links, 8 frames bit-identical to the in-process runner and 0
@@ -87,7 +98,18 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    equal to the same scenario timing-only, every served frame's logits
    within the limit of its tenant's ``"torch"`` forward, the throughput
    ratio against time-sliced serving and the churn recovery (printed,
-   not held at full width), conv launches and wall time;
+   not held at full width), conv launches and wall time.
+   4g: ``[tools]`` lines: ``repro_torch.tools.plan.main`` in this
+   process plans phase 4's configuration (VGG16 at full width on the 8
+   Pis), saves it (the artifact equal to ``repro_torch.compile``'s with
+   the same specs, the planner's wall times zeroed), then ``--load
+   --validate --execute`` with the conv launches counted (reset just
+   before, read just after); ``python -m repro_torch.tools.plan --load
+   ... --validate --execute`` as a command with no ``--device`` (runs
+   on the card: rc 0 and its "execute: ... match" line); ``python -m
+   repro_torch.tools.trace`` on the abort run's trace: ``--validate``
+   rc 0, then the summary (24 frames, one per-device row for each
+   device that computed, the bubble fraction in [0, 1));
 5. the LM paths: ``repro_torch.serving.lm.generate`` at full width with
    random weights from a seed, batch 4, a 512-token prompt, 32 new
    greedy tokens, once in fp32 and once in bf16, for Llama-3.2-1B
@@ -139,8 +161,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    ``moe_gemm`` have no backward kernel yet, refused with
    ``NotImplementedError`` naming the kernel and its ROADMAP item;
 7. one ``{"kernels": [...]}`` JSON line (six kernels; conv2d_fused's
-   launches are those of phases 4b, 4e and 4f, flash_prefill_bwd's those
-   of the five training steps), the card line, and last
+   launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
+   in-process plan CLI, flash_prefill_bwd's those of the five training
+   steps), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -2232,40 +2255,26 @@ def _held_bytes(frames, saved) -> int:
                 for t in tensors}.values())
 
 
-def run_cnn_runtime(model, dep) -> None:
-    """Phase 4d: ``Deployment.runtime`` with real compute on the card,
-    across a churn-triggered re-plan.  ``RUNTIME_FRAMES`` seeded frames
-    arrive at half the plan's period, so stage 0 queues and coalesces
-    batches of up to ``RUNTIME_BATCH``; the plan's slowest device leaves
-    once a third of them have arrived.  Every stage runs through its
-    compiled stage (CUDA graphs, the conv kernel)."""
+def _runtime_run(dep, spec, churn, frames, gap) -> dict:
+    """One real-compute run of ``dep.runtime(spec, churn=churn)`` on
+    ``frames`` arriving every ``gap``, with a spy around each stage's
+    real compute: what ran (start time, plan, stage, batch, frame ids),
+    each frame's stage outputs as they were right after their stage ran,
+    the graphs captured and the memory at that moment.  The conv
+    kernel's launches are reset just before the run and read just
+    after, and so are the refills of frames that resumed after the
+    re-plan (the deployment's metrics registry keeps counting across
+    runs)."""
     import torch
-    from repro_torch.api.specs import DeploySpec
     from repro_torch.exec import graph
     from repro_torch.kernels.conv2d import ops
-    from repro_torch.runtime import DeviceLeave
-
-    n = RUNTIME_FRAMES
-    gap = dep.period / 2
-    devices = {d.name: d for st in dep.pipeline.stages for d in st.devices}
-    slow = min(devices.values(), key=lambda d: (d.capacity, d.name))
-    # between the arrivals of frames n/3 - 1 and n/3
-    t_leave = (n // 3 - 0.5) * gap
-    spec = DeploySpec(seed=0, max_batch=RUNTIME_BATCH)
-    churn = [DeviceLeave(t_leave, slow.name)]
-    w, h = model.input_size
-    g = torch.Generator(device=dep.device).manual_seed(2)
-    frames = list(torch.randn((n, 1, h, w, model.in_channels), generator=g,
-                              device=dep.device))
-    sink = model.graph.sinks()[0]
 
     rt = dep.runtime(spec, churn=churn)
+    fills = [rt.metrics.value(k) for k in ("runtime.boundary_fills",
+                                           "runtime.boundary_fill_layers")]
     if rt.model is None or rt.device != dep.device:
         fail("dep.runtime did not build a real-compute runtime on the "
              "deployment's device")
-    # a spy around each stage's real compute: what ran (plan, stage,
-    # batch), each frame's stage outputs as they were right after their
-    # stage ran, the graphs captured and the memory at that moment
     runs, saved, latest, mem = [], {}, {}, []
     run_batch = rt._exec_batch
 
@@ -2273,7 +2282,7 @@ def run_cnn_runtime(model, dep) -> None:
         run_batch(t, st, batch)
         plan = len(rt.replans)
         runs.append((plan, st.index, len(batch),
-                     [fr.fid for fr in batch.frames]))
+                     [fr.fid for fr in batch.frames], t))
         for fr in batch.frames:
             outs = {k: fr.produced[k].clone() for k in st.executor.sinks}
             saved[(plan, st.index, fr.fid)] = outs
@@ -2293,45 +2302,34 @@ def run_cnn_runtime(model, dep) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_count()
-    captured = graph.captures() - cap0
+    sizes = {}
+    for plan, si, b, _, _ in runs:
+        sizes.setdefault((plan, si), set()).add(b)
+    fills = [rt.metrics.value(k) - v for k, v in zip(
+        ("runtime.boundary_fills", "runtime.boundary_fill_layers"), fills)]
+    return dict(rt=rt, rep=rep, runs=runs, saved=saved, latest=latest,
+                mem=mem, cap0=cap0, captured=graph.captures() - cap0,
+                wall=wall, launches=launches, sizes=sizes, fills=fills)
 
-    # -- the run -------------------------------------------------------
-    print(f"[runtime] {n} frames every {gap * 1e3:.3f} ms (half the plan's "
-          f"period), max_batch {RUNTIME_BATCH}, {slow.name} leaves at "
-          f"{t_leave * 1e3:.3f} ms: completed {rep.completed}, dropped "
-          f"{rep.dropped}, restarts {rep.restarts}, re-plans "
-          + ", ".join(f"{r.reason} at {r.time * 1e3:.3f} ms (period "
-                      f"{r.old_period * 1e3:.3f} -> {r.new_period * 1e3:.3f}"
-                      f" ms, {r.n_devices} devices)" for r in rep.replans))
+
+def _runtime_completed(r, n) -> None:
+    rep = r["rep"]
     if rep.completed != n or rep.dropped != 0:
         fail(f"runtime completed {rep.completed} of {n}, dropped "
              f"{rep.dropped}")
-    if [r.reason for r in rep.replans] != ["leave"]:
-        fail(f"runtime re-plans {[r.reason for r in rep.replans]}, want one "
-             f"'leave'")
-    sizes = {}
-    for plan, si, b, _ in runs:
-        sizes.setdefault((plan, si), set()).add(b)
-    print(f"[runtime] stage runs: {len(runs)} ({sum(1 for r in runs if r[2] > 1)}"
-          f" of them batches of 2-{RUNTIME_BATCH} frames); per (plan, stage) "
-          f"the batch sizes: " + "; ".join(
-              f"{p}/{si} {sorted(b)}" for (p, si), b in sorted(sizes.items())))
-    print(f"[runtime] conv2d_fused launches {launches} in the run (reset "
-          f"just before, read just after; stages replayed from their CUDA "
-          f"graphs); frames that resumed after the re-plan needing a node "
-          f"an old stage kept inside, computed from the tensors they kept: "
-          f"{rt.metrics.value('runtime.boundary_fills'):.0f}, "
-          f"{rt.metrics.value('runtime.boundary_fill_layers'):.0f} layers "
-          f"that virtual time does not charge")
-    if launches <= 0:
+    if [x.reason for x in rep.replans] != ["leave"]:
+        fail(f"runtime re-plans {[x.reason for x in rep.replans]}, want "
+             f"one 'leave'")
+    if r["launches"] <= 0:
         fail("the runtime launched no conv kernel")
-    if not any(b > 1 for _, _, b, _ in runs):
-        fail("stage 0 coalesced no batch")
 
-    # -- the outputs ---------------------------------------------------
-    with graph.eager():
-        ref = model.forward(dep.params, torch.cat(frames),
-                            backend="torch")[sink]
+
+def _runtime_logits(r, ref, n, sink) -> None:
+    """Every frame's logits: shape, finite, and within LOGIT_TOL x
+    max |logit| of ``ref`` (the ``"torch"`` backend's monolithic
+    forward)."""
+    import torch
+    rep = r["rep"]
     scale = ref.abs().max().item()
     tol = LOGIT_TOL * scale
     worst = 0.0
@@ -2350,6 +2348,124 @@ def run_cnn_runtime(model, dep) -> None:
     if worst > tol:
         fail("runtime logits disagree with the torch backend")
 
+
+def _runtime_kept(r) -> None:
+    """Each frame's stage outputs, saved right after its stage last ran,
+    are unchanged at the end of the run."""
+    import torch
+    latest, frames = r["latest"], r["rt"]._all_frames
+    changed = [k for k, v in latest.items()
+               if not torch.equal(frames[k[0]].produced[k[1]], v)]
+    print(f"[runtime] each frame's stage outputs, saved right after the "
+          f"stage ran: {len(latest) - len(changed)} of {len(latest)} "
+          f"unchanged at the end of the run")
+    if changed:
+        fail(f"runtime outputs changed after later replays: {changed[:4]}")
+
+
+def _runtime_virtual(rep, timing) -> None:
+    same_time = (timing.completions == rep.completions
+                 and timing.makespan == rep.makespan
+                 and [(x.time, x.reason, x.old_period, x.new_period)
+                      for x in timing.replans]
+                 == [(x.time, x.reason, x.old_period, x.new_period)
+                     for x in rep.replans])
+    print(f"[runtime] virtual time against the timing-only run: completions, "
+          f"makespan ({rep.makespan * 1e3:.3f} ms) and re-plan periods "
+          f"{'equal' if same_time else 'DIFFER'}")
+    if not same_time:
+        fail("real compute moved the runtime's virtual time")
+
+
+def _runtime_graphs_memory(r) -> None:
+    """Graphs captured under each plan (no more than the forms run), and
+    the memory outside the frames: growth over the stage runs after the
+    last capture within RUNTIME_MEM_SLACK."""
+    mem, sizes, cap0 = r["mem"], r["sizes"], r["cap0"]
+    before = [m_ for m_ in mem if m_[0] == 0]
+    cap_before = before[-1][1] - cap0
+    cap_after = r["captured"] - cap_before
+    print(f"[runtime] CUDA graphs captured: {cap_before} under the first "
+          f"plan, {cap_after} under the re-plan ({len(sizes)} (plan, stage) "
+          f"pairs, {sum(len(b) for b in sizes.values())} (plan, stage, batch "
+          f"size) forms)")
+    if cap_before + cap_after > sum(len(b) for b in sizes.values()):
+        fail("the runtime captured more graphs than it ran forms")
+    settled = [m_ for m_ in mem if m_[1] == cap0 + r["captured"]]
+    grown = max(m_[2] for m_ in settled) - settled[0][2]
+    print(f"[runtime] max_memory_allocated {before[-1][3] / 2**20:.1f} MiB "
+          f"before the churn, {mem[-1][3] / 2**20:.1f} MiB at the end; "
+          f"allocated outside the frames' inputs and outputs: "
+          f"{before[-1][2] / 2**20:.1f} MiB before the churn, "
+          f"{mem[-1][2] / 2**20:.1f} MiB at the end, grown "
+          f"{grown / 2**20:.2f} MiB over the last {len(settled)} stage runs "
+          f"(no capture among them; limit {RUNTIME_MEM_SLACK / 2**20:.0f} "
+          f"MiB)")
+    if grown > RUNTIME_MEM_SLACK:
+        fail("runtime memory grows with the frames")
+
+
+def run_cnn_runtime(model, dep) -> tuple[int, str]:
+    """Phase 4d: ``Deployment.runtime`` with real compute on the card,
+    across a churn-triggered re-plan.  ``RUNTIME_FRAMES`` seeded frames
+    arrive at half the plan's period, so stage 0 queues and coalesces
+    batches of up to ``RUNTIME_BATCH``; the plan's slowest device leaves
+    once a third of them have arrived.  Every stage runs through its
+    compiled stage (CUDA graphs, the conv kernel).  Then the abort run
+    (``run_cnn_abort``).  Returns the abort run's conv launches and the
+    path of its saved trace."""
+    import torch
+    from repro_torch.api.specs import DeploySpec
+    from repro_torch.exec import graph
+    from repro_torch.exec.cache import clear_cache
+    from repro_torch.runtime import DeviceLeave
+
+    n = RUNTIME_FRAMES
+    gap = dep.period / 2
+    devices = {d.name: d for st in dep.pipeline.stages for d in st.devices}
+    slow = min(devices.values(), key=lambda d: (d.capacity, d.name))
+    # between the arrivals of frames n/3 - 1 and n/3
+    t_leave = (n // 3 - 0.5) * gap
+    spec = DeploySpec(seed=0, max_batch=RUNTIME_BATCH)
+    churn = [DeviceLeave(t_leave, slow.name)]
+    w, h = model.input_size
+    g = torch.Generator(device=dep.device).manual_seed(2)
+    frames = list(torch.randn((n, 1, h, w, model.in_channels), generator=g,
+                              device=dep.device))
+    sink = model.graph.sinks()[0]
+
+    r = _runtime_run(dep, spec, churn, frames, gap)
+    rt, rep, runs, saved = r["rt"], r["rep"], r["runs"], r["saved"]
+
+    # -- the run -------------------------------------------------------
+    print(f"[runtime] {n} frames every {gap * 1e3:.3f} ms (half the plan's "
+          f"period), max_batch {RUNTIME_BATCH}, {slow.name} leaves at "
+          f"{t_leave * 1e3:.3f} ms: completed {rep.completed}, dropped "
+          f"{rep.dropped}, restarts {rep.restarts}, re-plans "
+          + ", ".join(f"{x.reason} at {x.time * 1e3:.3f} ms (period "
+                      f"{x.old_period * 1e3:.3f} -> {x.new_period * 1e3:.3f}"
+                      f" ms, {x.n_devices} devices)" for x in rep.replans))
+    _runtime_completed(r, n)
+    sizes = r["sizes"]
+    print(f"[runtime] stage runs: {len(runs)} ({sum(1 for x in runs if x[2] > 1)}"
+          f" of them batches of 2-{RUNTIME_BATCH} frames); per (plan, stage) "
+          f"the batch sizes: " + "; ".join(
+              f"{p}/{si} {sorted(b)}" for (p, si), b in sorted(sizes.items())))
+    print(f"[runtime] conv2d_fused launches {r['launches']} in the run (reset "
+          f"just before, read just after; stages replayed from their CUDA "
+          f"graphs); frames that resumed after the re-plan needing a node "
+          f"an old stage kept inside, computed from the tensors they kept: "
+          f"{r['fills'][0]:.0f}, {r['fills'][1]:.0f} layers that virtual "
+          f"time does not charge")
+    if not any(x[2] > 1 for x in runs):
+        fail("stage 0 coalesced no batch")
+
+    # -- the outputs ---------------------------------------------------
+    with graph.eager():
+        ref = model.forward(dep.params, torch.cat(frames),
+                            backend="torch")[sink]
+    _runtime_logits(r, ref, n, sink)
+
     # single-frame batches of the first plan against dep.run's path:
     # dep.runner's stages (the executors dep.run calls) on the same frame,
     # stage by stage, as long as the frame ran alone under that plan
@@ -2357,7 +2473,7 @@ def run_cnn_runtime(model, dep) -> None:
     for i, x in enumerate(frames):
         produced = {}
         for si, ex in enumerate(dep.runner.stages):
-            if {b for p, s_, b, fids in runs
+            if {b for p, s_, b, fids, _ in runs
                     if (p, s_) == (0, si) and i in fids} != {1}:
                 break
             produced.update(ex(dep.params, produced, x))
@@ -2376,67 +2492,139 @@ def run_cnn_runtime(model, dep) -> None:
           f"{whole} whole frames equal to dep.run(frame)")
     if compared == 0:
         fail("no single-frame batch ran before the re-plan")
-
-    changed = [k for k, v in latest.items()
-               if not torch.equal(rt._all_frames[k[0]].produced[k[1]], v)]
-    print(f"[runtime] each frame's stage outputs, saved right after the "
-          f"stage ran: {len(latest) - len(changed)} of {len(latest)} "
-          f"unchanged at the end of the run")
-    if changed:
-        fail(f"runtime outputs changed after later replays: {changed[:4]}")
+    _runtime_kept(r)
 
     # -- virtual time ----------------------------------------------------
     t1 = time.perf_counter()
     timing = dep.runtime(spec, churn=churn, real_compute=False).run(
         n, interarrival=gap)
     t_wall = time.perf_counter() - t1
-    same_time = (timing.completions == rep.completions
-                 and timing.makespan == rep.makespan
-                 and [(r.time, r.reason, r.old_period, r.new_period)
-                      for r in timing.replans]
-                 == [(r.time, r.reason, r.old_period, r.new_period)
-                     for r in rep.replans])
-    print(f"[runtime] virtual time against the timing-only run: completions, "
-          f"makespan ({rep.makespan * 1e3:.3f} ms) and re-plan periods "
-          f"{'equal' if same_time else 'DIFFER'}")
-    if not same_time:
-        fail("real compute moved the runtime's virtual time")
+    _runtime_virtual(rep, timing)
 
     # -- graphs, memory, times -----------------------------------------
-    before = [m_ for m_ in mem if m_[0] == 0]
-    cap_before = before[-1][1] - cap0
-    cap_after = captured - cap_before
-    print(f"[runtime] CUDA graphs captured: {cap_before} under the first "
-          f"plan, {cap_after} under the re-plan ({len(sizes)} (plan, stage) "
-          f"pairs, {sum(len(b) for b in sizes.values())} (plan, stage, batch "
-          f"size) forms)")
-    if cap_before + cap_after > sum(len(b) for b in sizes.values()):
-        fail("the runtime captured more graphs than it ran forms")
-    settled = [m_ for m_ in mem if m_[1] == cap0 + captured]
-    grown = max(m_[2] for m_ in settled) - settled[0][2]
-    print(f"[runtime] max_memory_allocated {before[-1][3] / 2**20:.1f} MiB "
-          f"before the churn, {mem[-1][3] / 2**20:.1f} MiB at the end; "
-          f"allocated outside the frames' inputs and outputs: "
-          f"{before[-1][2] / 2**20:.1f} MiB before the churn, "
-          f"{mem[-1][2] / 2**20:.1f} MiB at the end, grown "
-          f"{grown / 2**20:.2f} MiB over the last {len(settled)} stage runs "
-          f"(no capture among them; limit {RUNTIME_MEM_SLACK / 2**20:.0f} "
-          f"MiB)")
-    if grown > RUNTIME_MEM_SLACK:
-        fail("runtime memory grows with the frames")
-
+    _runtime_graphs_memory(r)
     dep.run(frames)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     dep.run(frames)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t2
+    wall = r["wall"]
     print(f"[runtime] wall {wall:.3f} s for the real-compute run, "
           f"{wall / n * 1e3:.3f} ms/frame (capture of its graphs, the "
           f"re-plan and the spy's clones included); dep.run([{n} frames]) "
           f"{t_run / n * 1e3:.3f} ms/frame (its graph captured before); "
           f"timing-only run {t_wall / n * 1e3:.3f} ms/frame (host clock "
           f"around synchronized runs)")
+    del r, rt, rep, runs, saved
+    clear_cache()                 # the stages' graphs: the abort run
+    #                               captures its own
+    return run_cnn_abort(model, dep, frames, ref)
+
+
+def run_cnn_abort(model, dep, frames, ref) -> tuple[int, str]:
+    """Phase 4d, second run: a device leaves in the middle of a stage
+    run, which the runtime aborts and restarts under the new plan.  The
+    leave time comes from a traced timing-only run of the same
+    deployment, arrivals and ``max_batch`` (real compute does not move
+    virtual time): the midpoint of the first ``stage.compute`` span of
+    stage 0 that holds a coalesced batch of 2 or more frames once a
+    third of them have arrived (else the first single-frame span of any
+    stage after that), on one of that stage's devices.  The run is
+    traced; returns its conv launches and the saved trace's path."""
+    import torch
+    from repro_torch.api.specs import DeploySpec
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime import DeviceLeave
+
+    n = len(frames)
+    gap = dep.period / 2
+    sink = model.graph.sinks()[0]
+    spec = DeploySpec(seed=0, max_batch=RUNTIME_BATCH)
+    traced = DeploySpec(seed=0, max_batch=RUNTIME_BATCH, trace=True)
+    lifecycle = dep.tracer
+    try:
+        dep.tracer = Tracer()
+        probe = dep.runtime(traced, real_compute=False).run(
+            n, interarrival=gap)
+        after = [sp for sp in probe.trace if sp.name == "stage.compute"
+                 and sp.ts >= (n // 3 - 1) * gap]
+        pick = [sp for sp in after
+                if sp.attr("stage") == 0 and sp.attr("frames") >= 2]
+        case = "a coalesced batch of stage 0"
+        if not pick:
+            pick = [sp for sp in after if sp.attr("frames") == 1]
+            case = "no coalesced batch of stage 0 after a third of the " \
+                   "arrivals: a single-frame run"
+        if not pick:
+            fail("the timing-only run has no stage run after a third of "
+                 "the arrivals")
+        span = pick[0]
+        t_leave = span.ts + span.dur / 2
+        churn = [DeviceLeave(t_leave, span.track)]
+        timing = dep.runtime(spec, churn=churn, real_compute=False).run(
+            n, interarrival=gap)
+        dep.tracer = Tracer()
+        r = _runtime_run(dep, traced, churn, frames, gap)
+        tracer = dep.tracer
+    finally:
+        dep.tracer = lifecycle
+    rt, rep, runs = r["rt"], r["rep"], r["runs"]
+    stage = span.attr("stage")
+    aborted = [fids for p, si, _, fids, t in runs
+               if (p, si, t) == (0, stage, span.ts)]
+    print(f"[runtime] abort run: {case} ({span.attr('frames')} frames) at "
+          f"stage {stage} from {span.ts * 1e3:.3f} to "
+          f"{span.end * 1e3:.3f} ms in a traced timing-only run; "
+          f"{span.track} leaves at its midpoint, {t_leave * 1e3:.3f} ms")
+    print(f"[runtime] abort run: completed {rep.completed}, dropped "
+          f"{rep.dropped}, restarts {rep.restarts} (timing-only "
+          f"{timing.restarts}), re-plans "
+          + ", ".join(f"{x.reason} at {x.time * 1e3:.3f} ms (period "
+                      f"{x.old_period * 1e3:.3f} -> {x.new_period * 1e3:.3f}"
+                      f" ms, {x.n_devices} devices)" for x in rep.replans))
+    _runtime_completed(r, n)
+    if not rep.restarts >= 1 or rep.restarts != timing.restarts:
+        fail(f"abort run: restarts {rep.restarts}, timing-only "
+             f"{timing.restarts}, want equal and at least 1")
+    if len(aborted) != 1 or len(aborted[0]) != span.attr("frames"):
+        fail(f"abort run: the spy saw {aborted} at stage {stage} at "
+             f"{span.ts}, want one batch of {span.attr('frames')}")
+    # the stage of the new plan that covers the aborted stage's first
+    # piece: where each aborted frame must run again
+    first = dep.pipeline.stages[stage].first_piece
+    new = next(i for i, st in enumerate(rt.pico.pipeline.stages)
+               if st.first_piece <= first <= st.last_piece)
+    again = {fid for p, si, _, fids, _ in runs if (p, si) == (1, new)
+             for fid in fids}
+    missing = [fid for fid in aborted[0] if fid not in again
+               or rt._all_frames[fid].restarts < 1]
+    sizes = r["sizes"]
+    print(f"[runtime] abort run: aborted stage {stage}, batch of "
+          f"{len(aborted[0])}, frames {aborted[0]}; re-run under the new "
+          f"plan at its stage {new}: "
+          f"{len(aborted[0]) - len(missing)} of {len(aborted[0])}; per "
+          f"(plan, stage) the batch sizes: " + "; ".join(
+              f"{p}/{si} {sorted(b)}" for (p, si), b in sorted(sizes.items())))
+    if missing:
+        fail(f"abort run: frames {missing} did not run again under the "
+             f"new plan")
+    print(f"[runtime] abort run: conv2d_fused launches {r['launches']} in "
+          f"the run (reset just before, read just after); frames that "
+          f"resumed needing a node an old stage kept inside: "
+          f"{r['fills'][0]:.0f}, {r['fills'][1]:.0f} layers")
+    _runtime_logits(r, ref, n, sink)
+    _runtime_kept(r)
+    _runtime_virtual(rep, timing)
+    _runtime_graphs_memory(r)
+    print(f"[runtime] abort run: wall {r['wall']:.3f} s, "
+          f"{r['wall'] / n * 1e3:.3f} ms/frame (capture of its graphs, the "
+          f"re-plan and the spy's clones included; host clock around a "
+          f"synchronized run)")
+    out = ROOT / "build" / "smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = str(tracer.save(out / "runtime_abort_trace.json"))
+    return r["launches"], path
 
 
 def _dist_equal(a: dict, b: dict) -> bool:
@@ -2864,6 +3052,150 @@ def run_cnn_serving(model, dep) -> int:
     return total
 
 
+def _child_env() -> dict:
+    """The environment of a child process: this checkout's ``src`` first
+    on its path."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return env
+
+
+def _tool(argv: list[str], timeout: float):
+    """``python -m <argv>`` in a child process from the checkout's root;
+    its output lines printed as ``[tools]`` lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          env=_child_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    print(f"[tools] $ python -m {' '.join(argv)}: rc {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        print(f"[tools]   {line}")
+    return proc
+
+
+def run_cnn_tools(trace_path: str) -> int:
+    """Phase 4g: the port's operational CLIs on the card.  (a) the plan
+    CLI's ``main`` in this process plans phase 4's configuration
+    (full-width VGG16 on the 8 Pis at CLUSTER_GHZ), saves it, and the
+    artifact's ``to_json`` must equal ``repro_torch.compile`` with the
+    same specs (the planner's wall times zeroed); then ``--load
+    --validate --execute`` with the conv kernel's launches counted (reset
+    just before the plan, read just after the execute).  (b) the same
+    ``--load --validate --execute`` as a command with no ``--device``:
+    the entry point runs on the card by default.  (c) the trace tool on
+    the abort run's trace (``--validate``, then the summary: the run's
+    frames, one per-device row per device that computed, the bubble
+    fraction in [0, 1)).  Returns the launches of (a)."""
+    import io
+    import repro_torch
+    from repro_torch.api.specs import ExecSpec, PlanSpec
+    from repro_torch.core import make_pi_cluster
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.models.cnn import zoo
+    from repro_torch.obs.trace import from_chrome_trace
+    from repro_torch.tools import plan as plan_cli
+    from repro_torch.tools import trace as trace_cli
+
+    out = ROOT / "build" / "smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = str(out / "vgg16_8pi_plan.json")
+
+    def cli(argv):
+        print(f"[tools] repro_torch.tools.plan.main({argv}) in this process")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = plan_cli.main(argv)
+        print(f"[tools]   rc {rc}, {time.perf_counter() - t0:.1f} s")
+        for line in buf.getvalue().splitlines():
+            print(f"[tools]   {line}")
+        if rc != 0:
+            fail(f"plan CLI {argv}: rc {rc}")
+        return buf.getvalue()
+
+    # -- (a) plan, save, compare, then load, validate and execute ---------
+    ops.reset_launches()
+    cli(["--model", "vgg16", "--devices", str(len(CLUSTER_GHZ)), "--freqs",
+         ",".join(f"{f:g}" for f in CLUSTER_GHZ), "--out", path])
+    saved = repro_torch.Deployment.load(path)
+    dep = repro_torch.compile(zoo.build("vgg16", scale=1.0),
+                              make_pi_cluster(CLUSTER_GHZ), PlanSpec(),
+                              ExecSpec())
+    for d in (saved, dep):
+        d.pico.partition.wall_time_s = 0.0
+        d.pico.pipeline.wall_time_s = 0.0
+    same = saved.to_json() == dep.to_json()
+    print(f"[tools] the saved artifact's to_json against repro_torch.compile"
+          f" with the same specs (wall_time_s zeroed): "
+          f"{'equal' if same else 'DIFFERENT'} ({len(dep.to_json())} "
+          f"characters)")
+    if not same:
+        fail("the plan CLI's artifact differs from repro_torch.compile's")
+    del saved, dep
+    text = cli(["--load", path, "--validate", "--execute"])
+    launches = ops.launch_count()
+    if "validate: schema v1 ok, round-trip ok" not in text:
+        fail("plan CLI: no validate line")
+    if "execute: pipelined outputs match monolithic forward ✓ on cuda" \
+            not in text:
+        fail("plan CLI: no execute line on cuda")
+    print(f"[tools] conv2d_fused launches {launches} in the plan CLI's "
+          f"in-process plan, load, validate and execute (reset just "
+          f"before, read just after)")
+    if launches <= 0:
+        fail("the plan CLI launched no conv kernel")
+
+    # -- (b) the command, no --device ----------------------------------
+    proc = _tool(["repro_torch.tools.plan", "--load", path, "--validate",
+                  "--execute"], timeout=600)
+    if proc.returncode != 0 or "execute: pipelined outputs match " \
+            "monolithic forward ✓ on cuda" not in proc.stdout:
+        fail("python -m repro_torch.tools.plan --load --validate --execute "
+             "did not match on the card")
+
+    # -- (c) the trace tool on the abort run's trace --------------------
+    proc = _tool(["repro_torch.tools.trace", trace_path, "--validate"],
+                 timeout=120)
+    if proc.returncode != 0:
+        fail("the abort run's trace does not validate")
+    proc = _tool(["repro_torch.tools.trace", trace_path], timeout=120)
+    if proc.returncode != 0:
+        fail("the trace tool could not summarize the abort run's trace")
+    lines = proc.stdout.splitlines()
+    with open(trace_path) as f:
+        spans = from_chrome_trace(json.load(f))
+    computed = sorted({sp.track for sp in spans
+                       if sp.name == "stage.compute"})
+    rows = []
+    if "per-device compute:" in lines:
+        for line in lines[lines.index("per-device compute:") + 1:]:
+            if not line.startswith("  "):
+                break
+            rows.append(line.split()[0])
+    bubble = [float(line.rsplit(" ", 1)[1].rstrip("%")) / 100
+              for line in lines
+              if line.startswith("pipeline bubble fraction: ")]
+    fraction = trace_cli.bubble_fraction(spans)
+    print(f"[tools] trace summary: {RUNTIME_FRAMES} frames "
+          f"{'shown' if f'({RUNTIME_FRAMES} frames)' in lines[0] else 'NOT shown'}"
+          f"; per-device rows {rows} against the devices that computed "
+          f"{computed}; bubble fraction {bubble} printed, "
+          f"{fraction:.6f} from bubble_fraction")
+    if f"({RUNTIME_FRAMES} frames)" not in lines[0]:
+        fail(f"trace summary: want {RUNTIME_FRAMES} frames, got {lines[0]}")
+    if sorted(rows) != computed:
+        fail("trace summary: per-device rows differ from the devices that "
+             "computed")
+    if len(bubble) != 1 or not 0.0 <= bubble[0] < 1.0 \
+            or not 0.0 <= fraction < 1.0:
+        fail("trace summary: bubble fraction outside [0, 1)")
+    return launches
+
+
 def run_cnn() -> dict:
     """Phases 3-4 for the conv kernel: the CNN main path.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -3073,9 +3405,9 @@ def run_cnn() -> dict:
     print(f"[time] CNN phase 4c {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs
 
-    # -- 4d. the event-driven runtime with real compute ------------------
+    # -- 4d. the event-driven runtime with real compute, then an abort ----
     t0 = time.perf_counter()
-    run_cnn_runtime(model, dep)
+    abort_launches, abort_trace = run_cnn_runtime(model, dep)
     print(f"[time] CNN phase 4d {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs
 
@@ -3089,6 +3421,12 @@ def run_cnn() -> dict:
     t0 = time.perf_counter()
     serve_launches = run_cnn_serving(model, dep)
     print(f"[time] CNN phase 4f {time.perf_counter() - t0:.1f} s")
+    clear_cache()                 # the stages' graphs
+
+    # -- 4g. the plan and trace CLIs ---------------------------------
+    t0 = time.perf_counter()
+    tool_launches = run_cnn_tools(abort_trace)
+    print(f"[time] CNN phase 4g {time.perf_counter() - t0:.1f} s")
     clear_cache()                 # the stages' graphs, before the LMs
 
     path = [r for r in cases if r["per_call"]]
@@ -3099,13 +3437,15 @@ def run_cnn() -> dict:
           "max_abs_err over those shapes; device time (profiler) over the "
           f"same launches: {sum(r['dev_ms'] * r['per_call'] for r in path):.4f}"
           f", cuDNN {sum(r['library_dev_ms'] * r['per_call'] for r in path):.4f}"
-          f"; launches: phase 4b {launches} + 4e {dist_launches} + 4f "
-          f"{serve_launches}")
+          f"; launches: phase 4b {launches} + 4d's abort run "
+          f"{abort_launches} + 4e {dist_launches} + 4f {serve_launches} + "
+          f"4g's in-process plan CLI {tool_launches}")
     return {
         "name": "conv2d_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/conv2d/csrc/conv2d_fused.cu",
         "replaces": REPLACES["conv2d_fused"],
-        "launches": launches + dist_launches + serve_launches,
+        "launches": (launches + abort_launches + dist_launches
+                     + serve_launches + tool_launches),
         "max_abs_err": max(r["err"] for r in path),
         "ms": sum(r["ms"] * r["per_call"] for r in path),
         "plain_ms": sum(r["plain_ms"] * r["per_call"] for r in path),

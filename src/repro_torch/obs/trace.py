@@ -313,7 +313,7 @@ def validate_chrome_trace(doc: Mapping) -> list[str]:
     ``traceEvents`` must be a list; every event needs a ``ph``; every
     span/instant needs a numeric ``ts`` and a ``pid`` with a
     ``process_name`` metadata row; ``X`` events need a non-negative
-    ``dur``.  Used by ``python -m repro.tools.trace --validate``.
+    ``dur``.  Used by ``python -m repro_torch.tools.trace --validate``.
     """
     errors: list[str] = []
     events = doc.get("traceEvents")

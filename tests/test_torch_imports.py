@@ -41,6 +41,10 @@ def test_import_loads_neither_jax_nor_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20   # every submodule imported
+    # quiet: no module prints or parses arguments when imported (the
+    # CLIs, repro_torch.tools.*, run only under __main__)
+    assert proc.stdout.splitlines() == [proc.stdout.split()[-1]]
+    assert "usage:" not in proc.stderr
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -270,6 +270,9 @@ def test_real_compute_matches_the_reference_runtime(max_batch, churn):
     assert rep.completed == 3 and rep.dropped == 0
     assert len(rep.replans) == int(churn)
     assert _report_sig(rep) == _report_sig(ref_rep)
+    if churn and max_batch == 1:
+        # the leave lands inside a single-frame stage run, which restarts
+        assert rep.restarts == ref_rep.restarts >= 1
     for i in range(3):
         assert rep.outputs[i].keys() == ref_rep.outputs[i].keys()
         for k, v in rep.outputs[i].items():
@@ -277,6 +280,85 @@ def test_real_compute_matches_the_reference_runtime(max_batch, churn):
             np.testing.assert_allclose(v.numpy(),
                                        np.asarray(ref_rep.outputs[i][k]),
                                        **REAL)
+
+
+def _coalesced_span(trace, n, gap):
+    """The first ``stage.compute`` span of stage 0 that holds a
+    coalesced batch (2 frames or more) and starts once a third of the
+    ``n`` frames have arrived."""
+    return next(sp for sp in trace if sp.name == "stage.compute"
+                and sp.attr("stage") == 0 and sp.attr("frames") >= 2
+                and sp.ts >= (n // 3 - 1) * gap)
+
+
+def test_real_compute_aborts_a_coalesced_batch():
+    """Tiny squeezenet on three Pis, ``max_batch`` 3, frames at half the
+    period: stage 0's device leaves in the middle of a coalesced batch,
+    taken from a traced timing-only run of the same arrivals.  Every
+    frame of the batch restarts once and re-runs under the new plan
+    (the ``reversed``/``appendleft`` branch of the leave); restarts and
+    the virtual timeline are the reference's, and the outputs within
+    REAL of the reference runtime's, or of its monolithic forward where
+    the reference raises (ROADMAP Queue 3)."""
+    ref_m, m = _models("squeezenet")
+    p_np = np_params(ref_m)
+    freqs, n, max_batch = [1.5, 1.0, 0.8], 9, 3
+    rc, pc = ref_pi_cluster(freqs), make_pi_cluster(freqs)
+    rp = ref_plan(ref_m.graph, rc, ref_m.input_size)
+    pp = plan(m.graph, pc, m.input_size)
+    gap = pp.period / 2
+    probe = PipelineRuntime(m.graph, pc, m.input_size, pico=pp,
+                            config=RuntimeConfig(max_batch=max_batch,
+                                                 trace=True)).run(
+        n, interarrival=gap)
+    span = _coalesced_span(probe.trace, n, gap)
+    leave = dict(time=span.ts + span.dur / 2, device_name=span.track)
+    want = RefPipelineRuntime(ref_m.graph, rc, ref_m.input_size, pico=rp,
+                              config=RefRuntimeConfig(max_batch=max_batch),
+                              churn=[RefDeviceLeave(**leave)]).run(
+        n, interarrival=gap)
+    xs = [image(m, seed=s) for s in range(n)]
+    rt = PipelineRuntime(model=m, params=params_from_numpy(p_np, "cpu"),
+                         cluster=pc, pico=pp,
+                         config=RuntimeConfig(max_batch=max_batch),
+                         churn=[DeviceLeave(**leave)], device="cpu")
+    runs = []
+    run_batch = rt._exec_batch
+
+    def spy(t, st, batch):
+        run_batch(t, st, batch)
+        runs.append((t, len(rt.replans), st.index,
+                     [fr.fid for fr in batch.frames]))
+
+    rt._exec_batch = spy
+    rep = rt.run(inputs=xs, interarrival=gap)
+    assert rep.completed == n and rep.dropped == 0
+    assert [r.reason for r in rep.replans] == ["leave"]
+    assert rep.restarts == want.restarts >= span.attr("frames") >= 2
+    assert _report_sig(rep) == _report_sig(want)
+    aborted = [fids for t, p, si, fids in runs if (t, p, si) == (span.ts, 0, 0)]
+    assert len(aborted) == 1 and len(aborted[0]) == span.attr("frames")
+    again = {fid for _, p, si, fids in runs if (p, si) == (1, 0)
+             for fid in fids}
+    for fid in aborted[0]:
+        assert fid in again and rt._all_frames[fid].restarts == 1
+    try:
+        ref_rep = RefPipelineRuntime(
+            model=ref_m, params=p_np, cluster=rc, pico=rp,
+            config=RefRuntimeConfig(max_batch=max_batch),
+            churn=[RefDeviceLeave(**leave)]).run(inputs=xs,
+                                                 interarrival=gap)
+    except KeyError:
+        ref_rep = None
+    for i, x in enumerate(xs):
+        ref = (ref_rep.outputs[i] if ref_rep is not None
+               else ref_m.forward(p_np, x))
+        assert rep.outputs[i].keys() == ref.keys()
+        for k, v in rep.outputs[i].items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(ref[k]),
+                                       **REAL)
+    if ref_rep is not None:
+        assert ref_rep.restarts == rep.restarts
 
 
 def test_real_compute_frames_keep_their_outputs():
