@@ -157,13 +157,34 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    forward and 16 of remat's recompute, and 16 ``flash_prefill_bwd``),
    finite losses, step ms from step 2 on, tokens/s and peak memory, then
    one profiled step (device time by kernel, the backward kernel's
-   share); (d) reduced mamba2 and granite, whose ``ssd_chunk`` and
-   ``moe_gemm`` have no backward kernel yet, refused with
+   share).  Then granite-moe-3b-a800m at full width in fp32: (a')
+   ``moe_gemm``'s backward, ``MoeGemm``'s dx = dy wᵀ and dw = xᵀ dy
+   (two more launches of the kernel, on transposed copies) against
+   autograd of the plain version at granite's training shapes (x (40,
+   512, 1536) against w (40, 1536, 512), and the w2 twin), at C = 12,
+   C = 10 (no multiple of 4), C = 4 and mixtral's experts at C = 64,
+   each within FP32_TOL x max(1, max|ref|) and called twice for the
+   same bits, with each launch's variant, ms, device ms, plain ms, the
+   library's (``torch.bmm`` on transposed views, no copies) and the
+   bound; (b') ``loss_and_grads`` at full depth (32 layers) against
+   ``backend="torch"`` as in (b): 384 ``moe_gemm`` (3 a layer forward,
+   3 in remat's recompute, 6 backward), 64 ``flash_prefill`` and 32
+   ``flash_prefill_bwd`` launches, the routing decisions that differ
+   between the two paths counted, peak memory; (c') five steps of
+   ``training.loop.train`` at 16 of the 32 layers (the functional
+   AdamW holds about 8 copies of the params, so full depth needs about
+   108 GB), counted: 960 ``moe_gemm``, each in the variant of its own
+   shape, 160 ``flash_prefill`` and 80 ``flash_prefill_bwd``; finite
+   losses, step ms, tokens/s and peak memory, then one profiled step
+   with ``moe_gemm``'s device time in the forward, the recompute and
+   the backward, and the transposed copies' share; (d) reduced mamba2,
+   whose ``ssd_chunk`` has no backward kernel yet, refused with
    ``NotImplementedError`` naming the kernel and its ROADMAP item;
 7. one ``{"kernels": [...]}`` JSON line (six kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
-   in-process plan CLI, flash_prefill_bwd's those of the five training
-   steps), the card line, and last
+   in-process plan CLI, moe_gemm's those of granite's fp32 generate and
+   of phase 6's (b') and (c'), flash_prefill_bwd's those of the five
+   Llama training steps), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -263,6 +284,16 @@ BWD_TOL, LOSS_TOL, GRAD_TOL = 1e-4, 1e-5, 1e-3
 BWD_CASES = [((4, 512, 8, 4, 64), 0), ((2, 256, 16, 1, 64), 0),
              ((4, 512, 32, 1, 80), 0), ((2, 512, 8, 4, 128), 0),
              ((4, 511, 8, 4, 64), 0), ((4, 512, 8, 4, 64), 128)]
+# then granite (MOE_ARCH) in fp32.  MoeGemm's backward at x (E, C, D)
+# against w (E, D, F): granite's training products (C = 4 x 128 slots,
+# w1/w3 and the w2 twin), C = 12, C = 10 (dw's depth no multiple of 4),
+# C = 4 and mixtral's experts at a small C.  The train steps run at 16
+# of granite's 32 layers: the functional AdamW holds about 8 copies of
+# the params (8 x 13.5 GB at full depth, past one card's 80 GB)
+MOE_BWD_CASES = [(40, 512, 1536, 512), (40, 512, 512, 1536),
+                 (4, 12, 1024, 256), (4, 10, 1024, 256), (40, 4, 1536, 512),
+                 (8, 64, 4096, 14336)]
+MOE_TRAIN_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -298,25 +329,34 @@ def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
     ``torch.profiler`` records them (host time between launches not
     counted; ``time_ms`` counts it when the host is the slower).  Each
     kernel's mean over the launches the profiler caught, times its
-    launches a call (the profiler can miss the first few of a window).
-    Now and then a window records no kernel at all; it is taken again, up
+    launches a call.  A window that starts cold can miss launches (once,
+    late in this script's run, enough that a call's two launches of one
+    kernel read as one), so each window is ``iters`` calls recorded
+    after ``iters`` calls of warm-up under the running profiler.  Now
+    and then a window records no kernel at all; it is taken again, up
     to ``tries`` windows.  If none records a kernel, the reading is
     ``time_ms`` over ``iters`` calls (CUDA events, host gaps included),
     said so on a line of its own, and later calls try one window only
     until the profiler records again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     n = min(tries, _PROFILER["tries"])
     for _ in range(n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        recorded = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):               # warm-up, then recorded
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         ms = sum(e.self_device_time_total / e.count
                  * max(1, round(e.count / iters))
-                 for e in prof.key_averages()
+                 for e in recorded
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.count) / 1e3
         if ms > 0:
@@ -1623,6 +1663,149 @@ def bwd_case(shape, window, seed=0) -> dict:
                 **bound(10.0 * b * k * g * d * pairs, nbytes, "float32"))
 
 
+def moe_bwd_case(shape, seed=0) -> dict:
+    """MoeGemm's backward (fp32) at x (E, C, D), w (E, D, F): dx and dw
+    of one ``MoeGemm.apply`` (two wrapper launches on transposed copies,
+    each in the variant of its own shape, which it must take) against
+    autograd of ``moe_gemm_ref`` on the same x, w and dy, each within
+    FP32_TOL x max(1, max|ref|); two calls the same bits.  The library
+    calls are ``torch.bmm(dy, wᵀ)`` and ``torch.bmm(xᵀ, dy)`` on
+    transposed views, no copies.  The bound counts 4 E C D F FLOP at the
+    fp32 peak, or x, w and dy read and dx and dw written once."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops, ref
+
+    e, c, d, f = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((e, c, d), generator=gen, device="cuda")
+    w = torch.randn((e, d, f), generator=gen, device="cuda") / d ** 0.5
+    dy = torch.randn((e, c, f), generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    y = ops.MoeGemm.apply(*leaves)
+
+    def kernel():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    plans = [ops._plan(e, c, f, d, torch.float32, True)[0],     # dx
+             ops._plan(e, d, c, f, torch.float32, True)[0]]     # dw
+    before = dict(ops.variant_counts)
+    got = kernel()
+    took = {v: ops.variant_counts[v] - before[v] for v in ops.VARIANTS}
+    again = kernel()
+    plain_leaves = [t.clone().requires_grad_() for t in (x, w)]
+    y_ref = ref.moe_gemm_ref(*plain_leaves)
+
+    def plain():
+        return torch.autograd.grad(y_ref, plain_leaves, dy,
+                                   retain_graph=True)
+
+    want = plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks = [check_close(a, b, torch.float32) for a, b in zip(got, want)]
+    as_planned = took == {v: plans.count(v) for v in ops.VARIANTS}
+    xt, wt = x.transpose(1, 2), w.transpose(1, 2)
+
+    def library():
+        return torch.bmm(dy, wt), torch.bmm(xt, dy)
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    library_ms = time_ms(library)
+    dev = (device_ms(kernel), device_ms(library))
+    nbytes = 4 * (2 * x.numel() + 2 * w.numel() + dy.numel())
+    del y, y_ref, got, again, want
+    return dict(kernel="moe_gemm", desc=f"backward x{tuple(shape[:3])} "
+                f"F{f} dx {plans[0]}, dw {plans[1]}"
+                + ("" if same else " NOT BIT-REPRODUCIBLE")
+                + ("" if as_planned else f" TOOK {took}"),
+                dtype="float32", err=max(r[0] for r in checks),
+                of_limit=max(r[1] for r in checks),
+                ok=all(r[2] for r in checks) and same and as_planned,
+                per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dev_ms=dev[0], library_dev_ms=dev[1],
+                **bound(4.0 * e * c * d * f, nbytes, "float32"))
+
+
+@contextlib.contextmanager
+def _routes_recorded(routes: dict):
+    """``model.moe`` wrapped to record each call's routing decisions (a
+    token's sorted top-k set) in ``routes[backend][layer]``, a layer by
+    its router's address (both backends read the same params); remat's
+    recompute writes the same sets again."""
+    import torch
+    from repro_torch.models.transformer import model as M
+
+    real = M.moe
+
+    def recording(p, x, top_k, capacity_factor=1.25, backend="cuda"):
+        with torch.no_grad():
+            probs = torch.softmax((x @ p.router).float(), dim=-1)
+            routes.setdefault(backend, {})[p.router.data_ptr()] = \
+                torch.topk(probs, top_k, dim=-1).indices.sort(dim=-1).values
+        return real(p, x, top_k, capacity_factor, backend=backend)
+
+    M.moe = recording
+    try:
+        yield
+    finally:
+        M.moe = real
+
+
+def _grad_parity(cfg, params, batch, want: dict) -> None:
+    """``loss_fn`` and its gradient on the kernel path, the kernels'
+    launches counted (reset just before, read just after) and held to
+    ``want``, against ``backend="torch"`` on the same weights and batch:
+    the loss within LOSS_TOL relative, every leaf finite and within
+    GRAD_TOL x max|g| of its leaf, the worst leaf named.  For an MoE
+    arch, the routing decisions that differ between the two paths are
+    counted, by layer where there are any, and the peak memory printed.
+    Frees ``params``' gradients, not ``params``."""
+    import torch
+
+    ops = _kernel_ops()
+    routes: dict = {}
+    record = _routes_recorded(routes) if cfg.is_moe \
+        else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    with record:
+        _reset_counts()
+        loss, grads = _grads(cfg, params, batch, "cuda")
+        got = {n: ops[n].launch_count(n) for n in ops}
+        loss_t, grads_t = _grads(cfg, params, batch, "torch")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worst, name, shares = 0.0, "", {}
+    for (n, g), (_, gt) in zip(grads, grads_t):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"gradient of {n} is not finite")
+        share = shares[n] = ((g - gt).abs().max()
+                             / (GRAD_TOL * gt.abs().max())).item()
+        if not share <= worst:
+            worst, name = share, n
+    del grads, grads_t
+    torch.cuda.empty_cache()
+    rel = abs(loss - loss_t) / abs(loss_t)
+    counted = ", ".join(f"{n} {got[n]}" for n in ops if want.get(n))
+    print(f"[train] loss_fn + backward, kernel path ({counted} launches) vs "
+          f"backend=\"torch\": loss {loss:.6f} / {loss_t:.6f} ({rel:.2e} "
+          f"relative, limit {LOSS_TOL:g}); {len(shares)} gradient leaves, "
+          f"all finite; worst leaf {name}: {worst:.3f} of {GRAD_TOL:g} x "
+          f"max|g| of its leaf")
+    if cfg.is_moe:
+        per_layer = [int((routes["cuda"][k] != t).any(dim=-1).sum())
+                     for k, t in routes["torch"].items()]
+        total = sum(t.shape[0] * t.shape[1] for t in routes["torch"].values())
+        print(f"[train] routing decisions that differ between the two "
+              f"paths: {sum(per_layer)} of {total} (tokens x layers"
+              + (f"; by layer {per_layer}" if any(per_layer) else "")
+              + f"); peak memory {peak:.2f} GiB")
+        if not worst <= 1.0:
+            print("[train] leaves past the limit: " + ", ".join(
+                f"{n} {v:.3f}" for n, v in shares.items() if v > 1.0))
+    if not rel <= LOSS_TOL or not worst <= 1.0:
+        fail("the kernel path's loss or gradients outside the limits")
+    if got != want:
+        fail(f"loss_fn + backward launched {got}, want {want}")
 def _grads(cfg, params, batch, backend):
     """(loss, [(leaf path, gradient)]) of ``loss_fn`` on ``backend``
     (``training.loss_and_grads``: autograd over every leaf, which raises
@@ -1636,7 +1819,8 @@ def _grads(cfg, params, batch, backend):
 def _train_step_profile(cfg, batch) -> None:
     """One profiled train step (after one warm-up step) on fresh weights:
     device time by kernel, the backward kernel's share, busy share of the
-    step's wall."""
+    step's wall; for an MoE arch, moe_gemm by part
+    (:func:`_moe_step_split`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import model as M
@@ -1673,21 +1857,185 @@ def _train_step_profile(cfg, batch) -> None:
           f"of the device time), flash_prefill {fwd:.3f} ms "
           f"({100 * fwd / busy:.2f}%)")
     top = sorted(rows, key=lambda r: -r[1])
-    for key, ms, n in top[:8] + [r for r in top[8:] if "flash" in r[0]]:
+    for key, ms, n in top[:8] + [r for r in top[8:] if "flash" in r[0]
+                                 or "moe_gemm" in r[0]]:
         print(f"[train]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} "
               f"{key[:90]}")
+    if cfg.is_moe:
+        _moe_step_split(cfg, prof, busy)
     del params, state, loss, step
 
 
-def run_train() -> dict:
-    """Phase 6, training Llama-3.2-1B at full width in fp32: (a) the
+def _train_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` train steps (or one
+    ``loss_and_grads`` for 1) of an attention arch, remat on: per layer
+    two flash_prefill (the forward and remat's recompute) and one
+    flash_prefill_bwd; with MoE 12 moe_gemm (3 forward, 3 recomputed,
+    6 backward: dx and dw of each product)."""
+    want = dict.fromkeys(_kernel_ops(), 0)
+    want["flash_prefill"] = steps * 2 * cfg.n_layers
+    want["flash_prefill_bwd"] = steps * cfg.n_layers
+    if cfg.is_moe:
+        want["moe_gemm"] = steps * 12 * cfg.n_layers
+    return want
+
+
+def _train_counted(cfg, rep, label: str) -> dict:
+    """A training run's lines and checks: the kernels' launches since
+    the last reset against :func:`_train_launches`, finite losses, step
+    ms from step 2 on, tokens/s and the peak memory since the last
+    reset.  Returns the launches by kernel."""
+    import torch
+
+    ops = _kernel_ops()
+    got = {n: ops[n].launch_count(n) for n in ops}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = _train_launches(cfg, TRAIN_STEPS)
+    print(f"[train] {label}, {TRAIN_STEPS} steps: "
+          + ", ".join(f"{n} launches {got[n]} (want {want[n]})" for n in got))
+    if got != want:
+        fail(f"training launched {got}, want {want}")
+    if len(rep.losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in rep.losses):
+        fail(f"training losses {rep.losses}")
+    later = rep.step_s[1:]
+    step_ms = 1e3 * sum(later) / len(later)
+    print(f"[train] losses {', '.join(f'{x:.4f}' for x in rep.losses)}; "
+          f"step ms {', '.join(f'{1e3 * t:.1f}' for t in rep.step_s)} "
+          f"(host clock, each ending in the loss read); steps 2-"
+          f"{TRAIN_STEPS} {step_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s; peak "
+          f"memory {peak:.2f} GiB")
+    return got
+
+
+def _moe_step_split(cfg, prof, busy: float) -> None:
+    """moe_gemm's device time in one profiled MoE train step, by part,
+    from the order of the kernels on the stream: the 3 L forward
+    launches come first; then each layer's backward, last layer first,
+    runs remat's recompute (3 launches) before its 6 backward ones.  The
+    kernel just before each backward launch is the copy of its
+    transposed operand (wᵀ for dx, xᵀ for dw)."""
+    import torch
+
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    at = [i for i, e in enumerate(dev) if "moe_gemm" in e.name]
+    L = cfg.n_layers
+    if len(at) != 12 * L:
+        print(f"[train] moe_gemm by part: not measured (the profiler saw "
+              f"{len(at)} of the step's {12 * L} launches)")
+        return
+    rest = at[3 * L:]
+    parts = {"forward": at[:3 * L],
+             "recompute": [i for j, i in enumerate(rest) if j % 9 < 3],
+             "backward": [i for j, i in enumerate(rest) if j % 9 >= 3]}
+    copies = [i - 1 for i in parts["backward"]]
+
+    def ms(idx):
+        return sum(dev[i].time_range.elapsed_us() for i in idx) / 1e3
+
+    print(f"[train] moe_gemm device ms of the profiled step: " + ", ".join(
+        f"{k} {ms(v):.3f} ({len(v)} launches, {ms(v) / len(v):.4f} each)"
+        for k, v in parts.items())
+          + f"; {100 * ms(at) / busy:.1f}% of the device time")
+    if all("copy" in dev[i].name for i in copies):
+        print(f"[train] the backward's transposed copies (wᵀ, xᵀ): "
+              f"{ms(copies):.3f} ms device, {len(copies)} copies, "
+              f"{100 * ms(copies) / busy:.2f}% of the step's device time, "
+              f"{100 * ms(copies) / ms(parts['backward']):.1f}% of the "
+              f"backward products'")
+    else:
+        print(f"[train] the backward's transposed copies: not measured "
+              f"(a kernel before a backward launch is not a copy: "
+              f"{sorted({dev[i].name[:60] for i in copies})})")
+
+
+def run_train_moe() -> int:
+    """Phase 6 (a')-(c'), granite-moe-3b-a800m in fp32: (a') MoeGemm's
+    backward against autograd of the plain version; (b') loss_fn's
+    gradients at full depth, kernel path against backend="torch"; (c')
+    five steps of ``training.loop.train`` at MOE_TRAIN_LAYERS layers,
+    counted, then one profiled step.  Returns the moe_gemm launches of
+    (b') and (c')."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training.loop import train
+
+    moe = _kernel_ops()["moe_gemm"]
+    cfg = configs.get(MOE_ARCH)
+    print(f"[train] {cfg.name}: {_describe(cfg)}, "
+          f"{cfg.param_count() / 1e9:.2f} G params, fp32, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, TokenStream seed 0")
+
+    # -- (a') MoeGemm's backward against autograd of the plain version -----
+    cases = [moe_bwd_case(shape) for shape in MOE_BWD_CASES]
+    print(f"[train] moe_gemm backward (MoeGemm: dx = dy wT, dw = xT dy, "
+          f"transposed copies): {len(cases)} cases | max_abs_err (worst of "
+          f"dx, dw over {FP32_TOL:g} x max(1, max|ref|)) | ms kernel / plain "
+          f"autograd / torch.bmm pair / bound | device ms kernel / "
+          f"torch.bmm pair")
+    _print_cases(cases)
+    torch.cuda.empty_cache()
+    if any(not r["ok"] for r in cases):
+        fail("MoeGemm's backward disagrees with autograd of the plain "
+             "version, is not bit-repeatable or took another variant")
+
+    # -- (b') gradients at full depth: kernel path against backend="torch"
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    batch = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                        device="cuda").batches(1)[0]
+    want = _train_launches(cfg, 1)
+    _grad_parity(cfg, params, batch, want)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (c') five steps at MOE_TRAIN_LAYERS layers, counted ---------------
+    small = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rep = train(small, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=3e-3, seed=0, log_every=10, warmup=10, device="cuda")
+    variants = dict(moe.variant_counts)
+    _train_counted(small, rep, f"training.loop.train at "
+                   f"{MOE_TRAIN_LAYERS} of {cfg.n_layers} layers "
+                   f"({small.param_count() / 1e9:.2f} G params)")
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    c = TRAIN_BATCH * max(1, int(cfg.capacity_factor * cfg.moe_top_k
+                                 * TRAIN_SEQ / e))
+    # a layer's products, forward (run twice with remat) then dx and dw
+    fwd = [(e, c, d, ff), (e, c, d, ff), (e, c, ff, d)]
+    bwd = [s for (e_, c_, d_, f_) in fwd
+           for s in ((e_, c_, f_, d_), (e_, d_, c_, f_))]
+    want_v = dict.fromkeys(moe.VARIANTS, 0)
+    for shape, n in [(s, 2) for s in fwd] + [(s, 1) for s in bwd]:
+        want_v[moe._plan(*shape, torch.float32, True)[0]] += \
+            n * TRAIN_STEPS * small.n_layers
+    print(f"[train] moe_gemm variants: " + ", ".join(
+        f"{v} {n}" for v, n in variants.items()) + f" (want {want_v})")
+    if variants != want_v:
+        fail(f"training's moe_gemm variants {variants}, want {want_v}")
+    _train_step_profile(small, batch)
+    torch.cuda.empty_cache()
+    return want["moe_gemm"] + _train_launches(small, TRAIN_STEPS)["moe_gemm"]
+
+
+def run_train() -> tuple[int, dict]:
+    """Phase 6, training in fp32.  Llama-3.2-1B at full width: (a) the
     backward kernel against its plain version (the path's shape and
     edges); (b) loss_fn's gradients on the kernel path against
     backend="torch" on the same weights and batch, every leaf; (c) five
     steps through ``launch.train.main``, its kernels counted (reset just
-    before, read just after); (d) reduced mamba2 and granite refused by
-    the guard of ``ssd_chunk`` and ``moe_gemm``.  Returns the kernels
-    entry of ``flash_prefill_bwd``, summed over one train step."""
+    before, read just after).  Then granite (:func:`run_train_moe`); (d)
+    reduced mamba2 refused by the guard of ``ssd_chunk``.  Returns the
+    moe_gemm launches of granite's counted runs and the kernels entry of
+    ``flash_prefill_bwd``, summed over one Llama train step."""
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
@@ -1719,35 +2067,10 @@ def run_train() -> dict:
                            device="cuda")
     batch = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
                         device="cuda").batches(1)[0]
-    _reset_counts()
-    loss, grads = _grads(cfg, params, batch, "cuda")
-    counted = (attn.launch_count("flash_prefill"),
-               attn.launch_count("flash_prefill_bwd"))
-    loss_t, grads_t = _grads(cfg, params, batch, "torch")
+    # remat runs each layer again: two flash_prefill a layer
+    _grad_parity(cfg, params, batch, _train_launches(cfg, 1))
     del params
-    worst, name = 0.0, ""
-    for (n, g), (_, gt) in zip(grads, grads_t):
-        if not bool(torch.isfinite(g).all()):
-            fail(f"gradient of {n} is not finite")
-        share = ((g - gt).abs().max() / (GRAD_TOL * gt.abs().max())).item()
-        if not share <= worst:
-            worst, name = share, n
-    rel = abs(loss - loss_t) / abs(loss_t)
-    print(f"[train] loss_fn + backward, kernel path (flash_prefill "
-          f"{counted[0]}, flash_prefill_bwd {counted[1]} launches) vs "
-          f"backend=\"torch\": loss {loss:.6f} / {loss_t:.6f} ({rel:.2e} "
-          f"relative, limit {LOSS_TOL:g}); {len(grads)} gradient leaves, all "
-          f"finite; worst leaf {name}: {worst:.3f} of {GRAD_TOL:g} x "
-          f"max|g| of its leaf")
-    del grads, grads_t
     torch.cuda.empty_cache()
-    if not rel <= LOSS_TOL or not worst <= 1.0:
-        fail("the kernel path's loss or gradients outside the limits")
-    if counted != (2 * cfg.n_layers, cfg.n_layers):
-        fail(f"loss_fn + backward launched flash_prefill {counted[0]} and "
-             f"flash_prefill_bwd {counted[1]} times, want "
-             f"{2 * cfg.n_layers} (remat runs each layer again) and "
-             f"{cfg.n_layers}")
 
     # -- (c) training through the launcher, counted ------------------------
     _reset_counts()
@@ -1755,58 +2078,41 @@ def run_train() -> dict:
     rep = launcher.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
                          "--batch", str(TRAIN_BATCH), "--seq",
                          str(TRAIN_SEQ), "--seed", "0", "--device", "cuda"])
-    got = {n: ops[n].launch_count(n) for n in ops}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {n: 0 for n in ops}
-    want["flash_prefill"] = TRAIN_STEPS * 2 * cfg.n_layers   # + remat's
-    want["flash_prefill_bwd"] = TRAIN_STEPS * cfg.n_layers
-    print(f"[train] launch.train.main, {TRAIN_STEPS} steps: "
-          + ", ".join(f"{n} launches {got[n]} (want {want[n]})" for n in got))
-    if got != want:
-        fail(f"training launched {got}, want {want}")
-    if len(rep.losses) != TRAIN_STEPS or not all(
-            x == x and abs(x) < float("inf") for x in rep.losses):
-        fail(f"training losses {rep.losses}")
-    later = rep.step_s[1:]
-    step_ms = 1e3 * sum(later) / len(later)
-    print(f"[train] losses {', '.join(f'{x:.4f}' for x in rep.losses)}; "
-          f"step ms {', '.join(f'{1e3 * t:.1f}' for t in rep.step_s)} "
-          f"(host clock, each ending in the loss read); steps 2-"
-          f"{TRAIN_STEPS} {step_ms:.1f} ms, "
-          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s; peak "
-          f"memory {peak:.2f} GiB")
+    got = _train_counted(cfg, rep, "launch.train.main")
     _train_step_profile(cfg, batch)
     torch.cuda.empty_cache()
 
+    # -- (a')-(c') granite: moe_gemm's backward, then training ----------
+    moe_launches = run_train_moe()
+
     # -- (d) the guard: no backward kernel yet -----------------------------
-    for arch, kernel, item in ((SSM_ARCH, "ssd_chunk", "11c"),
-                               (MOE_ARCH, "moe_gemm", "11b")):
-        small = configs.get(arch).reduced(n_layers=2, d_model=128)
-        p = M.init_params(small, torch.Generator(device="cuda").manual_seed(0),
-                          device="cuda")
-        b = TokenStream(small.vocab_size, 2, 64, seed=0,
-                        device="cuda").batches(1)[0]
-        try:
-            _grads(small, p, b, "cuda")
-        except NotImplementedError as e:
-            msg = str(e)
-        else:
-            fail(f"{arch}: a backward through {kernel} was not refused")
-        print(f"[train] {small.name}: loss.backward() refused: {msg}")
-        if kernel not in msg or f"item {item}" not in msg:
-            fail(f"{arch}: the refusal does not name {kernel} and item "
-                 f"{item}")
+    small = configs.get(SSM_ARCH).reduced(n_layers=2, d_model=128)
+    p = M.init_params(small, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    b = TokenStream(small.vocab_size, 2, 64, seed=0,
+                    device="cuda").batches(1)[0]
+    try:
+        _grads(small, p, b, "cuda")
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        fail(f"{SSM_ARCH}: a backward through ssd_chunk was not refused")
+    print(f"[train] {small.name}: loss.backward() refused: {msg}")
+    if "ssd_chunk" not in msg or "item 11c" not in msg:
+        fail(f"{SSM_ARCH}: the refusal does not name ssd_chunk and item 11c")
 
     t_ops, t_bytes = path["t_ops_ms"], path["t_bytes_ms"]
     n = path["per_call"]
-    return {"name": "flash_prefill_bwd", "route": "cuda",
-            "source": str(attn.SOURCES["flash_prefill_bwd"].relative_to(ROOT)),
-            "replaces": REPLACES["flash_prefill_bwd"],
-            "launches": got["flash_prefill_bwd"],
-            "max_abs_err": path["err"],
-            **{key: path[key] * n
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    entry = {"name": "flash_prefill_bwd", "route": "cuda",
+             "source": str(attn.SOURCES["flash_prefill_bwd"]
+                           .relative_to(ROOT)),
+             "replaces": REPLACES["flash_prefill_bwd"],
+             "launches": got["flash_prefill_bwd"],
+             "max_abs_err": path["err"],
+             **{key: path[key] * n
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return moe_launches, entry
 
 
 def _entry_name(mangled: str) -> str:
@@ -3496,13 +3802,17 @@ def main() -> None:
     kernels += [entries[n] for n in ("flash_prefill", "decode_attention",
                                      "ssd_chunk", "moe_gemm")]
     t0 = time.perf_counter()
-    kernels.append(run_train())
+    moe_train, bwd_entry = run_train()
+    entries["moe_gemm"]["launches"] += moe_train
+    kernels.append(bwd_entry)
     print(f"[time] training phases {time.perf_counter() - t0:.1f} s")
-    print("[kernels] ssd_chunk: library_ms null: no single PyTorch call "
-          "computes the intra-chunk SSD; moe_gemm: library_ms is torch.bmm "
-          "on the same (E, C, D) x (E, D, F); flash_prefill_bwd: one train "
-          "step's 16 launches at the path's shape, library_ms SDPA's "
-          "backward")
+    print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
+          f"computes the intra-chunk SSD; moe_gemm: its times are granite's "
+          f"fp32 generate's, library_ms torch.bmm on the same (E, C, D) x "
+          f"(E, D, F), its launches that generate's and phase 6's "
+          f"{moe_train} (granite's gradients and train steps); "
+          f"flash_prefill_bwd: one train step's 16 launches at the path's "
+          f"shape, library_ms SDPA's backward")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 

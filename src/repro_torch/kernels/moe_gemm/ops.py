@@ -13,6 +13,9 @@ The kernel has four variants behind its one entry point (see the source
 note of ``csrc/moe_gemm.cu``); :func:`variant` chooses one from the shape
 and dtype alone (and 16-byte alignment, which every tensor the model
 makes has), and the C side refuses a variant that the shape does not fit.
+
+:class:`MoeGemm` is the product under autograd: its backward is two more
+launches of the same kernel, on transposed operands.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ MAX_GRID_Y = 65535
 MAX_SPLIT_ROWS = 2048
 STREAM_BLOCKS = 2 * 132
 STREAM_SLAB = 32 * 4
+BF16_GRAD = ("moe_gemm: no bf16 backward (training runs in fp32, as the "
+             "reference's; bf16 training is later kernel work)")
 
 _KERNELS = Launchers(SOURCES, ARGTYPES)
 #: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
@@ -159,8 +164,8 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm: no kernel for device {x.device}")
-    refuse_grad("moe_gemm", "its backward is ROADMAP Queue 1, item 11b "
-                "(granite and mixtral train on the CPU until then)", x, w)
+    refuse_grad("moe_gemm", "differentiate through MoeGemm.apply, whose "
+                "backward launches this kernel twice", x, w)
     v, rows, n_part, n_count = _check_cuda(x, w)
     E, C, D = x.shape
     F = w.shape[2]
@@ -174,3 +179,41 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                     E, C, D, F, VARIANTS.index(v), rows, ws, counters)
     bump(variant_counts, v)
     return y
+
+
+class MoeGemm(torch.autograd.Function):
+    """:func:`moe_gemm` with its backward: ``MoeGemm.apply(x, w)``.  Saves
+    x and w.  The backward is two more calls of :func:`moe_gemm`, each
+    only where ``ctx.needs_input_grad`` asks for it: dx = dy wᵀ (dy
+    (E, C, F) against wᵀ (E, F, D)) and dw = xᵀ dy (xᵀ (E, D, C) against
+    dy (E, C, F)), each call's variant chosen from its own shape
+    (:func:`variant`).  The transposes are contiguous copies: layout
+    only, the products are the kernel's.  Kernels on CUDA tensors, the
+    plain version on CPU tensors.  A bf16 input that needs a gradient
+    raises ``NotImplementedError`` (fp32 training only); under
+    ``torch.no_grad`` it runs."""
+
+    @classmethod
+    def apply(cls, x, w):
+        # here, not in forward: forward runs with grad mode off, and its
+        # ctx.needs_input_grad is set under torch.no_grad too
+        if x.dtype != torch.float32 and torch.is_grad_enabled() \
+                and (x.requires_grad or w.requires_grad):
+            raise NotImplementedError(BF16_GRAD)
+        return super().apply(x, w)
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return moe_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_gemm(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = moe_gemm(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw

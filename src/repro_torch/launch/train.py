@@ -9,11 +9,18 @@ The reference's launcher shards the train step over the host's mesh; on
 one device the mesh is that device (sharding and multi-device meshes are
 ROADMAP Queue 1, item 12).  Weights are random from ``--seed``.  On the
 card the dense archs (llama, qwen, command-r) train through the
-attention kernels and their backward; the MoE and Mamba2 families stop
-at ``moe_gemm`` and ``ssd_chunk``, whose backward kernels are ROADMAP
-Queue 1, items 11b and 11c, and train on the CPU.  The archs that take
-embeddings (llava, musicgen) stop as the reference's launcher stops
-them.
+attention kernels and their backward, the MoE archs (granite, mixtral)
+through those and ``moe_gemm`` with its backward; Mamba2 and the hybrid
+stop at ``ssd_chunk``, whose backward kernel is ROADMAP Queue 1, item
+11c, and train on the CPU.  The archs that take embeddings (llava,
+musicgen) stop as the reference's launcher stops them.
+
+The optimizer's update is functional, as the reference's: at the update
+the old params, m and v, the gradients, the clipped gradients and the
+new m, v and params are alive at once, about 8 copies of the params.
+So granite-moe-3b-a800m at full depth (3.37 G params, 13.5 GB in fp32)
+needs about 108 GB and does not fit one 80 GB card; at 16 of its 32
+layers it does (8 x 7.05 GB, plus the activations).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ JAX package's ``models/transformer/layers.py``.
   Hopper ``decode_attention`` kernel;
 * ``mlp`` — SwiGLU;
 * ``moe`` — top-k routed experts with per-sample capacity dispatch; the
-  three expert products are the Hopper ``moe_gemm`` kernel;
+  three expert products are the Hopper ``moe_gemm`` kernel, differentiated
+  by two more launches of it (``MoeGemm``);
 * ``mamba2_prefill`` / ``mamba2_decode`` — Mamba2 (SSD): chunked
   prefill, whose intra-chunk step (:func:`ssd_chunked`) is the Hopper
   ``ssd_chunk`` kernel, and the O(1) recurrent decode (plain torch, as
@@ -214,7 +215,8 @@ def moe(p: MoeParams, x: torch.Tensor, top_k: int,
     residual covers them).  The expert buffers are laid out (E, B·cap, d),
     the reference's (B, E, cap, d) with the batch folded into the rows
     (exact: every row meets the same ``w[e]``), so each expert product
-    is one ``moe_gemm`` launch.
+    is one ``moe_gemm`` launch (``MoeGemm``: under autograd, two more in
+    the backward).
 
     Dispatch and combine use no atomic adds, so a run repeats bit for
     bit: the kept assignments, whose (expert, slot) pairs are unique,
@@ -255,7 +257,7 @@ def moe(p: MoeParams, x: torch.Tensor, top_k: int,
     if backend == "torch":
         gemm = moe_ref.moe_gemm_ref
     else:
-        gemm = moe_ops.moe_gemm
+        gemm = moe_ops.MoeGemm.apply
     h = gemm(xe, p.w1)
     u = gemm(xe, p.w3)
     y = gemm(F.silu(h) * u, p.w2).reshape(E * B * cap, d)

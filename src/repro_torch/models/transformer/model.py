@@ -27,10 +27,12 @@ captures into one CUDA graph.
 ``backend="cuda"`` (the default: the Hopper kernels, or their plain
 versions on CPU tensors) or ``backend="torch"`` (the plain versions on
 any device).  ``loss_fn`` is differentiable on both: attention through
-``FlashPrefill`` and its backward kernel on the card; ``moe_gemm`` and
-``ssd_chunk`` have no backward kernel yet and refuse inputs that require
-grad there (ROADMAP Queue 1, items 11b and 11c), while on the CPU every
-family trains through the plain versions.
+``FlashPrefill`` and its backward kernel on the card, the MoE expert
+products through ``MoeGemm`` (its backward two more ``moe_gemm``
+launches), so the dense, MoE and ``embeds`` families train on the card;
+``ssd_chunk`` has no backward kernel yet and refuses inputs that require
+grad there (ROADMAP Queue 1, item 11c), so Mamba2 and the hybrid train
+on the CPU, where every family trains through the plain versions.
 """
 
 from __future__ import annotations

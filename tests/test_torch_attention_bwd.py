@@ -144,8 +144,8 @@ def test_refuse_grad_on_cpu_tensors(grad_mode, marked):
     with torch.set_grad_enabled(grad_mode):
         if grad_mode and marked < 2:
             with pytest.raises(NotImplementedError,
-                               match="moe_gemm.*item 11b"):
-                _build.refuse_grad("moe_gemm", "ROADMAP Queue 1, item 11b",
+                               match="ssd_chunk.*item 11c"):
+                _build.refuse_grad("ssd_chunk", "ROADMAP Queue 1, item 11c",
                                    *ts)
         else:
-            _build.refuse_grad("moe_gemm", "ROADMAP Queue 1, item 11b", *ts)
+            _build.refuse_grad("ssd_chunk", "ROADMAP Queue 1, item 11c", *ts)

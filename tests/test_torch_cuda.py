@@ -970,8 +970,9 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
     """On the card a kernel's output has no grad_fn, so each wrapper
     raises on an input that requires grad while grad mode is on (the
     message names the kernel and where its backward stands), and runs
-    under ``torch.no_grad``; a bf16 prefill that needs a gradient is
-    refused too (fp32 training only)."""
+    under ``torch.no_grad``; ``moe_gemm``'s message points to
+    ``MoeGemm``, the way to differentiate it; a bf16 prefill or expert
+    product that needs a gradient is refused too (fp32 training only)."""
     q, kk, vv, _, _ = _bwd_inputs("s64", cuda)
     x, dt, A, Bm, Cm = (_t(a, cuda) for a in ssd_inputs(2, 64, 2, 16, 16))
     xe, we = (_t(a, cuda) for a in moe_gemm_inputs(2, 8, 16, 16))
@@ -983,11 +984,11 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
         "decode_attention": lambda g: attn_ops.decode_attention(
             g[:, 0].contiguous(), kk, vv, vl),
         "ssd_chunk.*item 11c": lambda g: ssd_ops.ssd_chunk(x, dt, A, g, Cm),
-        "moe_gemm.*item 11b": lambda g: moe_ops.moe_gemm(xe, g),
+        "moe_gemm.*MoeGemm": lambda g: moe_ops.moe_gemm(xe, g),
         "conv2d_fused": lambda g: ops.conv2d_fused(xc, g, bc),
     }
     marked = {"flash_prefill": q, "decode_attention": q,
-              "ssd_chunk.*item 11c": Bm, "moe_gemm.*item 11b": we,
+              "ssd_chunk.*item 11c": Bm, "moe_gemm.*MoeGemm": we,
               "conv2d_fused": wc}
     for name, call in calls.items():
         g = marked[name].clone().requires_grad_()
@@ -998,14 +999,54 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
     with pytest.raises(NotImplementedError, match="item 11"):
         attn_ops.FlashPrefill.apply(q.bfloat16().requires_grad_(),
                                     kk.bfloat16(), vv.bfloat16(), 0)
+    with pytest.raises(NotImplementedError, match="moe_gemm.*bf16"):
+        moe_ops.MoeGemm.apply(xe.bfloat16(), we.bfloat16().requires_grad_())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "musicgen-medium"])
+@pytest.mark.parametrize("shape", [(40, 512, 1536, 512), (40, 512, 512, 1536),
+                                   (4, 10, 1024, 256)])
+def test_moe_gemm_function_differentiates_through_the_kernel(shape, cuda):
+    """``MoeGemm.apply`` on the card at granite's training shapes (the
+    w1/w3 product and its w2 twin, C = 4 x 128 slots) and at a C that is
+    no multiple of 4 (dw's depth then takes the general variant): one
+    launch forward, two backward, each in the variant of its own shape;
+    dx and dw bit-equal to direct wrapper calls on the transposed
+    copies, and within 1e-4 x max(1, max|g|) of autograd of the plain
+    version."""
+    e, c, d, f = shape
+    x, w = (_t(a, cuda) for a in moe_gemm_inputs(e, c, d, f))
+    dy = torch.tensor(np.random.default_rng(9).standard_normal((e, c, f)),
+                      dtype=torch.float32, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    y = moe_ops.MoeGemm.apply(*leaves)
+    before = moe_ops.launch_count("moe_gemm")
+    variants = dict(moe_ops.variant_counts)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert moe_ops.launch_count("moe_gemm") == before + 2
+    for plan in (moe_ops._plan(e, c, f, d, torch.float32, True),
+                 moe_ops._plan(e, d, c, f, torch.float32, True)):
+        variants[plan[0]] += 1
+    assert moe_ops.variant_counts == variants
+    direct = (moe_ops.moe_gemm(dy, w.transpose(1, 2).contiguous()),
+              moe_ops.moe_gemm(x.transpose(1, 2).contiguous(), dy))
+    plain = [t.clone().requires_grad_() for t in (x, w)]
+    want = torch.autograd.grad(moe_ref.moe_gemm_ref(*plain), plain, dy)
+    for g, dg, p in zip(got, direct, want):
+        assert torch.equal(g, dg)
+        limit = 1e-4 * max(1.0, p.abs().max().item())
+        assert (g - p).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "musicgen-medium",
+                                  "granite-moe-3b-a800m", "mixtral-8x7b"])
 def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
-    """Reduced Llama (tokens) and musicgen (the ``embeds`` mode) on the
-    card: ``loss_and_grads`` through the kernels (remat: two
-    flash_prefill a layer, one flash_prefill_bwd) against
+    """Reduced Llama (tokens), musicgen (the ``embeds`` mode), granite and
+    mixtral (MoE) on the card: ``loss_and_grads`` through the kernels
+    (remat: two flash_prefill a layer, one flash_prefill_bwd; MoE: 12
+    moe_gemm a layer, 3 forward, 3 in the recompute, 6 backward) against
     ``backend="torch"``: loss within 1e-5 relative, each leaf within
     1e-3 x max|g| of its leaf."""
     cfg = configs.get(arch).reduced(n_layers=2, d_model=128)
@@ -1018,9 +1059,11 @@ def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
             (2, 96, cfg.d_model)).astype(np.float32), cuda),
             "labels": batch["labels"]}
     attn_ops.reset_launches()
+    moe_ops.reset_launches()
     loss, grads = loss_and_grads(cfg, params, batch)
     assert (attn_ops.launch_count("flash_prefill"),
             attn_ops.launch_count("flash_prefill_bwd")) == (4, 2)
+    assert moe_ops.launch_count("moe_gemm") == (24 if cfg.is_moe else 0)
     loss_t, grads_t = loss_and_grads(cfg, params, batch, backend="torch")
     assert abs(loss.item() - loss_t.item()) <= 1e-5 * abs(loss_t.item())
     for g, gt in zip(tree.leaves(grads), tree.leaves(grads_t)):
