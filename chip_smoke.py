@@ -177,15 +177,34 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    shape, 160 ``flash_prefill`` and 80 ``flash_prefill_bwd``; finite
    losses, step ms, tokens/s and peak memory, then one profiled step
    with ``moe_gemm``'s device time in the forward, the recompute and
-   the backward, and the transposed copies' share; (d) reduced mamba2,
-   whose ``ssd_chunk`` has no backward kernel yet, refused with
-   ``NotImplementedError`` naming the kernel and its ROADMAP item;
-7. one ``{"kernels": [...]}`` JSON line (six kernels; conv2d_fused's
+   the backward, and the transposed copies' share.  Then mamba2-370m
+   and zamba2-2.7b at full width in fp32: (a″) ``ssd_chunk``'s backward
+   kernel (``ssd_chunk_bwd``), ``SsdChunk``'s dx, ddt, dA, dB and dC
+   against autograd of the plain version at mamba2's and zamba2's
+   training folds (8, 256, 32, 64, 128) and (8, 256, 80, 64, 64), the
+   forward's Q = 511 edge at one chunk, H = 6, P and N below 64, and a
+   chunk whose decays sum past -100 (finite gradients where exp above
+   the diagonal would overflow), each within FP32_TOL x max(1, max|ref|)
+   and called twice for the same bits, its plan's grid, G and shared
+   memory the C side's, with the wrapper's ms, device ms (the kernel's
+   and the torch finish's apart), plain ms and the bound; (b″) and (b‴)
+   ``loss_and_grads`` of mamba2 and of zamba2 at full depth against
+   ``backend="torch"`` as in (b): 96 ``ssd_chunk`` (48 forward, 48 in
+   remat's recompute) and 48 ``ssd_chunk_bwd``; zamba2 108, 54, 18
+   ``flash_prefill`` and 9 ``flash_prefill_bwd``; (c″) five mamba2
+   steps through ``launch.train.main``, counted (480 ``ssd_chunk``, 240
+   ``ssd_chunk_bwd``), then one profiled step with ``ssd_chunk_bwd``'s
+   device time and share and its torch finish's; (c‴) five
+   ``training.loop.train`` steps of zamba2 at 24 of its 54 layers (4
+   shared-block sites; 8 copies of the params at full depth would be
+   about 78 GB), counted (240, 120, 40, 20);
+7. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
-   in-process plan CLI, moe_gemm's those of granite's fp32 generate and
-   of phase 6's (b') and (c'), flash_prefill_bwd's those of the five
-   Llama training steps), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   in-process plan CLI, ssd_chunk's those of mamba2's fp32 generate
+   and of phase 6's (b″)-(c‴), moe_gemm's those of granite's fp32
+   generate and of phase 6's (b') and (c'), flash_prefill_bwd's those of
+   the five Llama training steps, ssd_chunk_bwd's phase 6's), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
 IEEE fp32.  The script imports neither ``jax`` nor the JAX package.
@@ -229,7 +248,10 @@ REPLACES = {"conv2d_fused": "src/repro/kernels/conv2d/conv2d.py:110",
             "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:48",
             "flash_prefill_bwd": "none: the reference differentiates "
                                  "src/repro/models/transformer/layers.py:86 "
-                                 "(blockwise_causal_attention) in XLA"}
+                                 "(blockwise_causal_attention) in XLA",
+            "ssd_chunk_bwd": "none: the reference differentiates "
+                             "src/repro/models/transformer/layers.py:314 "
+                             "(ssd_chunked) in XLA"}
 CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
 # LMs, all at full width (src/repro_torch/configs/): each arch's serving
 # path and the kernels it launches.  Llama-3.2-1B's attention kernels
@@ -294,6 +316,18 @@ MOE_BWD_CASES = [(40, 512, 1536, 512), (40, 512, 512, 1536),
                  (4, 12, 1024, 256), (4, 10, 1024, 256), (40, 4, 1536, 512),
                  (8, 64, 4096, 14336)]
 MOE_TRAIN_LAYERS = 16
+# then mamba2 (SSM_ARCH) and zamba2 (HYBRID_ARCH) in fp32.  SsdChunk's
+# backward (the ssd_chunk_bwd kernel) at (BC, Q, H, P, N): mamba2's and
+# zamba2's training folds (batch 4 x two 256-position chunks), the
+# forward's Q = 511 edge at one chunk, H = 6 (no multiple of G = 4), P and
+# N below 64, and a chunk whose decays sum past -100 with A = -1 (the
+# exp above the diagonal would overflow; the gradients must be finite).
+# zamba2 trains at 24 of its 54 layers (4 shared-block sites): about 8
+# copies of the params with the functional AdamW, 8 x 9.7 GB at full depth
+SSD_BWD_CASES = [((8, 256, 32, 64, 128), False), ((8, 256, 80, 64, 64), False),
+                 ((4, 511, 32, 64, 128), False), ((8, 256, 6, 64, 128), False),
+                 ((4, 256, 8, 32, 16), False), ((2, 256, 8, 64, 64), True)]
+HYBRID_TRAIN_LAYERS = 24
 
 
 def fail(msg: str) -> None:
@@ -686,7 +720,8 @@ def _kernel_ops() -> dict:
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.ssd import ops as ssd
     return {"flash_prefill": attn, "flash_prefill_bwd": attn,
-            "decode_attention": attn, "ssd_chunk": ssd, "moe_gemm": moe}
+            "decode_attention": attn, "ssd_chunk": ssd,
+            "ssd_chunk_bwd": ssd, "moe_gemm": moe}
 
 
 def _reset_counts() -> None:
@@ -1727,6 +1762,107 @@ def moe_bwd_case(shape, seed=0) -> dict:
                 **bound(4.0 * e * c * d * f, nbytes, "float32"))
 
 
+def ssd_bwd_case(shape, overflow=False, seed=0) -> dict:
+    """SsdChunk's backward (fp32) at (BC, Q, H, P, N): dx, ddt, dA, dB and
+    dC of one ``SsdChunk.apply`` (one ssd_chunk_bwd launch, then the
+    wrapper's finish in torch) against autograd of ``ssd_chunk_ref`` on
+    the same inputs and seeded dy and dst, each within FP32_TOL x max(1,
+    max|ref|) and finite; two calls the same bits.  The inputs have the
+    model's ranges, as ``ssd_case``'s; ``overflow`` sets A = -1 and
+    dt the softplus of a standard normal (no ``dt_bias``), and requires
+    the decays to sum past -100 along each chunk (exp above the diagonal
+    would overflow there).  The description names the plan
+    (``ops.bwd_plan``), whose shared memory, grid and G must be the C
+    side's (``ops.bwd_layout``).  Times: the wrapper (kernel and finish),
+    the plain version (``ssd_chunk_bwd_ref``), and as device ms the
+    kernel alone and the finish alone on the kernel's partials.  No
+    single PyTorch call computes it: no library time.  The bound counts
+    dM and M^T dy (4 P a causal pair and head), C B^T, dB and dC (6 N a
+    pair, once a chunk) and the state terms (4 Q P N a head) at the fp32
+    peak, or the inputs read and the gradients written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ops, ref
+
+    bc, q, h, p, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device="cuda")
+
+    dt_bias = torch.log(torch.expm1(torch.linspace(1e-3, 0.1, h,
+                                                   device="cuda")))
+    x = randn(bc, q, h, p)
+    # overflow: dt the softplus of a standard normal (about 0.8), A = -1
+    dt = F.softplus(randn(bc, q, h) + (0.0 if overflow else dt_bias))
+    A = -torch.ones(h, device="cuda") if overflow \
+        else -torch.linspace(1.0, 16.0, h, device="cuda")
+    Bm, Cm = randn(bc, q, n), randn(bc, q, n)
+    dy, dst = randn(bc, q, h, p), randn(bc, h, p, n)
+    args = (x, dt, A, Bm, Cm)
+    cum_last = torch.cumsum(dt * A, dim=1)[:, -1]
+    if overflow and not bool((cum_last < -100).all()):
+        fail(f"ssd_chunk_bwd overflow case: cum_last up to "
+             f"{cum_last.max().item():.1f}, not past -100")
+    pl = ops.bwd_plan(*shape)
+    same_layout = ops.bwd_layout(*shape) == (pl.smem, pl.grid, pl.g)
+    leaves = [t.clone().requires_grad_() for t in args]
+    outs = ops.SsdChunk.apply(*leaves)
+
+    def kernel():
+        return torch.autograd.grad(outs, leaves, (dy, dst),
+                                   retain_graph=True)
+
+    before = ops.launch_count("ssd_chunk_bwd")
+    got = kernel()
+    launched = ops.launch_count("ssd_chunk_bwd") - before
+    again = kernel()
+    plain = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(ref.ssd_chunk_ref(*plain), plain, (dy, dst))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks = [check_close(a, b, torch.float32) for a, b in zip(got, want)]
+    del outs, leaves, plain, got, again, want
+
+    # the kernel alone on preallocated partials, and the finish alone
+    dx = torch.empty_like(x)
+    part = [x.new_empty((bc, q, h)) for _ in range(4)]
+    dbc = [x.new_empty((pl.grid[0], bc, q, n)) for _ in range(2)]
+    ptrs = [t.data_ptr() for t in (*args, dy, dst, dx, *part, *dbc)]
+
+    def launch():
+        ops._KERNELS.launch("ssd_chunk_bwd", x, *ptrs, bc, q, h, p, n)
+
+    launch()
+    ms = time_ms(lambda: ops.ssd_chunk_bwd(*args, dy, dst))
+    plain_ms = time_ms(lambda: ref.ssd_chunk_bwd_ref(*args, dy, dst),
+                       iters=5)
+    dev = device_ms(lambda: ops.ssd_chunk_bwd(*args, dy, dst))
+    kernel_dev = device_ms(launch)
+    finish_dev = device_ms(lambda: ops.bwd_finish(dt, A, *part, *dbc))
+    pairs = q * (q + 1) // 2
+    flops = bc * (4.0 * pairs * p * h + 6.0 * pairs * n + 4.0 * q * p * n * h)
+    nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel()
+                  + 4 * Bm.numel() + dst.numel())
+    return dict(kernel="ssd_chunk_bwd",
+                desc=f"(BC,Q,H,P,N){tuple(shape)}"
+                + (f" A=-1 cum_last {cum_last.max().item():.0f}.."
+                   f"{cum_last.min().item():.0f}" if overflow else "")
+                + f" PW{pl.pw} NW{pl.nw} G{pl.g} grid{pl.grid} "
+                f"smem {pl.smem}; kernel {kernel_dev:.4f} + finish "
+                f"{finish_dev:.4f} device ms"
+                + ("" if same else " NOT BIT-REPRODUCIBLE")
+                + ("" if same_layout else " PLAN AND KERNEL DIFFER")
+                + ("" if launched == 1 else f" LAUNCHED {launched}"),
+                dtype="float32", err=max(c[0] for c in checks),
+                of_limit=max(c[1] for c in checks),
+                ok=all(c[2] for c in checks) and same and same_layout
+                and launched == 1,
+                per_call=0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                dev_ms=dev, library_dev_ms=None, kernel_dev_ms=kernel_dev,
+                finish_dev_ms=finish_dev, **bound(flops, nbytes, "float32"))
+
+
 @contextlib.contextmanager
 def _routes_recorded(routes: dict):
     """``model.moe`` wrapped to record each call's routing decisions (a
@@ -1790,7 +1926,8 @@ def _grad_parity(cfg, params, batch, want: dict) -> None:
           f"backend=\"torch\": loss {loss:.6f} / {loss_t:.6f} ({rel:.2e} "
           f"relative, limit {LOSS_TOL:g}); {len(shares)} gradient leaves, "
           f"all finite; worst leaf {name}: {worst:.3f} of {GRAD_TOL:g} x "
-          f"max|g| of its leaf")
+          f"max|g| of its leaf"
+          + ("" if cfg.is_moe else f"; peak memory {peak:.2f} GiB"))
     if cfg.is_moe:
         per_layer = [int((routes["cuda"][k] != t).any(dim=-1).sum())
                      for k, t in routes["torch"].items()]
@@ -1816,11 +1953,13 @@ def _grads(cfg, params, batch, backend):
     return loss.item(), tree.named_leaves(grads)
 
 
-def _train_step_profile(cfg, batch) -> None:
+def _train_step_profile(cfg, batch, finish_ms=None) -> None:
     """One profiled train step (after one warm-up step) on fresh weights:
     device time by kernel, the backward kernel's share, busy share of the
     step's wall; for an MoE arch, moe_gemm by part
-    (:func:`_moe_step_split`)."""
+    (:func:`_moe_step_split`); for a Mamba2 arch ssd_chunk_bwd's device
+    time and share, and its torch finish at ``finish_ms`` a call (timed
+    alone at the path's shape) times its launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import model as M
@@ -1856,9 +1995,22 @@ def _train_step_profile(cfg, batch) -> None:
           f"flash_prefill_bwd kernels {bwd:.3f} ms ({100 * bwd / busy:.2f}% "
           f"of the device time), flash_prefill {fwd:.3f} ms "
           f"({100 * fwd / busy:.2f}%)")
+    if cfg.is_ssm:
+        sbwd = [(ms, n) for k, ms, n in rows if "ssd_chunk_bwd" in k]
+        sfwd = sum(ms for k, ms, _ in rows
+                   if "ssd_chunk" in k and "bwd" not in k)
+        ms_b, n_b = sum(m for m, _ in sbwd), sum(n for _, n in sbwd)
+        glue = f"{finish_ms * n_b:.3f}" if finish_ms is not None \
+            else "not measured"
+        print(f"[train] ssd_chunk_bwd kernel {ms_b:.3f} ms device in {n_b} "
+              f"launches ({100 * ms_b / busy:.2f}% of the device time); "
+              f"its finish in torch (reverse cumsum, sums), timed alone at "
+              f"the path's shape: {glue} ms for the step "
+              f"({finish_ms if finish_ms is not None else 0:.4f} a call); "
+              f"ssd_chunk {sfwd:.3f} ms ({100 * sfwd / busy:.2f}%)")
     top = sorted(rows, key=lambda r: -r[1])
     for key, ms, n in top[:8] + [r for r in top[8:] if "flash" in r[0]
-                                 or "moe_gemm" in r[0]]:
+                                 or "moe_gemm" in r[0] or "ssd" in r[0]]:
         print(f"[train]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} "
               f"{key[:90]}")
     if cfg.is_moe:
@@ -1868,15 +2020,24 @@ def _train_step_profile(cfg, batch) -> None:
 
 def _train_launches(cfg, steps: int) -> dict:
     """Each kernel's launches in ``steps`` train steps (or one
-    ``loss_and_grads`` for 1) of an attention arch, remat on: per layer
-    two flash_prefill (the forward and remat's recompute) and one
-    flash_prefill_bwd; with MoE 12 moe_gemm (3 forward, 3 recomputed,
-    6 backward: dx and dw of each product)."""
+    ``loss_and_grads`` for 1), remat on: per attention (a layer, or a
+    shared-block site of a hybrid) two flash_prefill (the forward and
+    remat's recompute) and one flash_prefill_bwd; with MoE 12 moe_gemm a
+    layer (3 forward, 3 recomputed, 6 backward: dx and dw of each
+    product); per Mamba2 layer two ssd_chunk and one ssd_chunk_bwd."""
+    from repro_torch.models.transformer import model as M
+
+    L = cfg.n_layers
+    attn = M.n_shared_apps(cfg) if cfg.shared_attn_every \
+        else 0 if cfg.is_ssm else L
     want = dict.fromkeys(_kernel_ops(), 0)
-    want["flash_prefill"] = steps * 2 * cfg.n_layers
-    want["flash_prefill_bwd"] = steps * cfg.n_layers
+    want["flash_prefill"] = steps * 2 * attn
+    want["flash_prefill_bwd"] = steps * attn
     if cfg.is_moe:
-        want["moe_gemm"] = steps * 12 * cfg.n_layers
+        want["moe_gemm"] = steps * 12 * L
+    if cfg.is_ssm:
+        want["ssd_chunk"] = steps * 2 * L
+        want["ssd_chunk_bwd"] = steps * L
     return want
 
 
@@ -2026,16 +2187,127 @@ def run_train_moe() -> int:
     return want["moe_gemm"] + _train_launches(small, TRAIN_STEPS)["moe_gemm"]
 
 
-def run_train() -> tuple[int, dict]:
+def run_train_ssm() -> tuple[int, dict]:
+    """Phase 6 (a″)-(c‴), mamba2-370m and zamba2-2.7b in fp32: (a″)
+    SsdChunk's backward against autograd of the plain version; (b″) and
+    (b‴) loss_fn's gradients at full depth, kernel path against
+    backend="torch"; (c″) five steps of mamba2 through
+    ``launch.train.main``, counted, then one profiled step; (c‴) five
+    steps of ``training.loop.train`` of zamba2 at HYBRID_TRAIN_LAYERS
+    layers, counted.  Returns the ssd_chunk launches of the counted runs
+    and the kernels entry of ``ssd_chunk_bwd`` (its times summed over one
+    mamba2 train step at the path's shape, its launches phase 6's)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training.loop import train
+
+    ssd = _kernel_ops()["ssd_chunk_bwd"]
+    cfg = configs.get(SSM_ARCH)
+    print(f"[train] {cfg.name}: {_describe(cfg)}, "
+          f"{cfg.param_count() / 1e9:.2f} G params, fp32, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, TokenStream seed 0")
+
+    # -- (a″) the backward kernel against autograd of the plain version ----
+    cases = [ssd_bwd_case(shape, overflow)
+             for shape, overflow in SSD_BWD_CASES]
+    print(f"[train] ssd_chunk_bwd (SsdChunk's backward: the kernel, then "
+          f"its finish in torch): {len(cases)} cases | max_abs_err (worst "
+          f"of dx, ddt, dA, dB, dC over {FP32_TOL:g} x max(1, max|ref|)) | "
+          f"ms wrapper / plain (ssd_chunk_bwd_ref) / library (none) / "
+          f"bound | device ms wrapper")
+    _print_cases(cases)
+    torch.cuda.empty_cache()
+    if any(not r["ok"] for r in cases):
+        fail("ssd_chunk_bwd disagrees with autograd of the plain version, "
+             "is not bit-repeatable, or its plan is not the kernel's")
+    path = cases[0]
+    path["per_call"] = cfg.n_layers       # one backward a layer a step
+
+    # -- (b″) mamba2's gradients at full depth -------------------------------
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    batch = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                        device="cuda").batches(1)[0]
+    want = _train_launches(cfg, 1)
+    _grad_parity(cfg, params, batch, want)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (b‴) zamba2's gradients at full depth -------------------------------
+    hyb = configs.get(HYBRID_ARCH)
+    print(f"[train] {hyb.name}: {_describe(hyb)}, "
+          f"{hyb.param_count() / 1e9:.2f} G params, fp32, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, TokenStream seed 0")
+    params = M.init_params(hyb, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    hbatch = TokenStream(hyb.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                         device="cuda").batches(1)[0]
+    want_h = _train_launches(hyb, 1)
+    _grad_parity(hyb, params, hbatch, want_h)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (c″) mamba2 through the launcher, counted ---------------------------
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rep = launcher.main(["--arch", SSM_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--seed", "0", "--device", "cuda"])
+    got = _train_counted(cfg, rep, "launch.train.main")
+    _train_step_profile(cfg, batch, path["finish_dev_ms"])
+    torch.cuda.empty_cache()
+
+    # -- (c‴) zamba2 at HYBRID_TRAIN_LAYERS layers, counted ------------------
+    small = dataclasses.replace(hyb, n_layers=HYBRID_TRAIN_LAYERS)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rep = train(small, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=3e-3, seed=0, log_every=10, warmup=10, device="cuda")
+    got_h = _train_counted(small, rep, f"training.loop.train at "
+                           f"{HYBRID_TRAIN_LAYERS} of {hyb.n_layers} layers "
+                           f"({M.n_shared_apps(small)} shared-block sites, "
+                           f"{small.param_count() / 1e9:.2f} G params)")
+    torch.cuda.empty_cache()
+
+    runs = (want, want_h, got, got_h)
+    t_ops, t_bytes = path["t_ops_ms"], path["t_bytes_ms"]
+    n = path["per_call"]
+    entry = {"name": "ssd_chunk_bwd", "route": "cuda",
+             "source": str(ssd.SOURCES["ssd_chunk_bwd"].relative_to(ROOT)),
+             "replaces": REPLACES["ssd_chunk_bwd"],
+             "launches": sum(r["ssd_chunk_bwd"] for r in runs),
+             "max_abs_err": path["err"],
+             **{key: None if path[key] is None else path[key] * n
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(f"[kernels] ssd_chunk_bwd: ms, plain_ms, bound_ms summed over one "
+          f"{cfg.name} train step's {n} launches at (BC,Q,H,P,N)"
+          f"{SSD_BWD_CASES[0][0]}; device {path['dev_ms'] * n:.3f} ms "
+          f"(kernel {path['kernel_dev_ms'] * n:.3f}, finish "
+          f"{path['finish_dev_ms'] * n:.3f}), bound "
+          f"{path['bound_ms'] * n:.3f} ms ("
+          f"{100 * path['bound_ms'] / path['kernel_dev_ms']:.1f}% of the "
+          f"kernel's device time); launches: phase 6's {entry['launches']}")
+    return sum(r["ssd_chunk"] for r in runs), entry
+
+
+def run_train() -> tuple[int, int, list[dict]]:
     """Phase 6, training in fp32.  Llama-3.2-1B at full width: (a) the
     backward kernel against its plain version (the path's shape and
     edges); (b) loss_fn's gradients on the kernel path against
     backend="torch" on the same weights and batch, every leaf; (c) five
     steps through ``launch.train.main``, its kernels counted (reset just
-    before, read just after).  Then granite (:func:`run_train_moe`); (d)
-    reduced mamba2 refused by the guard of ``ssd_chunk``.  Returns the
-    moe_gemm launches of granite's counted runs and the kernels entry of
-    ``flash_prefill_bwd``, summed over one Llama train step."""
+    before, read just after).  Then granite (:func:`run_train_moe`), then
+    mamba2 and zamba2 (:func:`run_train_ssm`).  Returns the moe_gemm
+    launches of granite's counted runs, the ssd_chunk launches of
+    mamba2's and zamba2's, and the kernels entries of
+    ``flash_prefill_bwd`` (summed over one Llama train step) and
+    ``ssd_chunk_bwd``."""
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
@@ -2085,21 +2357,8 @@ def run_train() -> tuple[int, dict]:
     # -- (a')-(c') granite: moe_gemm's backward, then training ----------
     moe_launches = run_train_moe()
 
-    # -- (d) the guard: no backward kernel yet -----------------------------
-    small = configs.get(SSM_ARCH).reduced(n_layers=2, d_model=128)
-    p = M.init_params(small, torch.Generator(device="cuda").manual_seed(0),
-                      device="cuda")
-    b = TokenStream(small.vocab_size, 2, 64, seed=0,
-                    device="cuda").batches(1)[0]
-    try:
-        _grads(small, p, b, "cuda")
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        fail(f"{SSM_ARCH}: a backward through ssd_chunk was not refused")
-    print(f"[train] {small.name}: loss.backward() refused: {msg}")
-    if "ssd_chunk" not in msg or "item 11c" not in msg:
-        fail(f"{SSM_ARCH}: the refusal does not name ssd_chunk and item 11c")
+    # -- (a″)-(c‴) mamba2 and zamba2: ssd_chunk's backward, training ------
+    ssd_launches, ssd_entry = run_train_ssm()
 
     t_ops, t_bytes = path["t_ops_ms"], path["t_bytes_ms"]
     n = path["per_call"]
@@ -2112,7 +2371,7 @@ def run_train() -> tuple[int, dict]:
              **{key: path[key] * n
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    return moe_launches, entry
+    return moe_launches, ssd_launches, [entry, ssd_entry]
 
 
 def _entry_name(mangled: str) -> str:
@@ -3802,17 +4061,22 @@ def main() -> None:
     kernels += [entries[n] for n in ("flash_prefill", "decode_attention",
                                      "ssd_chunk", "moe_gemm")]
     t0 = time.perf_counter()
-    moe_train, bwd_entry = run_train()
+    moe_train, ssd_train, bwd_entries = run_train()
     entries["moe_gemm"]["launches"] += moe_train
-    kernels.append(bwd_entry)
+    entries["ssd_chunk"]["launches"] += ssd_train
+    kernels += bwd_entries
     print(f"[time] training phases {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
-          f"computes the intra-chunk SSD; moe_gemm: its times are granite's "
+          f"computes the intra-chunk SSD; its launches mamba2's fp32 "
+          f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
+          f"gradients and train steps); moe_gemm: its times are granite's "
           f"fp32 generate's, library_ms torch.bmm on the same (E, C, D) x "
           f"(E, D, F), its launches that generate's and phase 6's "
           f"{moe_train} (granite's gradients and train steps); "
           f"flash_prefill_bwd: one train step's 16 launches at the path's "
-          f"shape, library_ms SDPA's backward")
+          f"shape, library_ms SDPA's backward; ssd_chunk_bwd: one mamba2 "
+          f"train step's 48 launches at the path's shape, library_ms null "
+          f"(no single PyTorch call computes it)")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 

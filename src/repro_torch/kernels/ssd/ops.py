@@ -1,4 +1,5 @@
-"""Public wrapper of the Hopper SSD intra-chunk kernel (``csrc/ssd_chunk.cu``).
+"""Public wrappers of the Hopper SSD intra-chunk kernel (``csrc/ssd_chunk.cu``)
+and of its backward (``csrc/ssd_chunk_bwd.cu``).
 
 Counterpart of ``src/repro/kernels/ssd/``.  For tensors on the GPU the
 wrapper launches the kernel or raises; for tensors on the CPU it runs
@@ -7,7 +8,10 @@ or width the kernel does not take is an error.
 
 :func:`plan` chooses each launch's heads a block in plain Python (with
 the grid and shared memory that follow); the kernel refuses any other.
-:func:`launch_count` counts the kernel's launches since the last
+:func:`bwd_plan` is the backward's, which the C side derives itself and
+reports (:func:`bwd_layout`).  :class:`SsdChunk` puts :func:`ssd_chunk`
+under autograd, its backward one :func:`ssd_chunk_bwd` call.
+:func:`launch_count` counts each kernel's launches since the last
 :func:`reset_launches`, so a run can show that it went through it.
 """
 
@@ -22,10 +26,11 @@ from typing import NamedTuple
 import torch
 
 from .._build import DTYPE_CODES, Launchers, library, refuse_grad
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"ssd_chunk": CSRC / "ssd_chunk.cu"}
+SOURCES = {"ssd_chunk": CSRC / "ssd_chunk.cu",
+           "ssd_chunk_bwd": CSRC / "ssd_chunk_bwd.cu"}
 #: largest head dim P and state size N the kernel takes
 MAX_P = MAX_N = 128
 #: the tiles the kernel is written for: rows of a y row tile (and
@@ -46,7 +51,16 @@ ARGTYPES = {
     # dtype; x, dt, A, B, C, y, st; bc, q, h, p, n; g; stream
     "ssd_chunk": ([ctypes.c_int] + [ctypes.c_void_p] * 7
                   + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    # dtype; x, dt, A, B, C, dy, dst; dx, ddtp, dcc, uw, dcr, dBp, dCp;
+    # bc, q, h, p, n; stream
+    "ssd_chunk_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
+#: the backward's tile of positions (rows i and columns j) and the widths
+#: it pads P and N to in shared memory
+BWD_T, BWD_WIDTHS = 64, (64, 128)
+BF16_GRAD = ("ssd_chunk: no bf16 backward (training runs in fp32, as the "
+             "reference's; bf16 training is later kernel work)")
 
 _KERNELS = Launchers(SOURCES, ARGTYPES)
 #: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
@@ -182,6 +196,17 @@ def _check_cuda(x: torch.Tensor, *others: torch.Tensor) -> None:
                          f"{MAX_GRID} each")
 
 
+def _check_shapes(name, x, dt, A, Bm, Cm) -> None:
+    if x.dim() != 4 or tuple(dt.shape) != tuple(x.shape[:3]) \
+            or tuple(A.shape) != (x.shape[2],) or Bm.dim() != 3 \
+            or Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != \
+            tuple(x.shape[:2]):
+        raise ValueError(f"{name}: want x (BC,Q,H,P), dt (BC,Q,H), A (H,),"
+                         f" B/C (BC,Q,N); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               Bm: torch.Tensor, Cm: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -191,21 +216,14 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (y_intra (BC, Q, H, P), state (BC, H, P, N)) in x's dtype
     (fp32 or bf16 on the GPU; fp32 decays and accumulation either way).
     """
-    if x.dim() != 4 or tuple(dt.shape) != tuple(x.shape[:3]) \
-            or tuple(A.shape) != (x.shape[2],) or Bm.dim() != 3 \
-            or Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != \
-            tuple(x.shape[:2]):
-        raise ValueError(f"ssd_chunk: want x (BC,Q,H,P), dt (BC,Q,H), A (H,),"
-                         f" B/C (BC,Q,N); got {tuple(x.shape)}, "
-                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
-                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    _check_shapes("ssd_chunk", x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
-    refuse_grad("ssd_chunk", "its backward is ROADMAP Queue 1, item 11c "
-                "(mamba2 and zamba2 train on the CPU until then)",
-                x, dt, A, Bm, Cm)
+    refuse_grad("ssd_chunk", "differentiate it through SsdChunk.apply, "
+                "whose backward is the ssd_chunk_bwd kernel", x, dt, A, Bm,
+                Cm)
     _check_cuda(x, dt, A, Bm, Cm)
     BC, Q, H, P = x.shape
     N = Bm.shape[-1]
@@ -218,3 +236,153 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                     y.data_ptr(), st.data_ptr(), BC, Q, H, P, N, pl.g)
     return y, st
+
+
+# -- the backward ------------------------------------------------------------
+
+class BwdPlan(NamedTuple):
+    """How one ``ssd_chunk_bwd`` launch runs: P and N padded to ``pw`` and
+    ``nw`` in shared memory, G heads a block (4 at pw 64, 2 at 128: the
+    registers of dx), the grid (head groups, chunks, a column and a row
+    block of each 64-position tile) and a block's dynamic shared memory
+    in bytes.  The C side derives the same from the shape
+    (``ssd_chunk_bwd_query``, :func:`bwd_layout`)."""
+    pw: int
+    nw: int
+    g: int
+    grid: tuple[int, int, int]
+    smem: int
+
+
+def _f16(floats: int) -> int:
+    return _cdiv(floats, 4) * 4
+
+
+def bwd_smem_bytes(pw: int, nw: int, g: int) -> int:
+    """A block's shared memory, as ``layout`` in ``ssd_chunk_bwd.cu`` sums
+    it (floats, each part rounded to 16 bytes): the owned tile (B_j or
+    C_i, 64 rows of nw + 4), G heads of the owned side (x_j or dy_i, 64
+    rows of pw + 4 each), the walked tile and one head of the walked
+    side, the M and dCB tiles (64 x 65), eight G x 64 arrays of cum, dt
+    and sums, and cum_last."""
+    t = BWD_T
+    parts = [t * (nw + 4), g * t * (pw + 4), t * (nw + 4), t * (pw + 4),
+             t * (t + 1), t * (t + 1)] + [g * t] * 8 + [g]
+    return 4 * sum(_f16(f) for f in parts)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(bc: int, q: int, h: int, p: int, n: int) -> BwdPlan:
+    """The backward's launch plan from the shape alone; raises ValueError
+    for one the kernel refuses (widths, grid)."""
+    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N and q >= 1 and h >= 1):
+        raise ValueError(f"ssd_chunk_bwd: plan refused at P {p}, N {n}, "
+                         f"Q {q}, H {h}")
+    pw = BWD_WIDTHS[0] if p <= BWD_WIDTHS[0] else BWD_WIDTHS[1]
+    nw = BWD_WIDTHS[0] if n <= BWD_WIDTHS[0] else BWD_WIDTHS[1]
+    g = 4 if pw == BWD_WIDTHS[0] else 2
+    grid = (_cdiv(h, g), bc, 2 * _cdiv(q, BWD_T))
+    pl = BwdPlan(pw, nw, g, grid, bwd_smem_bytes(pw, nw, g))
+    if pl.smem > SMEM_MAX or max(grid[1:]) > MAX_GRID:
+        raise ValueError(f"ssd_chunk_bwd: plan refused: {pl}")
+    return pl
+
+
+def bwd_layout(bc: int, q: int, h: int, p: int, n: int
+               ) -> tuple[int, tuple[int, int, int], int]:
+    """The shared memory, grid and G that the C side computes for the
+    backward's launch (``ssd_chunk_bwd_query``), to hold :func:`bwd_plan`
+    against.  Builds the kernel, so it needs the CUDA toolkit; raises
+    where the C side refuses the launch."""
+    fn = library(SOURCES["ssd_chunk_bwd"]).ssd_chunk_bwd_query
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(0, bc, q, h, p, n, out)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd_query refused "
+                           f"{(bc, q, h, p, n)}: CUDA error {err}")
+    return out[0], (out[1], out[2], out[3]), out[4]
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                  dst: torch.Tensor):
+    """Gradients (dx, ddt, dA, dB, dC) of :func:`ssd_chunk` at (x, dt, A,
+    B, C) for the output gradients dy (BC, Q, H, P) and dst (BC, H, P,
+    N).  fp32 on the GPU: one launch of the backward kernel (every
+    product and every Q x Q term), then the finish in torch on its
+    partials (the reverse cumsum of dcum, ddt's A term, dA's sum over
+    chunks and positions, dB's and dC's sums over head groups), all in a
+    fixed order, so two calls give the same bits.
+    :func:`.ref.ssd_chunk_bwd_ref` on the CPU."""
+    _check_shapes("ssd_chunk_bwd", x, dt, A, Bm, Cm)
+    BC, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dy.shape) != tuple(x.shape) \
+            or tuple(dst.shape) != (BC, H, P, N):
+        raise ValueError(f"ssd_chunk_bwd: want dy {tuple(x.shape)}, dst "
+                         f"{(BC, H, P, N)}; got {tuple(dy.shape)}, "
+                         f"{tuple(dst.shape)}")
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_ref(x, dt, A, Bm, Cm, dy, dst)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd: no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(BF16_GRAD)
+    refuse_grad("ssd_chunk_bwd", "no double backward", x, dt, A, Bm, Cm, dy,
+                dst)
+    _check_cuda(x, dt, A, Bm, Cm, dy, dst)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, torch.zeros_like(dt), torch.zeros_like(A), \
+            torch.zeros_like(Bm), torch.zeros_like(Cm)
+    pl = bwd_plan(BC, Q, H, P, N)
+    ddtp, dcc, uw, dcr = (x.new_empty((BC, Q, H)) for _ in range(4))
+    dBp, dCp = (x.new_empty((pl.grid[0], BC, Q, N)) for _ in range(2))
+    _KERNELS.launch("ssd_chunk_bwd", x, *(t.data_ptr() for t in (
+        x, dt, A, Bm, Cm, dy, dst, dx, ddtp, dcc, uw, dcr, dBp, dCp)),
+        BC, Q, H, P, N)
+    return (dx, *bwd_finish(dt, A, ddtp, dcc, uw, dcr, dBp, dCp))
+
+
+def bwd_finish(dt, A, ddtp, dcc, uw, dcr, dBp, dCp):
+    """(ddt, dA, dB, dC) from the backward kernel's partials: dcum = its
+    row part + its column part, with Σ_j u_j w_j added at the last
+    position; da = the reverse cumsum of dcum; ddt = the partial + da A;
+    dA = Σ da dt over chunks and positions; dB and dC summed over head
+    groups.  Torch ops in a fixed order (no atomics)."""
+    dcum = dcr + dcc
+    dcum[:, -1] += uw.sum(1)
+    da = dcum.flip(1).cumsum(1).flip(1)
+    return ddtp + da * A, (da * dt).sum((0, 1)), dBp.sum(0), dCp.sum(0)
+
+
+class SsdChunk(torch.autograd.Function):
+    """:func:`ssd_chunk` with its backward, :func:`ssd_chunk_bwd`:
+    ``SsdChunk.apply(x, dt, A, B, C)`` returns (y_intra, state).  Saves
+    the five inputs; the backward recomputes cum, C Bᵀ, L and M from
+    them.  Kernels on CUDA tensors, the plain versions on CPU tensors.
+    A gradient of the state alone (one chunk: only ``h_final`` reads it)
+    or of y alone arrives with the other as zeros.  A bf16 input that
+    needs a gradient raises ``NotImplementedError`` (fp32 training
+    only); under ``torch.no_grad`` it runs."""
+
+    @classmethod
+    def apply(cls, x, dt, A, Bm, Cm):
+        # here, not in forward: forward runs with grad mode off, and its
+        # ctx.needs_input_grad is set under torch.no_grad too
+        if x.dtype != torch.float32 and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            raise NotImplementedError(BF16_GRAD)
+        return super().apply(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return ssd_chunk(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(),
+                             dst.contiguous())

@@ -8,19 +8,24 @@
 The reference's launcher shards the train step over the host's mesh; on
 one device the mesh is that device (sharding and multi-device meshes are
 ROADMAP Queue 1, item 12).  Weights are random from ``--seed``.  On the
-card the dense archs (llama, qwen, command-r) train through the
-attention kernels and their backward, the MoE archs (granite, mixtral)
-through those and ``moe_gemm`` with its backward; Mamba2 and the hybrid
-stop at ``ssd_chunk``, whose backward kernel is ROADMAP Queue 1, item
-11c, and train on the CPU.  The archs that take embeddings (llava,
-musicgen) stop as the reference's launcher stops them.
+card every family the launcher takes trains: the dense archs (llama,
+qwen, command-r) through the attention kernels and their backward, the
+MoE archs (granite, mixtral) through those and ``moe_gemm`` with its
+backward, Mamba2 (mamba2) through ``ssd_chunk`` and its backward kernel
+``ssd_chunk_bwd``, and the hybrid (zamba2) through all of them.  The
+archs that take embeddings (llava, musicgen) stop as the reference's
+launcher stops them.
 
 The optimizer's update is functional, as the reference's: at the update
 the old params, m and v, the gradients, the clipped gradients and the
 new m, v and params are alive at once, about 8 copies of the params.
 So granite-moe-3b-a800m at full depth (3.37 G params, 13.5 GB in fp32)
 needs about 108 GB and does not fit one 80 GB card; at 16 of its 32
-layers it does (8 x 7.05 GB, plus the activations).
+layers it does (8 x 7.05 GB, plus the activations).  zamba2-2.7b at
+full depth (9.7 GB in fp32) needs about 8 x 9.7 = 78 GB before any
+activation, so one card trains it at reduced depth (24 of its 54
+layers); the launcher has no depth option, as the reference's has
+none: ``training.loop.train`` takes any config.
 """
 
 from __future__ import annotations

@@ -312,9 +312,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     else the largest common divisor of S and ``chunk`` if at least 64,
     else S itself), so both packages sum the same terms.  The
     intra-chunk output and each chunk's state come from ``ssd_chunk`` on
-    the (B·nc, Q, ...) fold; the decays between chunks, the scan over
-    chunks (a loop, the reference's ``lax.scan``) and the inter-chunk
-    output stay in torch, in x's dtype as in the reference.
+    the (B·nc, Q, ...) fold, under autograd through ``SsdChunk`` (its
+    backward the ``ssd_chunk_bwd`` kernel) with ``backend="cuda"`` and
+    through autograd of the plain version with ``backend="torch"``; the
+    decays between chunks, the scan over chunks (a loop, the reference's
+    ``lax.scan``) and the inter-chunk output stay in torch, in x's dtype
+    as in the reference, and autograd differentiates them.
     """
     check_backend(backend)
     Bsz, S, H, P = x.shape
@@ -325,7 +328,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     def fold(t):   # (B, S, ...) -> (B*nc, Q, ...), contiguous
         return t.reshape(Bsz * nc, Q, *t.shape[2:]).contiguous()
 
-    ssd = ssd_ref.ssd_chunk_ref if backend == "torch" else ssd_ops.ssd_chunk
+    ssd = ssd_ref.ssd_chunk_ref if backend == "torch" \
+        else ssd_ops.SsdChunk.apply
     y_intra, chunk_state = ssd(fold(x), fold(dt), A.contiguous(), fold(Bm),
                                fold(Cm))
     y_intra = y_intra.reshape(Bsz, nc, Q, H, P)

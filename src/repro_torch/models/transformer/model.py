@@ -29,10 +29,11 @@ versions on CPU tensors) or ``backend="torch"`` (the plain versions on
 any device).  ``loss_fn`` is differentiable on both: attention through
 ``FlashPrefill`` and its backward kernel on the card, the MoE expert
 products through ``MoeGemm`` (its backward two more ``moe_gemm``
-launches), so the dense, MoE and ``embeds`` families train on the card;
-``ssd_chunk`` has no backward kernel yet and refuses inputs that require
-grad there (ROADMAP Queue 1, item 11c), so Mamba2 and the hybrid train
-on the CPU, where every family trains through the plain versions.
+launches), the SSD intra-chunk step through ``SsdChunk`` (its backward
+the ``ssd_chunk_bwd`` kernel), so every family trains on the card, and
+on the CPU through the plain versions.  zamba2 at full depth needs
+about 8 x 9.7 GB with the functional optimizer, so one 80 GB card
+trains it at reduced depth.
 """
 
 from __future__ import annotations

@@ -432,6 +432,65 @@ def test_ssd_plan_grid_and_smem_are_the_kernels(case, g, dtype, cuda):
         ssd_ops.smem_bytes(g, shape[-1], esz), ssd_ops._grid(*shape, g))
 
 
+# the backward's shapes beyond SSD_CASES: mamba2-370m's and zamba2-2.7b's
+# training folds (two 256-position chunks of a 512-token sequence, batch
+# 4), the forward's Q = 511 edge at one chunk, H not a multiple of G, P
+# past 64 (two P columns of 64, G = 2) and the widths past Q's tiles
+SSD_BWD_SHAPES = {"mamba2_fold": (8, 256, 32, 64, 128),
+                  "zamba2_fold": (8, 256, 80, 64, 64),
+                  "q511": (1, 511, 8, 64, 128),
+                  "h6_p96": (2, 130, 6, 96, 40)}
+
+
+def _ssd_bwd_shape(case):
+    return SSD_CASES.get(case) or SSD_BWD_SHAPES[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + sorted(SSD_BWD_SHAPES))
+def test_ssd_bwd_plan_grid_smem_and_g_are_the_kernels(case, cuda):
+    """``ops.bwd_plan``'s shared memory, grid and G are what the C side
+    computes for the same launch (``ssd_chunk_bwd_query``)."""
+    shape = _ssd_bwd_shape(case)
+    pl = ssd_ops.bwd_plan(*shape)
+    assert ssd_ops.bwd_layout(*shape) == (pl.smem, pl.grid, pl.g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + sorted(SSD_BWD_SHAPES))
+def test_ssd_chunk_function_differentiates_through_the_kernel(case, cuda):
+    """``SsdChunk.apply`` on the card: one ssd_chunk launch forward, one
+    ssd_chunk_bwd launch backward; dx, ddt, dA, dB and dC within 1e-4 x
+    max(1, max|g|) of autograd of ``ssd_chunk_ref`` on the same inputs
+    and output gradients (fp32 sums in another order), and the same
+    bits on a second backward (no atomics)."""
+    shape = _ssd_bwd_shape(case)
+    bc, q, h, p, n = shape
+    args = [_t(a, cuda) for a in ssd_inputs(*shape)]
+    rng = np.random.default_rng(5)
+    dy = _t(rng.standard_normal((bc, q, h, p)).astype(np.float32), cuda)
+    dst = _t(rng.standard_normal((bc, h, p, n)).astype(np.float32), cuda)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (ssd_ops.launch_count("ssd_chunk"),
+              ssd_ops.launch_count("ssd_chunk_bwd"))
+    y, st = ssd_ops.SsdChunk.apply(*leaves)
+    got = torch.autograd.grad((y, st), leaves, (dy, dst), retain_graph=True)
+    again = torch.autograd.grad((y, st), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    assert (ssd_ops.launch_count("ssd_chunk"),
+            ssd_ops.launch_count("ssd_chunk_bwd")) == \
+        (before[0] + 1, before[1] + 2)
+    plain = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(ssd_ref.ssd_chunk_ref(*plain), plain,
+                               (dy, dst))
+    for g, g2, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g, g2)
+        assert torch.isfinite(g).all()
+        limit = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= limit
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(MOE_GEMM_CASES) + ["granite_decode"])
@@ -983,12 +1042,12 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
         "flash_prefill": lambda g: attn_ops.flash_prefill(g, kk, vv),
         "decode_attention": lambda g: attn_ops.decode_attention(
             g[:, 0].contiguous(), kk, vv, vl),
-        "ssd_chunk.*item 11c": lambda g: ssd_ops.ssd_chunk(x, dt, A, g, Cm),
+        "ssd_chunk.*SsdChunk": lambda g: ssd_ops.ssd_chunk(x, dt, A, g, Cm),
         "moe_gemm.*MoeGemm": lambda g: moe_ops.moe_gemm(xe, g),
         "conv2d_fused": lambda g: ops.conv2d_fused(xc, g, bc),
     }
     marked = {"flash_prefill": q, "decode_attention": q,
-              "ssd_chunk.*item 11c": Bm, "moe_gemm.*MoeGemm": we,
+              "ssd_chunk.*SsdChunk": Bm, "moe_gemm.*MoeGemm": we,
               "conv2d_fused": wc}
     for name, call in calls.items():
         g = marked[name].clone().requires_grad_()
@@ -1001,6 +1060,9 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
                                     kk.bfloat16(), vv.bfloat16(), 0)
     with pytest.raises(NotImplementedError, match="moe_gemm.*bf16"):
         moe_ops.MoeGemm.apply(xe.bfloat16(), we.bfloat16().requires_grad_())
+    with pytest.raises(NotImplementedError, match="ssd_chunk.*bf16"):
+        ssd_ops.SsdChunk.apply(x.bfloat16(), dt.bfloat16(), A.bfloat16(),
+                               Bm.bfloat16().requires_grad_(), Cm.bfloat16())
 
 
 @pytest.mark.cuda
@@ -1041,14 +1103,16 @@ def test_moe_gemm_function_differentiates_through_the_kernel(shape, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "musicgen-medium",
-                                  "granite-moe-3b-a800m", "mixtral-8x7b"])
+                                  "granite-moe-3b-a800m", "mixtral-8x7b",
+                                  "mamba2-370m", "zamba2-2.7b"])
 def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
     """Reduced Llama (tokens), musicgen (the ``embeds`` mode), granite and
-    mixtral (MoE) on the card: ``loss_and_grads`` through the kernels
-    (remat: two flash_prefill a layer, one flash_prefill_bwd; MoE: 12
-    moe_gemm a layer, 3 forward, 3 in the recompute, 6 backward) against
-    ``backend="torch"``: loss within 1e-5 relative, each leaf within
-    1e-3 x max|g| of its leaf."""
+    mixtral (MoE), mamba2 (SSM) and zamba2 (hybrid) on the card:
+    ``loss_and_grads`` through the kernels (remat: two flash_prefill an
+    attention, one flash_prefill_bwd; MoE: 12 moe_gemm a layer, 3
+    forward, 3 in the recompute, 6 backward; Mamba2: two ssd_chunk a
+    layer, one ssd_chunk_bwd) against ``backend="torch"``: loss within
+    1e-5 relative, each leaf within 1e-3 x max|g| of its leaf."""
     cfg = configs.get(arch).reduced(n_layers=2, d_model=128)
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            device=cuda)
@@ -1060,10 +1124,17 @@ def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
             "labels": batch["labels"]}
     attn_ops.reset_launches()
     moe_ops.reset_launches()
+    ssd_ops.reset_launches()
     loss, grads = loss_and_grads(cfg, params, batch)
+    L = cfg.n_layers
+    attn = M.n_shared_apps(cfg) if cfg.shared_attn_every \
+        else 0 if cfg.is_ssm else L
     assert (attn_ops.launch_count("flash_prefill"),
-            attn_ops.launch_count("flash_prefill_bwd")) == (4, 2)
-    assert moe_ops.launch_count("moe_gemm") == (24 if cfg.is_moe else 0)
+            attn_ops.launch_count("flash_prefill_bwd")) == (2 * attn, attn)
+    assert moe_ops.launch_count("moe_gemm") == (12 * L if cfg.is_moe else 0)
+    mamba = L if cfg.is_ssm else 0
+    assert (ssd_ops.launch_count("ssd_chunk"),
+            ssd_ops.launch_count("ssd_chunk_bwd")) == (2 * mamba, mamba)
     loss_t, grads_t = loss_and_grads(cfg, params, batch, backend="torch")
     assert abs(loss.item() - loss_t.item()) <= 1e-5 * abs(loss_t.item())
     for g, gt in zip(tree.leaves(grads), tree.leaves(grads_t)):
