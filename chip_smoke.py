@@ -198,13 +198,34 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    ``training.loop.train`` steps of zamba2 at 24 of its 54 layers (4
    shared-block sites; 8 copies of the params at full depth would be
    about 78 GB), counted (240, 120, 40, 20);
-7. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+7. the GPipe microbatch pipeline (``[pipeline]`` lines):
+   ``repro_torch.pipeline.microbatch_pipeline`` over
+   ``repro_torch.launch.make_mesh``, Llama-3.2-1B at full width in fp32,
+   its 16 layers as 4 stages of 4 (``params["layers"]`` reshaped to (4,
+   4, ...)), 6 microbatches of (4, 512) seeded tokens, each layer's
+   attention through ``flash_prefill`` at (4, 512, 8, 4, 64).  Four
+   spawned gloo ranks, all on ``cuda:0`` (time-sliced: not a
+   multi-device speed), each building the weights from
+   ``init_params(cfg, torch.Generator().manual_seed(0))`` and checking
+   its inputs against the others' (a digest ``all_gather``), one
+   counted call (36 ``flash_prefill`` launches a rank: 9 ticks x 4
+   layers, bubble ticks included; 9 hand-offs through the host) and 3
+   timed; then one NCCL rank with the 16 layers as one stage (96
+   launches, no hand-off).  Held: every rank's outputs bit-equal to the
+   others' and to the one-process run of the same stages in this
+   process (96 launches), and within 1e-4 x max|ref| of
+   ``backend="torch"``.  Printed: the transport path, ms a call beside
+   the one-process run's, a 16 MiB hand-off's ms alone, each rank's peak
+   memory;
+8. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
-   in-process plan CLI, ssd_chunk's those of mamba2's fp32 generate
-   and of phase 6's (b″)-(c‴), moe_gemm's those of granite's fp32
-   generate and of phase 6's (b') and (c'), flash_prefill_bwd's those of
-   the five Llama training steps, ssd_chunk_bwd's phase 6's), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   in-process plan CLI, flash_prefill's those of Llama's fp32 generate
+   and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
+   not the one-process run's), ssd_chunk's those of mamba2's fp32
+   generate and of phase 6's (b″)-(c‴), moe_gemm's those of granite's
+   fp32 generate and of phase 6's (b') and (c'), flash_prefill_bwd's
+   those of the five Llama training steps, ssd_chunk_bwd's phase 6's),
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
 IEEE fp32.  The script imports neither ``jax`` nor the JAX package.
@@ -328,6 +349,14 @@ SSD_BWD_CASES = [((8, 256, 32, 64, 128), False), ((8, 256, 80, 64, 64), False),
                  ((4, 511, 32, 64, 128), False), ((8, 256, 6, 64, 128), False),
                  ((4, 256, 8, 32, 16), False), ((2, 256, 8, 64, 64), True)]
 HYBRID_TRAIN_LAYERS = 24
+# phase 7: pipeline.microbatch_pipeline over launch.make_mesh, Llama-3.2-1B
+# (LM_ARCH) in fp32 as PIPE_STAGES stages, PIPE_MICRO microbatches of
+# (LM_BATCH, LM_PROMPT) tokens from numpy seed PIPE_SEED; one counted call
+# (the warm-up) and PIPE_CALLS timed ones a rank, PIPE_HAND_REPS hand-offs
+# timed alone, each run of ranks under PIPE_TIMEOUT_S (a P2P deadlock
+# fails the phase and stops every rank)
+PIPE_STAGES, PIPE_MICRO, PIPE_CALLS, PIPE_SEED = 4, 6, 3, 0
+PIPE_HAND_REPS, PIPE_TIMEOUT_S = 10, 300
 
 
 def fail(msg: str) -> None:
@@ -2374,6 +2403,351 @@ def run_train() -> tuple[int, int, list[dict]]:
     return moe_launches, ssd_launches, [entry, ssd_entry]
 
 
+# -- the GPipe microbatch pipeline (phase 7) ---------------------------------
+
+def _pipe_stage_fn(cfg, backend: str):
+    """A stage of the layer stack split into pipeline stages
+    (``examples/pico_pod_pipeline.py``'s body): ``rms_norm``, attention,
+    ``mlp``, once for each layer of the stage's slice of
+    ``params["layers"]``."""
+    from repro_torch.models.transformer.layers import (attention_prefill,
+                                                       mlp, rms_norm)
+    from repro_torch.training import tree
+
+    def stage_fn(sid, lp, x):
+        for i in range(lp["ln1"].shape[0]):
+            one = tree.map_(lambda a: a[i], lp)
+            h, _ = attention_prefill(
+                one["attn"], rms_norm(x, one["ln1"], cfg.norm_eps),
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                rope_theta=cfg.rope_theta,
+                sliding_window=cfg.sliding_window, backend=backend)
+            x = x + h
+            x = x + mlp(one["mlp"], rms_norm(x, one["ln2"], cfg.norm_eps))
+        return x
+    return stage_fn
+
+
+def _pipe_model(n_stages: int):
+    """Llama-3.2-1B at full width from ``init_params(cfg,
+    torch.Generator().manual_seed(0))`` on the card: (cfg, its layers as
+    ``n_stages`` stages of contiguous layers (leaves (n_stages, L /
+    n_stages, ...), views of the stack), the PIPE_MICRO microbatches'
+    embeddings (PIPE_MICRO, LM_BATCH, LM_PROMPT, d) of seeded tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import tree
+
+    cfg = configs.get(LM_ARCH)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    toks = np.random.default_rng(PIPE_SEED).integers(
+        0, cfg.vocab_size, (PIPE_MICRO, LM_BATCH, LM_PROMPT))
+    xs = params["embed"][torch.as_tensor(toks, device="cuda")]
+    stages = tree.map_(lambda a: a.reshape(n_stages, -1, *a.shape[1:]),
+                       params["layers"])
+    return cfg, stages, xs
+
+
+def _pipe_sequential(fn, stages, xs, n_stages: int):
+    """``fn`` applied microbatch by microbatch, stage by stage: the
+    one-process run of the pipeline's stages."""
+    import torch
+    from repro_torch.training import tree
+    slices = [tree.map_(lambda a: a[s], stages) for s in range(n_stages)]
+    outs = []
+    for x in xs:
+        for s, p in enumerate(slices):
+            x = fn(s, p, x)
+        outs.append(x)
+    return torch.stack(outs)
+
+
+def _pipe_rank(rank, world, port, backend, out_dir, results) -> None:
+    """One rank of a phase 7 run (spawned; every rank on cuda:0): builds
+    the model, checks its inputs against the other ranks' (a digest
+    ``all_gather``), runs ``microbatch_pipeline`` once counted (warm-up)
+    and PIPE_CALLS times timed, times hand-offs alone, saves its outputs
+    under ``out_dir`` and puts its readings on ``results``."""
+    import traceback
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(backend,
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=PIPE_TIMEOUT_S))
+        try:
+            results.put((rank, True,
+                         _pipe_rank_body(rank, world, backend, out_dir)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _pipe_rank_body(rank, world, backend, out_dir) -> dict:
+    import hashlib
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.attention import ops as attn
+    from repro_torch.launch import make_mesh
+    from repro_torch.pipeline import microbatch_pipeline, runner
+
+    t0 = time.perf_counter()
+    cfg, stages, xs = _pipe_model(world)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    digests = [None] * world
+    dist.all_gather_object(
+        digests, hashlib.sha256(xs.cpu().numpy().tobytes()).hexdigest())
+    mesh = make_mesh((world,), ("stage",))
+    fn = _pipe_stage_fn(cfg, "cuda")
+    group = mesh.get_group("stage")
+    sync = dist.barrier if world > 1 else (lambda: None)
+
+    # the counted call (also the warm-up): launches and hand-offs
+    hand = dict(runner.HAND_OFFS)
+    attn.reset_launches()
+    out = microbatch_pipeline(fn, stages, xs, mesh)
+    torch.cuda.synchronize()
+    launches = attn.launch_count("flash_prefill")
+    hand = {k: n - hand[k] for k, n in runner.HAND_OFFS.items()}
+    ms, same = [], True
+    for _ in range(PIPE_CALLS):
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = microbatch_pipeline(fn, stages, xs, mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        same = same and torch.equal(again, out)
+
+    # hand-offs alone, at the pipeline's activation: host copies (device
+    # to host and back) and whole ring shifts
+    copy_ms = hand_ms = None
+    if world > 1:
+        y = out[0].clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(PIPE_HAND_REPS):
+            y.cpu().to(y.device)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t) * 1e3 / PIPE_HAND_REPS
+        sync()
+        t = time.perf_counter()
+        for _ in range(PIPE_HAND_REPS):
+            runner._shift(y, group, mesh.get_local_rank("stage"), world)
+        torch.cuda.synchronize()
+        hand_ms = (time.perf_counter() - t) * 1e3 / PIPE_HAND_REPS
+    torch.save(out.cpu(), Path(out_dir) / f"{backend}{rank}.pt")
+    return {"stage": mesh.get_local_rank("stage"), "launches": launches,
+            "hand_offs": hand, "digests": digests, "ms": ms,
+            "median_ms": statistics.median(ms), "repeatable": same,
+            "copy_ms": copy_ms, "hand_ms": hand_ms, "build_s": build_s,
+            "backend": dist.get_backend(group),
+            "host_staged": runner.stages_on_host(group, out),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "device": torch.cuda.get_device_name(0)}
+
+
+def _pipe_spawn(backend: str, world: int, out_dir: str):
+    """Start ``world`` ranks of a ``backend`` group on a free localhost
+    port; returns (processes, results queue)."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_pipe_rank, daemon=True,
+                         args=(r, world, port, backend, out_dir, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, results
+
+
+def _pipe_collect(procs, results, label: str) -> list[dict]:
+    """Every rank's readings, by rank, within PIPE_TIMEOUT_S; a rank's
+    failure or the time limit fails the run, and every rank is stopped."""
+    import queue
+    got: dict[int, dict] = {}
+    deadline = time.monotonic() + PIPE_TIMEOUT_S
+    try:
+        while len(got) < len(procs):
+            if time.monotonic() > deadline:
+                fail(f"{label}: ranks {sorted(got)} of {len(procs)} "
+                     f"returned within {PIPE_TIMEOUT_S} s")
+            try:
+                rank, ok, value = results.get(timeout=1.0)
+            except queue.Empty:
+                died = {r: p.exitcode for r, p in enumerate(procs)
+                        if r not in got and p.exitcode}
+                if died and results.empty():
+                    fail(f"{label}: ranks exited with {died} and no "
+                         f"result")
+                continue
+            if not ok:
+                fail(f"{label}: rank {rank} failed:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, min(30.0, deadline - time.monotonic())))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(len(procs))]
+
+
+def run_pipeline() -> int:
+    """Phase 7: ``pipeline.microbatch_pipeline`` over ``launch.make_mesh``,
+    Llama-3.2-1B's 16 layers as PIPE_STAGES stages, PIPE_MICRO
+    microbatches, fp32, through the flash_prefill kernel: PIPE_STAGES
+    gloo ranks on cuda:0, then one NCCL rank with the whole stack as one
+    stage, each held bit for bit to the one-process run of the same
+    stages in this process, and within 1e-4 x max|ref| of
+    ``backend="torch"``.  Returns the flash_prefill launches of the two
+    pipeline runs (the one-process run's are not counted)."""
+    import tempfile
+    from statistics import median
+    import torch
+    from repro_torch.kernels.attention import ops as attn
+
+    torch.cuda.empty_cache()
+    per = 16 // PIPE_STAGES
+    print(f"[pipeline] {LM_ARCH}: 16 layers as {PIPE_STAGES} stages of "
+          f"{per} (params['layers'] reshaped to ({PIPE_STAGES}, {per}, "
+          f"...)), {PIPE_MICRO} microbatches of ({LM_BATCH}, {LM_PROMPT}) "
+          f"tokens (numpy seed {PIPE_SEED}), fp32, TF32 off; weights "
+          f"init_params(cfg, torch.Generator().manual_seed(0)) in every "
+          f"process; this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB before")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="pipeline-") as out_dir:
+        t0 = time.perf_counter()
+        procs, results = _pipe_spawn("gloo", PIPE_STAGES, out_dir)
+        # the one-process reference's model, built while the ranks start
+        cfg, stages, xs = _pipe_model(PIPE_STAGES)
+        runs["gloo"] = _pipe_collect(procs, results, "gloo ranks")
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs["nccl"] = _pipe_collect(*_pipe_spawn("nccl", 1, out_dir),
+                                     "nccl rank")
+        nccl_s = time.perf_counter() - t0
+        outs = {b: [torch.load(Path(out_dir) / f"{b}{r}.pt").cuda()
+                    for r in range(len(rs))] for b, rs in runs.items()}
+
+    # the one-process run of the same stages, and backend="torch"
+    fn = _pipe_stage_fn(cfg, "cuda")
+    ref = _pipe_sequential(fn, stages, xs, PIPE_STAGES)        # warm-up
+    ms = []
+    for _ in range(PIPE_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        attn.reset_launches()
+        again = _pipe_sequential(fn, stages, xs, PIPE_STAGES)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    ref_launches = attn.launch_count("flash_prefill")
+    plain = _pipe_sequential(_pipe_stage_fn(cfg, "torch"), stages, xs,
+                             PIPE_STAGES)
+    torch.cuda.synchronize()
+
+    gloo, nccl = runs["gloo"], runs["nccl"]
+    ticks = PIPE_STAGES + PIPE_MICRO - 1
+    want_rank, want_ref = ticks * per, PIPE_MICRO * 16
+    act = xs[0].numel() * xs.element_size()
+    builds = ", ".join(f"{r['build_s']:.1f}" for r in gloo)
+    print(f"[pipeline] ranks: gloo x {len(gloo)} on "
+          f"{', '.join(sorted({r['device'] for r in gloo}))} (cuda:0 each), "
+          f"{gloo_s:.1f} s wall with spawn and model builds ({builds} s); "
+          f"nccl x 1, {nccl_s:.1f} s")
+    print(f"[pipeline] inputs: every rank's embeddings have the digest "
+          f"of every other's: "
+          f"{all(len(set(r['digests'])) == 1 for r in gloo)}")
+    for b, rs in runs.items():
+        for r in rs:
+            print(f"[pipeline] {b} rank {r['stage']}"
+                  f": backend {r['backend']}, hand-offs {r['hand_offs']} "
+                  f"({'host-staged' if r['host_staged'] else 'device'} "
+                  f"path), flash_prefill launches {r['launches']}, ms a call "
+                  f"{', '.join(f'{m:.1f}' for m in r['ms'])} (median "
+                  f"{r['median_ms']:.1f}), peak {r['peak_gib']:.2f} GiB")
+    hand_ms = [r["hand_ms"] for r in gloo]
+    copy_ms = [r["copy_ms"] for r in gloo]
+    path = ("host-staged (each CUDA tensor copied to the host, sent and "
+            "received over gloo, copied back)" if gloo[0]["host_staged"]
+            else "device tensors")
+    print(f"[pipeline] hand-off: {act / 2 ** 20:.0f} MiB a rank a tick "
+          f"({LM_BATCH} x {LM_PROMPT} x {cfg.d_model} x "
+          f"{xs.element_size()} B); gloo path: {path}; a ring shift alone "
+          f"{median(hand_ms):.2f} ms (ranks "
+          f"{', '.join(f'{m:.2f}' for m in hand_ms)}), a device-to-host and "
+          f"host-to-device copy of one activation {median(copy_ms):.2f} ms")
+    pipe_ms = median([r["median_ms"] for r in gloo])
+    print(f"[pipeline] ms a call (median of {PIPE_CALLS}): "
+          f"{PIPE_STAGES} gloo ranks {pipe_ms:.1f} -- FOUR PROCESSES "
+          f"TIME-SLICED ON ONE CARD, not a multi-device speed; one NCCL "
+          f"rank (one stage) {nccl[0]['median_ms']:.1f}; this process, "
+          f"stage by stage, {median(ms):.1f} "
+          f"({', '.join(f'{m:.1f}' for m in ms)}); stage-ticks computed "
+          f"{PIPE_STAGES * ticks} against {PIPE_STAGES * PIPE_MICRO} "
+          f"(bubble ticks computed, as in the reference)")
+
+    def err_of(a, b):
+        return (a - b).abs().max().item()
+
+    limit = LM_LOGIT_TOL["float32"] * plain.abs().max().item()
+    errs = [err_of(o, plain) for o in outs["gloo"] + outs["nccl"]]
+    gloo_same = all(torch.equal(o, outs["gloo"][0]) for o in outs["gloo"])
+    gloo_ref = torch.equal(outs["gloo"][0], ref)
+    nccl_ref = torch.equal(outs["nccl"][0], ref)
+    print(f"[pipeline] outputs {tuple(ref.shape)}: gloo ranks equal each "
+          f"other bit for bit: {gloo_same}; equal the one-process run: "
+          f"{gloo_ref} (max |diff| {err_of(outs['gloo'][0], ref):.3g}); "
+          f"nccl rank equals it: {nccl_ref}; one-process run repeatable: "
+          f"{torch.equal(again, ref)}; each rank's calls repeatable: "
+          f"{all(r['repeatable'] for rs in runs.values() for r in rs)}")
+    print(f"[pipeline] vs backend=\"torch\": worst {max(errs):.3g} "
+          f"({max(errs) / limit:.3f} of {LM_LOGIT_TOL['float32']:g} x "
+          f"max|ref| = {limit:.3g})")
+    launches = [r["launches"] for r in gloo]
+    print(f"[pipeline] flash_prefill launches: gloo ranks {launches} "
+          f"(want {want_rank} each: {ticks} ticks x {per} layers, bubble "
+          f"ticks included), {sum(launches)} in all (want "
+          f"{PIPE_STAGES * want_rank}); nccl rank {nccl[0]['launches']} "
+          f"(want {want_ref}); the one-process run {ref_launches} (want "
+          f"{want_ref}, not counted in the kernels line)")
+    if not all(len(set(r["digests"])) == 1 for r in gloo):
+        fail("pipeline: the ranks' inputs differ")
+    if not (gloo_same and gloo_ref and nccl_ref and torch.equal(again, ref)
+            and all(r["repeatable"] for rs in runs.values() for r in rs)):
+        fail("pipeline: outputs not bit-equal across ranks, to the "
+             "one-process run, or across calls")
+    if not all(torch.isfinite(o).all() for o in outs["gloo"]) \
+            or max(errs) > limit:
+        fail("pipeline: outputs not within the limit of backend=\"torch\"")
+    if launches != [want_rank] * PIPE_STAGES \
+            or nccl[0]["launches"] != want_ref or ref_launches != want_ref:
+        fail("pipeline: flash_prefill launches differ from the schedule's")
+    if any(r["hand_offs"] != {"direct": 0, "host": ticks} for r in gloo) \
+            or nccl[0]["hand_offs"] != {"direct": 0, "host": 0}:
+        fail("pipeline: hand-offs not by the backend's path")
+    del stages, xs, ref, again, plain, outs
+    torch.cuda.empty_cache()
+    return sum(launches) + nccl[0]["launches"]
+
+
 def _entry_name(mangled: str) -> str:
     """A readable name for a mangled kernel entry: the function's name
     and its template arguments (types, ints and bools), e.g.
@@ -4066,6 +4440,10 @@ def main() -> None:
     entries["ssd_chunk"]["launches"] += ssd_train
     kernels += bwd_entries
     print(f"[time] training phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe_launches = run_pipeline()
+    entries["flash_prefill"]["launches"] += pipe_launches
+    print(f"[time] pipeline phase {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -4076,11 +4454,13 @@ def main() -> None:
           f"flash_prefill_bwd: one train step's 16 launches at the path's "
           f"shape, library_ms SDPA's backward; ssd_chunk_bwd: one mamba2 "
           f"train step's 48 launches at the path's shape, library_ms null "
-          f"(no single PyTorch call computes it)")
+          f"(no single PyTorch call computes it); flash_prefill: its "
+          f"launches Llama's fp32 generate's and phase 7's {pipe_launches} "
+          f"(the pipeline's gloo ranks and its NCCL rank)")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 6. result lines -------------------------------------------------
+    # -- 8. result lines -------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,9 @@
 """Launchers of the port: LM serving (``launch/serve.py``) and training
-(``launch/train.py``) on one device."""
+(``launch/train.py``) on one device, and the device meshes over
+``torch.distributed`` (``launch/mesh.py``) that a multi-rank run builds
+on."""
+
+from .mesh import batch_axes, make_mesh, make_production_mesh, make_test_mesh
+
+__all__ = ["batch_axes", "make_mesh", "make_production_mesh",
+           "make_test_mesh"]

@@ -1,18 +1,28 @@
 """Pipeline runner: execute a full PICO plan over frames.
 
-:class:`PipelineRunner` runs the stages in plan order for each frame on
-one device (functional mode, the form used to run and validate plans).
-The JAX package's ``microbatch_pipeline`` (stages spread over a device
-mesh) is not ported yet.
+Two execution modes:
+
+* :class:`PipelineRunner` runs the stages in plan order for each frame
+  on one device (functional mode, the form used to run and validate
+  plans);
+* :func:`microbatch_pipeline` runs a GPipe schedule over one axis of a
+  ``torch.distributed`` device mesh (``launch/mesh.py``): each rank
+  holds one stage, microbatches stream through, and a stage's output is
+  the only traffic between ranks, one hand-off a tick.  Every rank of
+  the mesh calls it, as every shard runs the reference's ``shard_map``
+  body.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..core.pipeline_dp import PipelinePlan
+from ..training import tree
 from .stage import executors_from_plan
 
 
@@ -52,3 +62,117 @@ class PipelineRunner:
             produced.update(ex.run_frames(params, produced, frames,
                                           copy_out=copy_out))
         return {s: produced[s] for s in self.model.graph.sinks()}
+
+
+# ---------------------------------------------------------------------------
+# GPipe-style microbatch pipeline over a mesh axis
+# ---------------------------------------------------------------------------
+
+#: hand-offs (ring shifts) of :func:`microbatch_pipeline` in this process
+#: since it started, by transport: ``"direct"`` moved the tensor where it
+#: lies (NCCL on the card, gloo on the CPU), ``"host"`` copied a CUDA
+#: tensor to the host for gloo and the received one back
+HAND_OFFS = {"direct": 0, "host": 0}
+
+
+def stages_on_host(group, x: torch.Tensor) -> bool:
+    """Whether :func:`microbatch_pipeline` copies ``x`` to the host for
+    the collectives of ``group``: a CUDA tensor under the gloo backend,
+    whose send and recv read and write the tensor's memory from the host
+    (a CUDA tensor's send aborts the rank: ``tools/gloo_cuda_check.py``).
+    Decided by the backend's name, never by a failed attempt."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _shift(y: torch.Tensor, group, sid: int, n_stages: int
+           ) -> torch.Tensor:
+    """One ring hand-off on ``group``: ``y`` to stage ``sid + 1``, and
+    what stage ``sid - 1`` sent back, in one ``batch_isend_irecv`` (peers
+    named by their global ranks)."""
+    ranks = dist.get_process_group_ranks(group)
+    host = stages_on_host(group, y)
+    send = y.cpu() if host else y.contiguous()
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, ranks[(sid + 1) % n_stages], group),
+        dist.P2POp(dist.irecv, recv, ranks[(sid - 1) % n_stages], group)])
+    for req in reqs:
+        req.wait()
+    HAND_OFFS["host" if host else "direct"] += 1
+    return recv.to(y.device) if host else recv
+
+
+def microbatch_pipeline(
+    stage_fn: Callable[[int, object, torch.Tensor], torch.Tensor],
+    stage_params,
+    x_microbatches: torch.Tensor,
+    mesh,
+    axis: str = "stage",
+) -> torch.Tensor:
+    """Run ``n_stages`` chained functions as a pipeline over ``mesh``'s
+    ``axis`` (a ``torch.distributed`` ``DeviceMesh``; every rank calls
+    this with the same arguments).
+
+    ``stage_fn(stage_id, params_slice, x)`` applies one stage to one
+    microbatch and returns a tensor of ``x``'s shape and dtype.
+    ``stage_params`` is a tree (dicts, NamedTuples; ``training/tree.py``)
+    whose leaves are stacked along axis 0, one entry per stage: the rank
+    at coordinate ``sid`` of ``axis`` runs entry ``sid``.
+    ``x_microbatches`` has shape (n_micro, ...); compute runs on its
+    device.
+
+    The reference's GPipe schedule, tick for tick: n_stages + n_micro - 1
+    ticks; each tick stage 0 takes microbatch min(t, n_micro - 1), the
+    other stages the tensor handed to them, every stage computes (bubble
+    ticks included), and one ``batch_isend_irecv`` on the axis's
+    sub-group sends each stage's output to the next stage around the
+    ring; the last stage's output at tick t is microbatch
+    t - n_stages + 1's result.  A masked ``all_reduce`` (sum) over the
+    sub-group then gives every rank of it the last stage's results, of
+    ``x_microbatches``' shape.  One stage sends nothing.  On an N-D mesh
+    each ring along ``axis`` runs on its own.
+
+    Transport, chosen by the backend (:func:`stages_on_host`): under
+    NCCL the tensors move as they are; under gloo a CUDA tensor is copied
+    to the host for each hand-off and for the final ``all_reduce``, and
+    the received tensor back to the device.  :data:`HAND_OFFS` counts
+    the hand-offs of each kind.  Forward only: nothing here is
+    differentiated.
+
+    Raises ``ValueError`` when a leaf's leading dimension is not the
+    axis's size, or when ``stage_fn`` returns another shape or dtype
+    than it was given (on the rank where it does).
+    """
+    group = mesh.get_group(axis)
+    n_stages = mesh.size(mesh.mesh_dim_names.index(axis))
+    sid = mesh.get_local_rank(axis)
+    for path, leaf in tree.named_leaves(stage_params):
+        if leaf.shape[0] != n_stages:
+            raise ValueError(f"stage_params leaf {path or '<root>'} has "
+                             f"leading dimension {leaf.shape[0]}; the "
+                             f"{axis!r} axis has {n_stages} stages")
+    p = tree.map_(lambda a: a[sid], stage_params)
+    xs = x_microbatches
+    n_micro = xs.shape[0]
+    buf = torch.zeros_like(xs[0])
+    outs = torch.zeros_like(xs)
+    for t in range(n_stages + n_micro - 1):
+        cur = xs[min(t, n_micro - 1)] if sid == 0 else buf
+        y = stage_fn(sid, p, cur)
+        if y.shape != cur.shape or y.dtype != cur.dtype:
+            raise ValueError(f"stage_fn of stage {sid} returned "
+                             f"{tuple(y.shape)} {y.dtype} for an input of "
+                             f"{tuple(cur.shape)} {cur.dtype}; every stage "
+                             "keeps its input's shape and dtype")
+        buf = _shift(y, group, sid, n_stages) if n_stages > 1 else y
+        out_idx = t - (n_stages - 1)
+        if 0 <= out_idx < n_micro:
+            outs[out_idx] = y
+    if sid != n_stages - 1:
+        outs.zero_()
+    if stages_on_host(group, outs):
+        host = outs.cpu()
+        dist.all_reduce(host, group=group)
+        return host.to(outs.device)
+    dist.all_reduce(outs, group=group)
+    return outs

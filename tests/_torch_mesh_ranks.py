@@ -1,0 +1,260 @@
+"""Multi-rank runs of the port's mesh and GPipe pipeline
+(``repro_torch.launch.mesh``, ``repro_torch.pipeline.microbatch_pipeline``):
+spawned ``torch.distributed`` ranks with a time limit, and the bodies they
+run.  Imports neither ``jax`` nor ``repro``: each spawned rank imports this
+module, and the ``cuda``-marked test runs it on a machine without JAX."""
+
+import multiprocessing as mp
+import queue
+import socket
+import time
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+#: the time limit of one multi-rank run, spawn to last result
+RUN_TIMEOUT_S = 120.0
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(body, rank, world, port, backend, results, args):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=RUN_TIMEOUT_S))
+        try:
+            results.put((rank, True, body(rank, world, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def run_ranks(body, world: int, *args, backend: str = "gloo",
+              timeout: float = RUN_TIMEOUT_S) -> list:
+    """``body(rank, world, *args)`` in ``world`` spawned ranks of one
+    process group (``backend``, ``tcp://localhost`` on a free port);
+    returns each rank's result, by rank.  A rank that raises fails the
+    run with its traceback, one that dies with no result with its exit
+    code; past ``timeout`` seconds (a P2P deadlock) every rank is killed
+    and the run raises ``TimeoutError``."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(body, r, world, port, backend, results, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: dict[int, object] = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world} ranks: {sorted(got)} returned "
+                                   f"within {timeout:.0f} s")
+            try:
+                rank, ok, value = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                died = {r: p.exitcode for r, p in enumerate(procs)
+                        if r not in got and p.exitcode}
+                if died and results.empty():
+                    raise RuntimeError(f"ranks exited with {died} and no "
+                                       "result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, min(10.0, deadline - time.monotonic())))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+# -- the bodies' pieces -------------------------------------------------------
+
+def tanh_stage(sid, w, x):
+    """``test_microbatch_pipeline_exact``'s stage: tanh(x @ w)."""
+    import torch
+    return torch.tanh(x @ w)
+
+
+def sequential(ws, xs):
+    """The stages composed one after another on every microbatch, in
+    torch: what the pipeline must return."""
+    import torch
+    ref = torch.as_tensor(xs)
+    for w in torch.as_tensor(ws):
+        ref = torch.tanh(ref @ w)
+    return ref.numpy()
+
+
+def llama_stage_fn(cfg, backend: str):
+    """The stage of a layer stack split into pipeline stages
+    (``examples/pico_pod_pipeline.py``'s): ``rms_norm``, attention,
+    ``mlp``, once for each layer of the stage's slice of
+    ``params["layers"]``."""
+    from repro_torch.models.transformer.layers import (attention_prefill,
+                                                       mlp, rms_norm)
+    from repro_torch.training import tree
+
+    def stage_fn(sid, lp, x):
+        for i in range(lp["ln1"].shape[0]):
+            one = tree.map_(lambda a: a[i], lp)
+            h, _ = attention_prefill(
+                one["attn"], rms_norm(x, one["ln1"], cfg.norm_eps),
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                rope_theta=cfg.rope_theta,
+                sliding_window=cfg.sliding_window, backend=backend)
+            x = x + h
+            x = x + mlp(one["mlp"], rms_norm(x, one["ln2"], cfg.norm_eps))
+        return x
+    return stage_fn
+
+
+def split_stages(layers, n_stages: int):
+    """``params["layers"]`` (leaves stacked on L) as n_stages stages of
+    L / n_stages contiguous layers: leaves (n_stages, L / n_stages, ...)."""
+    from repro_torch.training import tree
+    return tree.map_(lambda a: a.reshape(n_stages, -1, *a.shape[1:]),
+                     layers)
+
+
+def llama_params(cfg, leaves):
+    """The port's parameter tree of ``cfg`` with the reference's leaves
+    (in ``jax.tree.leaves`` order), on the CPU."""
+    import torch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import tree
+    like = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return tree.unflatten(like, [torch.from_numpy(np.asarray(a))
+                                 for a in leaves])
+
+
+def _raised(fn) -> str:
+    """The message of the ``ValueError`` ``fn()`` raises ('' if none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+# -- rank bodies (module-level: spawned ranks import them) -------------------
+
+def body_four(rank, world, inputs, llama):
+    """The 4-rank CPU run: every case of the pipeline and mesh tests that
+    needs four ranks; returns this rank's results."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.pipeline import microbatch_pipeline
+
+    def pipe(mesh, ws, xs):
+        return microbatch_pipeline(tanh_stage, torch.as_tensor(ws),
+                                   torch.as_tensor(xs), mesh).numpy()
+
+    ws, xs = inputs["ws"], inputs["xs"]
+    line = mesh_mod.make_mesh((4,), ("stage",), device_type="cpu")
+    grid = mesh_mod.make_mesh((2, 2), ("data", "stage"), device_type="cpu")
+    out = {"exact": pipe(line, ws, xs),
+           "micro2": pipe(line, ws, inputs["xs2"]),
+           "micro1": pipe(line, ws, inputs["xs1"]),
+           "mesh22": pipe(grid, ws[:2], xs)}
+
+    cfg, leaves, toks = llama
+    params = llama_params(cfg, leaves)
+    xs_l = params["embed"][torch.as_tensor(toks).long()]
+    out["llama"] = microbatch_pipeline(
+        llama_stage_fn(cfg, "cuda"), split_stages(params["layers"], 4),
+        xs_l, line).numpy()
+
+    test_mesh = mesh_mod.make_test_mesh(device_type="cpu")
+    out["test_mesh"] = (tuple(test_mesh.shape), test_mesh.mesh_dim_names)
+    out["make_mesh"] = [(tuple(m.shape), m.mesh_dim_names)
+                        for m in (line, grid)]
+    pod = mesh_mod.make_mesh((1, 2, 2), ("pod", "data", "model"), "cpu")
+    out["batch_axes"] = [mesh_mod.batch_axes(m)
+                         for m in (test_mesh, pod, line)]
+    out["raises"] = {
+        "production": _raised(
+            lambda: mesh_mod.make_production_mesh(device_type="cpu")),
+        "production_multi_pod": _raised(
+            lambda: mesh_mod.make_production_mesh(multi_pod=True,
+                                                  device_type="cpu")),
+        "world": _raised(lambda: mesh_mod.make_mesh((2,), ("stage",),
+                                                    device_type="cpu")),
+        "leading_dim": _raised(lambda: pipe(line, ws[:3], xs)),
+        "shape": _raised(lambda: microbatch_pipeline(
+            lambda sid, w, x: (x @ w)[..., :8], torch.as_tensor(ws),
+            torch.as_tensor(xs), line)),
+        "dtype": _raised(lambda: microbatch_pipeline(
+            lambda sid, w, x: (x @ w).double(), torch.as_tensor(ws),
+            torch.as_tensor(xs), line)),
+    }
+    return out
+
+
+def body_small(rank, world, inputs):
+    """A 1- or 2-rank CPU run: the pipeline over every rank (world size 1:
+    one stage, no P2P) and ``make_test_mesh``'s shape."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.pipeline import microbatch_pipeline
+    line = mesh_mod.make_mesh((world,), ("stage",), device_type="cpu")
+    test_mesh = mesh_mod.make_test_mesh(device_type="cpu")
+    out = microbatch_pipeline(tanh_stage, torch.as_tensor(inputs["ws"][:world]),
+                              torch.as_tensor(inputs["xs"]), line)
+    return {"pipe": out.numpy(),
+            "test_mesh": (tuple(test_mesh.shape), test_mesh.mesh_dim_names)}
+
+
+def body_cuda_two(rank, world, cfg, toks):
+    """Two gloo ranks on ``cuda:0``: a two-stage reduced Llama through the
+    ``flash_prefill`` kernel; returns the pipeline's output, the
+    one-process run of the same stages (rank 0), the hand-offs by
+    transport and the kernel's launches of the call."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import model as M
+    from repro_torch.pipeline import microbatch_pipeline, runner
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    xs = params["embed"][torch.as_tensor(toks, device="cuda").long()]
+    stages = split_stages(params["layers"], world)
+    fn = llama_stage_fn(cfg, "cuda")
+    line = mesh_mod.make_mesh((world,), ("stage",))
+    hand_offs = dict(runner.HAND_OFFS)
+    attn_ops.reset_launches()
+    out = microbatch_pipeline(fn, stages, xs, line)
+    torch.cuda.synchronize()
+    res = {"out": out.cpu().numpy(),
+           "launches": attn_ops.launch_count("flash_prefill"),
+           "hand_offs": {k: n - hand_offs[k]
+                         for k, n in runner.HAND_OFFS.items()}}
+    if rank == 0:
+        from repro_torch.training import tree
+        seq = []
+        for x in xs:
+            for s in range(world):
+                x = fn(s, tree.map_(lambda a: a[s], stages), x)
+            seq.append(x)
+        res["sequential"] = torch.stack(seq).cpu().numpy()
+    return res

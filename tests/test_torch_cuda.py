@@ -49,6 +49,7 @@ from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
                           ssd_inputs)
+from _torch_mesh_ranks import body_cuda_two, run_ranks
 
 
 @pytest.fixture
@@ -1150,3 +1151,19 @@ def test_train_launcher_trains_on_the_card(cuda):
     assert len(rep.losses) == 2 and all(np.isfinite(rep.losses))
     assert (attn_ops.launch_count("flash_prefill"),
             attn_ops.launch_count("flash_prefill_bwd")) == (8, 4)
+
+
+@pytest.mark.cuda
+def test_microbatch_pipeline_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks on cuda:0, a reduced Llama (4 layers, d 128) as two
+    stages of two layers through the flash_prefill kernel, 6 microbatches
+    of (2, 64) tokens: both ranks return the same bits as the one-process
+    run of the same stages; (2 + 6 - 1) ticks x 2 layers launches a rank,
+    every hand-off staged through the host (gloo)."""
+    cfg = configs.get("llama3.2-1b").reduced(n_layers=4, d_model=128)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 2, 64))
+    res = run_ranks(body_cuda_two, 2, cfg, toks)
+    for r in res:
+        assert np.array_equal(r["out"], res[0]["sequential"])
+        assert r["launches"] == 7 * 2
+        assert r["hand_offs"] == {"direct": 0, "host": 7}

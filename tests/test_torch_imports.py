@@ -1,6 +1,6 @@
-"""The port (``src/repro_torch``), ``chip_smoke.py`` and
-``tools/kernel_times.py`` stand alone: they import neither ``jax`` nor
-the JAX package ``repro``."""
+"""The port (``src/repro_torch``), ``chip_smoke.py``,
+``tools/kernel_times.py`` and ``tools/gloo_cuda_check.py`` stand alone:
+they import neither ``jax`` nor the JAX package ``repro``."""
 
 import os
 import re
@@ -16,7 +16,11 @@ from repro_torch.api.specs import ExecSpec, PlanSpec
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "tools" / "kernel_times.py"]
+                                     ROOT / "tools" / "kernel_times.py",
+                                     ROOT / "tools" / "gloo_cuda_check.py"]
+# modules the subprocess import must reach by name (the walk finds the
+# rest): the mesh builders and the pipeline over them
+NAMED = ("repro_torch.launch.mesh", "repro_torch.pipeline.runner")
 # `import jax`, `from jax...`, `import repro`, `from repro.x` — but not
 # `repro_torch`
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
@@ -29,6 +33,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
+        f"assert set({NAMED!r}) <= set(names), names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "repro_torch.compile, repro_torch.Deployment\n"
