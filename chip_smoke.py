@@ -217,14 +217,43 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    ``backend="torch"``.  Printed: the transport path, ms a call beside
    the one-process run's, a 16 MiB hand-off's ms alone, each rank's peak
    memory;
-8. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+8. ring attention (``[ring]`` lines):
+   ``repro_torch.models.transformer.ring_attention`` over
+   ``make_mesh((4,), ("model",))``, four spawned gloo ranks on ``cuda:0``
+   (time-sliced: not a multi-device speed), each checking its inputs
+   against the others' (a digest ``all_gather``).  (a) ``ring_attention``
+   alone at Llama-3.2-1B's attention, q (1, 8192, 8, 4, 64), k/v (1,
+   8192, 8, 64) from numpy seed 0, windows 0 and 4096 (mixtral-8x7b's):
+   forward in fp32 and bf16 and forward + backward in fp32 (dq, dk, dv of
+   one seeded loss), 3 hand-offs a forward and 4 more a backward, all
+   through the host; held here to the one-process ``flash_prefill``
+   kernel (and ``FlashPrefill``'s backward, the ``flash_prefill_bwd``
+   kernel) and to ``flash_prefill_ref`` (and its autograd) head by head,
+   under ``check_close``'s bands (the gradients under BWD_TOL x
+   max|ref|), every rank's bits equal.  (b) Llama-3.2-1B at full width,
+   all 16 layers, fp32, ``init_params(cfg,
+   torch.Generator().manual_seed(0))``, one seeded (1, 8192) prompt:
+   ``forward(ring=(mesh, "model"))`` and ``prefill(ring=...)``, 48
+   hand-offs a call, no kernel launch, ranks bit-equal, the logits (and
+   prefill's last logits and every layer's k and v) within 1e-4 x
+   max|ref| of the one-process kernel path that rank 0 runs after its
+   ring calls (16 ``flash_prefill`` launches a call).  (c) one NCCL rank
+   (a ring of one: no hand-off) of (b)'s forward, held the same way.
+   Printed: ms a call (median of 3) beside the one-process kernel path,
+   hand-offs by path, one k/v hand-off's and one layer's ``all_gather``'s
+   ms alone, each rank's peak memory, the phase's wall time, each beside
+   the card's name and power limit;
+9. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
    in-process plan CLI, flash_prefill's those of Llama's fp32 generate
    and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
    not the one-process run's), ssd_chunk's those of mamba2's fp32
    generate and of phase 6's (b″)-(c‴), moe_gemm's those of granite's
    fp32 generate and of phase 6's (b') and (c'), flash_prefill_bwd's
-   those of the five Llama training steps, ssd_chunk_bwd's phase 6's),
+   those of the five Llama training steps and of phase 8's one-process
+   references, ssd_chunk_bwd's phase 6's; flash_prefill's also phase 8's
+   one-process references: (a)'s here, (b)'s in gloo rank 0 and (c)'s in
+   the NCCL rank; the ring itself runs no kernel),
    the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -357,6 +386,17 @@ HYBRID_TRAIN_LAYERS = 24
 # fails the phase and stops every rank)
 PIPE_STAGES, PIPE_MICRO, PIPE_CALLS, PIPE_SEED = 4, 6, 3, 0
 PIPE_HAND_REPS, PIPE_TIMEOUT_S = 10, 300
+# phase 8: ring attention (models/transformer/ring_attention.py) over
+# launch.make_mesh, RING_RANKS gloo ranks on cuda:0, then one NCCL rank.
+# (a) ring_attention alone at Llama-3.2-1B's attention, q RING_Q, windows
+# RING_WINDOWS (0 and mixtral-8x7b's 4096), inputs from numpy seed
+# RING_SEED; (b) forward and prefill of Llama-3.2-1B (LM_ARCH) at full
+# width, all 16 layers, fp32, one (1, RING_Q[1]) prompt from numpy seed
+# RING_SEED; (c) the NCCL rank's forward.  One counted call (the warm-up)
+# and RING_CALLS timed ones a case, RING_HAND_REPS hand-offs and gathers
+# timed alone, each run of ranks under PIPE_TIMEOUT_S
+RING_RANKS, RING_Q, RING_WINDOWS = 4, (1, 8192, 8, 4, 64), (0, 4096)
+RING_CALLS, RING_SEED, RING_HAND_REPS = 3, 0, 10
 
 
 def fail(msg: str) -> None:
@@ -2465,14 +2505,18 @@ def _pipe_sequential(fn, stages, xs, n_stages: int):
     return torch.stack(outs)
 
 
-def _pipe_rank(rank, world, port, backend, out_dir, results) -> None:
-    """One rank of a phase 7 run (spawned; every rank on cuda:0): builds
-    the model, checks its inputs against the other ranks' (a digest
-    ``all_gather``), runs ``microbatch_pipeline`` once counted (warm-up)
-    and PIPE_CALLS times timed, times hand-offs alone, saves its outputs
-    under ``out_dir`` and puts its readings on ``results``."""
+def _pipe_rank(rank, world, port, backend, out_dir, results, body) -> None:
+    """One rank of a phase 7 or phase 8 run (spawned; every rank on
+    cuda:0): joins the ``backend`` group, puts ``body(rank, world,
+    backend, out_dir)``'s readings (or its traceback) on ``results``."""
+    import os
     import traceback
     from datetime import timedelta
+    # segments that grow and shrink: four ranks' logits of 4.2 GB come and
+    # go on one card, and blocks cached but free in one rank cannot serve
+    # another's
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     import torch.distributed as dist
     try:
@@ -2484,8 +2528,7 @@ def _pipe_rank(rank, world, port, backend, out_dir, results) -> None:
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=PIPE_TIMEOUT_S))
         try:
-            results.put((rank, True,
-                         _pipe_rank_body(rank, world, backend, out_dir)))
+            results.put((rank, True, body(rank, world, backend, out_dir)))
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -2494,12 +2537,17 @@ def _pipe_rank(rank, world, port, backend, out_dir, results) -> None:
 
 
 def _pipe_rank_body(rank, world, backend, out_dir) -> dict:
+    """A phase 7 rank: builds the model, checks its inputs against the
+    other ranks' (a digest ``all_gather``), runs ``microbatch_pipeline``
+    once counted (warm-up) and PIPE_CALLS times timed, times hand-offs
+    alone and saves its outputs under ``out_dir``."""
     import hashlib
     import statistics
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.attention import ops as attn
     from repro_torch.launch import make_mesh
+    from repro_torch.launch.mesh import ring_shift
     from repro_torch.pipeline import microbatch_pipeline, runner
 
     t0 = time.perf_counter()
@@ -2545,7 +2593,7 @@ def _pipe_rank_body(rank, world, backend, out_dir) -> dict:
         sync()
         t = time.perf_counter()
         for _ in range(PIPE_HAND_REPS):
-            runner._shift(y, group, mesh.get_local_rank("stage"), world)
+            ring_shift([y], group, mesh.get_local_rank("stage"), world)
         torch.cuda.synchronize()
         hand_ms = (time.perf_counter() - t) * 1e3 / PIPE_HAND_REPS
     torch.save(out.cpu(), Path(out_dir) / f"{backend}{rank}.pt")
@@ -2559,9 +2607,10 @@ def _pipe_rank_body(rank, world, backend, out_dir) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def _pipe_spawn(backend: str, world: int, out_dir: str):
+def _pipe_spawn(backend: str, world: int, out_dir: str,
+                body=_pipe_rank_body):
     """Start ``world`` ranks of a ``backend`` group on a free localhost
-    port; returns (processes, results queue)."""
+    port, each running ``body``; returns (processes, results queue)."""
     import multiprocessing as mp
     import socket
     with socket.socket() as s:
@@ -2570,7 +2619,8 @@ def _pipe_spawn(backend: str, world: int, out_dir: str):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_pipe_rank, daemon=True,
-                         args=(r, world, port, backend, out_dir, results))
+                         args=(r, world, port, backend, out_dir, results,
+                               body))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2746,6 +2796,426 @@ def run_pipeline() -> int:
     del stages, xs, ref, again, plain, outs
     torch.cuda.empty_cache()
     return sum(launches) + nccl[0]["launches"]
+
+
+# -- ring attention over a mesh (phase 8) ------------------------------------
+
+def _ring_inputs():
+    """Phase 8 (a)'s q (RING_Q), k, v and the loss weights dO on the
+    card, fp32, from numpy seed RING_SEED."""
+    import numpy as np
+    import torch
+    b, s, k, g, d = RING_Q
+    rng = np.random.default_rng(RING_SEED)
+    shapes = ((b, s, k, g, d), (b, s, k, d), (b, s, k, d), (b, s, k, g, d))
+    return tuple(torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
+                                 device="cuda") for sh in shapes)
+
+
+def _digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (any dtype)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy())
+    return h.hexdigest()
+
+
+def _max_diff(a, b) -> float:
+    """max |a - b| over two tensors of one shape (on any devices), a
+    chunk of the leading axes at a time: no full-size temporary."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    step = max(1, (1 << 26) // a.shape[-1])
+    return max(((a[i:i + step].cuda().float() - b[i:i + step].cuda().float())
+                .abs().max().item() for i in range(0, a.shape[0], step)),
+               default=0.0)
+
+
+def _timed_calls(fn, sync, calls: int = RING_CALLS) -> list[float]:
+    """ms of ``calls`` calls of ``fn`` (host clock, synchronised, every
+    rank released together by ``sync``); what ``fn`` returns is dropped
+    before the next call."""
+    import torch
+    ms = []
+    for _ in range(calls):
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def _since(before: dict) -> dict:
+    from repro_torch.launch import mesh as mesh_mod
+    return {k: n - before[k] for k, n in mesh_mod.HAND_OFFS.items()}
+
+
+def _ring_attn_rank(mesh, sync, rank, out_dir) -> dict:
+    """Phase 8 (a) in one gloo rank: ``ring_attention`` at RING_Q for each
+    window, forward in fp32 and bf16 and forward + backward in fp32, each
+    once counted and RING_CALLS times timed; rank 0 saves its outputs and
+    gradients under ``out_dir``.  Then one k/v hand-off and one gather of
+    a layer's output rows, each timed alone."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer.ring_attention import ring_attention
+    q, k, v, do = _ring_inputs()
+    res = {}
+    for w in RING_WINDOWS:
+        for dt in ("float32", "bfloat16"):
+            args = [t.to(getattr(torch, dt)) for t in (q, k, v)]
+
+            def call():
+                return ring_attention(*args, mesh, "model", sliding_window=w)
+            with torch.no_grad():
+                before = dict(mesh_mod.HAND_OFFS)
+                o = call()
+                torch.cuda.synchronize()
+                hand = _since(before)
+                ms = _timed_calls(call, sync)
+            res[f"w{w} {dt} forward"] = dict(digest=_digest(o), ms=ms,
+                                             hand_offs=hand)
+            if rank == 0:
+                torch.save(o.cpu(), Path(out_dir) / f"w{w}_{dt}.pt")
+            del o, args
+
+        def fwd_bwd():
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (ring_attention(*leaves, mesh, "model", sliding_window=w)
+             * do).sum().backward()
+            return [t.grad for t in leaves]
+        before = dict(mesh_mod.HAND_OFFS)
+        grads = fwd_bwd()
+        torch.cuda.synchronize()
+        hand = _since(before)
+        res[f"w{w} float32 backward"] = dict(
+            digest=_digest(*grads), ms=_timed_calls(fwd_bwd, sync),
+            hand_offs=hand)
+        if rank == 0:
+            torch.save([g.cpu() for g in grads],
+                       Path(out_dir) / f"w{w}_grads.pt")
+        del grads
+    # one hand-off of the forward's k/v blocks and one gather of a
+    # layer's output rows, alone
+    group, idx = mesh.get_group("model"), mesh.get_local_rank("model")
+    n, rows = RING_RANKS, RING_Q[1] // RING_RANKS
+    blocks = [k[:, :rows].clone(), v[:, :rows].clone()]
+    o_rows = q[:, :rows].clone()
+    res["shift_ms"] = _timed_calls(
+        lambda: mesh_mod.ring_shift(blocks, group, idx, n), sync,
+        RING_HAND_REPS)
+    res["gather_ms"] = _timed_calls(
+        lambda: mesh_mod.gather_axis(o_rows, group, 1), sync, RING_HAND_REPS)
+    res["shift_mib"] = blocks[0].numel() * 4 / 2 ** 20
+    res["rows_mib"] = o_rows.numel() * 4 / 2 ** 20
+    return res
+
+
+def _ring_model_rank(mesh, sync, rank, prefill: bool) -> dict:
+    """Phase 8 (b) and (c) in one rank: Llama-3.2-1B at full width from
+    ``init_params(cfg, torch.Generator().manual_seed(0))``, one seeded
+    (1, RING_Q[1]) prompt; ``forward(ring=(mesh, "model"))`` (and with
+    ``prefill``, ``prefill(ring=...)``) once counted and RING_CALLS times
+    timed.  Rank 0 then runs the one-process kernel path of the same
+    calls, RING_CALLS + 1 times, and holds its ring's outputs to it: the
+    logits over the real vocab, and each layer's k and v, each within
+    LM_LOGIT_TOL x its max|ref|."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.attention import ops as attn
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import model as M
+
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    toks = np.random.default_rng(RING_SEED).integers(
+        0, cfg.vocab_size, (1, RING_Q[1]))
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0, "calls": {}}
+    ring = (mesh, "model")
+
+    def leaves(name, out):
+        """(name, tensor) of what a call returns, compared one by one."""
+        if name == "forward":
+            return [("logits", out[..., :cfg.vocab_size])]
+        last, cache = out
+        return [("last logits", last[..., :cfg.vocab_size])] + [
+            (f"{key}[{i}]", cache[key][i]) for key in ("k", "v")
+            for i in range(cfg.n_layers)]
+
+    fns = {"forward": M.forward, "prefill": M.prefill}
+    for name in ("forward", "prefill") if prefill else ("forward",):
+        fn = fns[name]
+        with torch.no_grad():
+            before = dict(mesh_mod.HAND_OFFS)
+            attn.reset_launches()
+            out = fn(cfg, params, batch, ring=ring)
+            torch.cuda.synchronize()
+            entry = dict(hand_offs=_since(before),
+                         launches=attn.launch_count("flash_prefill"))
+            got = [(k, t.cpu()) for k, t in leaves(name, out)]
+            entry["digest"] = _digest(*(t for _, t in got))
+            del out
+            entry["ms"] = _timed_calls(
+                lambda: fn(cfg, params, batch, ring=ring), sync)
+            if rank == 0:
+                attn.reset_launches()
+                one = fn(cfg, params, batch)
+                torch.cuda.synchronize()
+                one_launches = attn.launch_count("flash_prefill")
+                worst, at = 0.0, ""
+                for (key, t), (_, ref) in zip(got, leaves(name, one)):
+                    share = _max_diff(t, ref) / (
+                        LM_LOGIT_TOL["float32"] * ref.abs().max().item())
+                    if share >= worst:
+                        worst, at = share, key
+                finite = all(bool(torch.isfinite(t).all()) for _, t in got)
+                del one
+                entry["one_ms"] = _timed_calls(lambda: fn(cfg, params, batch),
+                                               lambda: None)
+                entry.update(worst=worst, worst_at=at, finite=finite,
+                             shape=tuple(got[0][1].shape), leaves=len(got),
+                             one_launches=one_launches,
+                             one_total=attn.launch_count("flash_prefill"))
+            del got
+        res["calls"][name] = entry
+    return res
+
+
+def _ring_rank_body(rank, world, backend, out_dir) -> dict:
+    """A phase 8 rank: under gloo (a) then (b), each gloo rank first
+    checking that every other built the same inputs (a digest
+    ``all_gather``); under NCCL (one rank) (c)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import make_mesh
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((world,), ("model",))
+    sync = dist.barrier if world > 1 else (lambda: None)
+    res = {"backend": dist.get_backend(mesh.get_group("model")),
+           "device": torch.cuda.get_device_name(0)}
+    if backend == "gloo":
+        digests = [None] * world
+        dist.all_gather_object(digests, _digest(*_ring_inputs()))
+        res["inputs_equal"] = len(set(digests)) == 1
+        res["attn"] = _ring_attn_rank(mesh, sync, rank, out_dir)
+        torch.cuda.empty_cache()
+    res["model"] = _ring_model_rank(mesh, sync, rank,
+                                    prefill=backend == "gloo")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def _two_bands(y, y_other, y_ref):
+    """(max |y - y_other|, worst error over its limit, ok) of two bf16
+    approximations of ``y_ref`` that ``check_close`` holds to it each
+    (the ring's and the flash_prefill kernel's, which round p to bf16
+    against other running maxima): their difference is held to the sum
+    of their two bands, 2 x BF16_TOL x (|ref| + rms(ref)) per element."""
+    import torch
+    err = (y.float() - y_other.float()).abs()
+    ref = y_ref.float().abs()
+    of_limit = (err / (2 * BF16_TOL * (ref + ref.square().mean().sqrt()))
+                ).max().item()
+    return (err.max().item(), of_limit,
+            of_limit <= 1.0 and bool(torch.isfinite(y).all()))
+
+
+def _ring_attn_refs(out_dir) -> dict:
+    """Phase 8 (a)'s one-process references in this process, and the
+    checks of rank 0's saved ring outputs against them: the flash_prefill
+    kernel in fp32 and bf16 and ``FlashPrefill``'s backward (the
+    flash_prefill_bwd kernel), each once counted and RING_CALLS times
+    timed, and ``flash_prefill_ref`` and its autograd head by head (the
+    heads are independent; one head's scores are 1 GiB).  Returns the
+    lines' readings by case."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn
+    from repro_torch.kernels.attention import ref as attn_ref
+    q, k, v, do = _ring_inputs()
+    heads = range(RING_Q[2])
+
+    def by_head(fn, *ts):
+        return torch.cat([fn(*(t[:, :, h:h + 1] for t in ts)) for h in heads],
+                         dim=2)
+
+    def plain_grads(w):
+        out = [[], [], []]
+        for h in heads:
+            leaves = [t[:, :, h:h + 1].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            (attn_ref.flash_prefill_ref(*leaves, w)
+             * do[:, :, h:h + 1]).sum().backward()
+            for acc, t in zip(out, leaves):
+                acc.append(t.grad)
+        return [torch.cat(g, dim=2) for g in out]
+
+    def kernel_grads(w):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (attn.FlashPrefill.apply(*leaves, w) * do).sum().backward()
+        return [t.grad for t in leaves]
+
+    refs = {}
+    for w in RING_WINDOWS:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            args = [t.to(dtype) for t in (q, k, v)]
+            ring_o = torch.load(Path(out_dir) / f"w{w}_{dt}.pt").cuda()
+            kern = attn.flash_prefill(*args, sliding_window=w)
+            plain = by_head(lambda *a: attn_ref.flash_prefill_ref(*a, w),
+                            *args)
+            ms = _timed_calls(lambda: attn.flash_prefill(
+                *args, sliding_window=w), lambda: None)
+            refs[f"w{w} {dt} forward"] = dict(
+                kernel=check_close(ring_o, kern, dtype)
+                if dt == "float32" else _two_bands(ring_o, kern, plain),
+                plain=check_close(ring_o, plain, dtype), one_ms=ms,
+                kernel_plain=check_close(kern, plain, dtype))
+            del kern, plain, ring_o, args
+        ring_g = [g.cuda() for g in
+                  torch.load(Path(out_dir) / f"w{w}_grads.pt")]
+        kern, plain = kernel_grads(w), plain_grads(w)
+        ms = _timed_calls(lambda: kernel_grads(w), lambda: None)
+        entry = {"one_ms": ms}
+        for label, want in (("kernel", kern), ("plain", plain)):
+            errs = [_max_diff(g, x) for g, x in zip(ring_g, want)]
+            share = max(e / (BWD_TOL * x.abs().max().item())
+                        for e, x in zip(errs, want))
+            ok = share <= 1.0 and all(bool(torch.isfinite(g).all())
+                                      for g in ring_g)
+            entry[label] = (max(errs), share, ok)
+        refs[f"w{w} float32 backward"] = entry
+        del ring_g, kern, plain
+    torch.cuda.empty_cache()
+    return refs
+
+
+def run_ring(card: str) -> tuple[int, int]:
+    """Phase 8: ring attention over ``launch.make_mesh`` (``[ring]``
+    lines).  (a) and (b) in RING_RANKS gloo ranks on cuda:0, (c) in one
+    NCCL rank; (a)'s one-process references here.  Returns the
+    flash_prefill and flash_prefill_bwd launches of the phase's
+    one-process references (this process's for (a), rank 0's for (b), the
+    NCCL rank's for (c)); the ring runs no kernel."""
+    import tempfile
+    from statistics import median
+    import torch
+    from repro_torch.kernels.attention import ops as attn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    b, s, kh, g, d = RING_Q
+    print(f"[ring] ring_attention over make_mesh(({RING_RANKS},), "
+          f"('model',)): {RING_RANKS} gloo ranks on cuda:0 (time-sliced: "
+          f"no figure here is a multi-device speed), then one NCCL rank; "
+          f"(a) q {RING_Q}, k/v {(b, s, kh, d)} from numpy seed "
+          f"{RING_SEED}, windows {RING_WINDOWS}; (b) {LM_ARCH} at full "
+          f"width, all 16 layers, fp32, one (1, {s}) prompt; this "
+          f"process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB before; on {card}")
+    with tempfile.TemporaryDirectory(prefix="ring-") as out_dir:
+        t0 = time.perf_counter()
+        gloo = _pipe_collect(*_pipe_spawn("gloo", RING_RANKS, out_dir,
+                                          _ring_rank_body), "ring gloo ranks")
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = _pipe_collect(*_pipe_spawn("nccl", 1, out_dir,
+                                          _ring_rank_body), "ring nccl rank")
+        nccl_s = time.perf_counter() - t0
+        attn.reset_launches()
+        refs = _ring_attn_refs(out_dir)
+        ref_fwd = attn.launch_count("flash_prefill")
+        ref_bwd = attn.launch_count("flash_prefill_bwd")
+
+    devices = ", ".join(sorted({r["device"] for r in gloo}))
+    builds = ", ".join(f"{r['model']['build_s']:.1f}" for r in gloo)
+    print(f"[ring] ranks: gloo x {len(gloo)} on {devices}, {gloo_s:.1f} s "
+          f"wall with spawn, (a) and (b) (model builds {builds} s); "
+          f"nccl x 1, {nccl_s:.1f} s; every rank's inputs equal the "
+          f"others': {all(r['inputs_equal'] for r in gloo)}")
+    ok = all(r["inputs_equal"] for r in gloo)
+    n = RING_RANKS
+    # (a): n - 1 forward hand-offs a call, n more in the backward
+    want_fwd = {"direct": 0, "host": n - 1}
+    want_bwd = {"direct": 0, "host": 2 * n - 1}
+    for case, ref in refs.items():
+        rs = [r["attn"][case] for r in gloo]
+        same = len({r["digest"] for r in rs}) == 1
+        hand = rs[0]["hand_offs"]
+        want = want_bwd if case.endswith("backward") else want_fwd
+        ring_ms = median(median(r["ms"]) for r in rs)
+        band, plain = ("BWD_TOL x max|ref|", "flash_prefill_ref's autograd") \
+            if case.endswith("backward") else \
+            ("check_close's band", "flash_prefill_ref")
+        kband = "the sum of the two bands of flash_prefill_ref" \
+            if "bfloat16" in case else band
+        kp = f"; the kernel vs flash_prefill_ref {ref['kernel_plain'][1]:.3f}" \
+            " (printed, not held here)" if "kernel_plain" in ref else ""
+        print(f"[ring] (a) {case}: ranks bit-equal {same}; vs the one-process "
+              f"kernel path err {ref['kernel'][0]:.3g} ({ref['kernel'][1]:.3f}"
+              f" of {kband}), vs {plain} err {ref['plain'][0]:.3g} "
+              f"({ref['plain'][1]:.3f} of {band}){kp}; hand-offs "
+              f"{hand}; ms a call (median of {RING_CALLS}): {n} gloo ranks "
+              f"{ring_ms:.1f} -- FOUR PROCESSES TIME-SLICED ON ONE CARD, not "
+              f"a multi-device speed; one-process kernel path "
+              f"{median(ref['one_ms']):.2f}; on {card}")
+        ok = ok and same and ref["kernel"][2] and ref["plain"][2] \
+            and all(r["hand_offs"] == want for r in rs)
+    a0 = gloo[0]["attn"]
+    print(f"[ring] (a) alone: one k/v hand-off (k and v blocks, "
+          f"{a0['shift_mib']:.0f} MiB each, staged through the host) "
+          f"{median(median(r['attn']['shift_ms']) for r in gloo):.2f} ms; "
+          f"one layer's all_gather of the output rows ({a0['rows_mib']:.0f} "
+          f"MiB a rank, {n * a0['rows_mib']:.0f} MiB gathered) "
+          f"{median(median(r['attn']['gather_ms']) for r in gloo):.2f} ms "
+          f"(medians of {RING_HAND_REPS} over the ranks); on {card}")
+
+    layers = 16
+    for label, runs in (("(b)", gloo), ("(c)", nccl)):
+        for name in runs[0]["model"]["calls"]:
+            rs = [r["model"]["calls"][name] for r in runs]
+            r0 = rs[0]
+            same = len({r["digest"] for r in rs}) == 1
+            want = {"direct": 0, "host": layers * (n - 1)} \
+                if label == "(b)" else {"direct": 0, "host": 0}
+            ring_ms = median(median(r["ms"]) for r in rs)
+            who = f"{len(rs)} gloo ranks" if label == "(b)" else "one NCCL rank"
+            print(f"[ring] {label} {name}(ring=(mesh, 'model')) {who}: "
+                  f"{r0['shape']} and {r0['leaves'] - 1} more leaves; ranks "
+                  f"bit-equal {same}; vs the one-process kernel path worst "
+                  f"{r0['worst']:.3f} of {LM_LOGIT_TOL['float32']:g} x "
+                  f"max|ref| (at {r0['worst_at']}); finite {r0['finite']}; "
+                  f"hand-offs {r0['hand_offs']}; flash_prefill launches: "
+                  f"ring {r0['launches']} (want 0), one-process "
+                  f"{r0['one_launches']} a call (want {layers}); ms a call "
+                  f"(median of {RING_CALLS}): {who} {ring_ms:.1f}"
+                  + (" -- FOUR PROCESSES TIME-SLICED ON ONE CARD, not a "
+                     "multi-device speed" if label == "(b)" else "")
+                  + f"; one-process kernel path {median(r0['one_ms']):.1f}; "
+                  f"on {card}")
+            ok = ok and same and r0["finite"] and r0["worst"] <= 1.0 \
+                and all(r["hand_offs"] == want and r["launches"] == 0
+                        for r in rs) and r0["one_launches"] == layers
+    in_ranks = sum(c["one_total"] for r in (gloo[0], nccl[0])
+                   for c in r["model"]["calls"].values())
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in gloo)
+    print(f"[ring] peak memory a rank: gloo {peaks} GiB, nccl "
+          f"{nccl[0]['peak_gib']:.2f} GiB; one-process references' launches: "
+          f"flash_prefill {ref_fwd} here ((a)) + {in_ranks} in gloo rank 0 "
+          f"((b)) and the NCCL rank ((c)), flash_prefill_bwd {ref_bwd} here; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        fail("ring: a phase 8 check failed (see the [ring] lines)")
+    return ref_fwd + in_ranks, ref_bwd
 
 
 def _entry_name(mangled: str) -> str:
@@ -4444,6 +4914,12 @@ def main() -> None:
     pipe_launches = run_pipeline()
     entries["flash_prefill"]["launches"] += pipe_launches
     print(f"[time] pipeline phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ring_fwd, ring_bwd = run_ring(card)
+    entries["flash_prefill"]["launches"] += ring_fwd
+    next(e for e in kernels if e["name"] == "flash_prefill_bwd")[
+        "launches"] += ring_bwd
+    print(f"[time] ring phase {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -4455,12 +4931,14 @@ def main() -> None:
           f"shape, library_ms SDPA's backward; ssd_chunk_bwd: one mamba2 "
           f"train step's 48 launches at the path's shape, library_ms null "
           f"(no single PyTorch call computes it); flash_prefill: its "
-          f"launches Llama's fp32 generate's and phase 7's {pipe_launches} "
-          f"(the pipeline's gloo ranks and its NCCL rank)")
+          f"launches Llama's fp32 generate's, phase 7's {pipe_launches} "
+          f"(the pipeline's gloo ranks and its NCCL rank) and phase 8's "
+          f"{ring_fwd} (the one-process references of the ring); "
+          f"flash_prefill_bwd: also phase 8's {ring_bwd}")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 8. result lines -------------------------------------------------
+    # -- 9. result lines -------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

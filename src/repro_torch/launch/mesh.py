@@ -9,6 +9,12 @@ the group first (``init_process_group`` with its backend, address, world
 size and rank); the mesh's sub-group along an axis is
 ``mesh.get_group(axis)`` and a rank's coordinate on it
 ``mesh.get_local_rank(axis)``.
+
+The ring hand-off of the whole port is here: :func:`ring_shift` moves
+tensors one step round an axis's sub-group (the pipeline's stage
+outputs, ring attention's k/v blocks and their gradients), and
+:func:`gather_axis` concatenates each rank's piece along the axis.
+Under gloo a CUDA tensor goes through the host (:func:`stages_on_host`).
 """
 
 from __future__ import annotations
@@ -71,3 +77,69 @@ def batch_axes(mesh: DeviceMesh) -> tuple[str, ...]:
     """Axes used for data parallelism on this mesh."""
     names = mesh.mesh_dim_names or ()
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+# ---------------------------------------------------------------------------
+# the ring hand-off and the axis gather
+# ---------------------------------------------------------------------------
+
+#: ring hand-offs (:func:`ring_shift` calls) in this process since it
+#: started, by transport: ``"direct"`` moved the tensors where they lie
+#: (NCCL on the card, gloo on the CPU), ``"host"`` copied CUDA tensors to
+#: the host for gloo and the received ones back
+HAND_OFFS = {"direct": 0, "host": 0}
+
+
+def stages_on_host(group, x: torch.Tensor) -> bool:
+    """Whether the collectives of ``group`` copy ``x`` to the host: a
+    CUDA tensor under the gloo backend, whose send and recv read and write
+    the tensor's memory from the host (a CUDA tensor's send aborts the
+    rank: ``tools/gloo_cuda_check.py``).  Decided by the backend's name,
+    never by a failed attempt."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def ring_shift(tensors: list[torch.Tensor], group, idx: int, n: int
+               ) -> list[torch.Tensor]:
+    """One ring hand-off on ``group`` (``n`` ranks; this rank at ``idx``):
+    ``tensors`` go to coordinate ``idx + 1`` and what coordinate
+    ``idx - 1`` sent comes back, tensors of the same shapes and dtypes in
+    the same order.  The tensors travel as one byte buffer in one
+    ``batch_isend_irecv`` (peers named by their global ranks); every rank
+    of the group calls this with tensors of the same shapes and dtypes.
+    Counts one hand-off in :data:`HAND_OFFS`."""
+    ranks = dist.get_process_group_ranks(group)
+    ts = [t.contiguous() for t in tensors]
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
+    host = stages_on_host(group, flat)
+    send = flat.cpu() if host else flat
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, ranks[(idx + 1) % n], group),
+        dist.P2POp(dist.irecv, recv, ranks[(idx - 1) % n], group)])
+    for req in reqs:
+        req.wait()
+    HAND_OFFS["host" if host else "direct"] += 1
+    if host:
+        recv = recv.to(flat.device)
+    out, at = [], 0
+    for t in ts:
+        nbytes = t.numel() * t.element_size()
+        out.append(recv[at:at + nbytes].view(t.dtype).view(t.shape))
+        at += nbytes
+    return out
+
+
+def gather_axis(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in the
+    order of the ranks' coordinates (one ``all_gather``; under gloo a CUDA
+    tensor through the host).  A group of one returns ``x``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    host = stages_on_host(group, x)
+    src = x.cpu() if host else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if host else out

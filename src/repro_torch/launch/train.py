@@ -6,15 +6,16 @@
         --reduced --steps 50 --batch 8 --seq 64 --device cpu   # CPU, small
 
 The reference's launcher shards the train step over the host's mesh; on
-one device the mesh is that device (sharding and multi-device meshes are
-ROADMAP Queue 1, item 12).  Weights are random from ``--seed``.  On the
-card every family the launcher takes trains: the dense archs (llama,
-qwen, command-r) through the attention kernels and their backward, the
-MoE archs (granite, mixtral) through those and ``moe_gemm`` with its
-backward, Mamba2 (mamba2) through ``ssd_chunk`` and its backward kernel
-``ssd_chunk_bwd``, and the hybrid (zamba2) through all of them.  The
-archs that take embeddings (llava, musicgen) stop as the reference's
-launcher stops them.
+one device the mesh is that device (sharded training is ROADMAP Queue 1,
+item 12c; ``launch/mesh.py`` builds multi-rank meshes and
+``loss_fn(ring=...)`` differentiates ring attention over one).  Weights
+are random from ``--seed``.  On the card every family the launcher takes
+trains: the dense archs (llama, qwen, command-r) through the attention
+kernels and their backward, the MoE archs (granite, mixtral) through
+those and ``moe_gemm`` with its backward, Mamba2 (mamba2) through
+``ssd_chunk`` and its backward kernel ``ssd_chunk_bwd``, and the hybrid
+(zamba2) through all of them.  The archs that take embeddings (llava,
+musicgen) stop as the reference's launcher stops them.
 
 The optimizer's update is functional, as the reference's: at the update
 the old params, m and v, the gradients, the clipped gradients and the

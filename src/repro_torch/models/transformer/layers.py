@@ -24,7 +24,9 @@ device (the reference's ``use_pallas=False``).  The other products
 (``x @ W``, the inter-chunk scan) are plain torch, as the reference
 leaves them to XLA.
 
-Ring attention is not ported yet (ROADMAP Queue 1, item 12).
+``attention_prefill(..., ring=(mesh, axis))`` runs its core as ring
+attention over that axis of a ``torch.distributed`` device mesh
+(``ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ...kernels.moe_gemm import ops as moe_ops
 from ...kernels.moe_gemm import ref as moe_ref
 from ...kernels.ssd import ops as ssd_ops
 from ...kernels.ssd import ref as ssd_ref
+from .ring_attention import ring_attention, ring_size
 
 BACKENDS = ("cuda", "torch")
 
@@ -126,16 +129,29 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
                       n_kv: int, hd: int, rope_theta: float,
-                      sliding_window: int = 0, backend: str = "cuda"
-                      ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence causal attention.  Returns (out, kv_for_cache)."""
+                      sliding_window: int = 0, backend: str = "cuda",
+                      ring=None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence causal attention.  Returns (out, kv_for_cache).
+
+    ``ring=(mesh, axis)`` (a ``torch.distributed`` ``DeviceMesh`` and one
+    of its axis names; every rank of the axis calls this with the same
+    x) runs the core as ring attention over that axis when S is a
+    multiple of the axis's size, and as :func:`blockwise_causal_attention`
+    with ``backend`` otherwise: the reference's rule.  The reference's
+    ``ring`` is ``(axis_name, axis_size)`` under an ambient mesh; the
+    port has no ambient mesh, so ``ring`` carries the mesh itself."""
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, n_heads, n_kv, hd)
     pos = torch.arange(S, device=x.device)[None, :]
     q = rope(q.reshape(B, S, n_heads, hd), pos, rope_theta) \
         .reshape(B, S, n_kv, n_heads // n_kv, hd)
     k = rope(k, pos, rope_theta)
-    o = blockwise_causal_attention(q, k, v, sliding_window, backend)
+    # x is global and equal on every rank, so every rank takes the same
+    # branch: none rings while another waits
+    if ring is not None and S % ring_size(*ring) == 0:
+        o = ring_attention(q, k, v, *ring, sliding_window=sliding_window)
+    else:
+        o = blockwise_causal_attention(q, k, v, sliding_window, backend)
     o = o.reshape(B, S, n_heads * hd) @ p.wo
     return o, {"k": k, "v": v}
 

@@ -320,7 +320,7 @@ def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str
 
 
 def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
-            backend: str, caches: bool, remat: bool = False
+            backend: str, caches: bool, remat: bool = False, ring=None
             ) -> tuple[torch.Tensor, Cache]:
     """x (B, S, d) through every layer and, after each layer the shared
     block follows, the shared block; returns (the last hidden state,
@@ -337,7 +337,11 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
     each shared-block application runs under
     ``torch.utils.checkpoint.checkpoint`` (non-reentrant), the
     counterpart of the reference's ``jax.checkpoint(body)``: only its
-    input is kept, and the backward runs it again."""
+    input is kept, and the backward runs it again.
+
+    ``ring=(mesh, axis)`` goes to the attention of every ``attn``-pattern
+    layer (``attention_prefill``), never to the shared block or a Mamba2
+    layer, as in the reference."""
     B, S, _ = x.shape
     W = _window(cfg, S)
 
@@ -359,7 +363,7 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
         if cfg.layer_pattern == "attn":
             h, layer_cache = attention_prefill(lp["attn"], xn,
                                                **_attn_dims(cfg),
-                                               backend=backend)
+                                               backend=backend, ring=ring)
             x = x + h
             return x + _ffn(cfg, lp, x, backend), layer_cache
         h, layer_cache = mamba2_prefill(lp["mamba"], xn, **_ssm_dims(cfg),
@@ -404,7 +408,7 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
 def forward(cfg: ArchConfig, params: Params, batch: dict,
             remat: bool = True, unroll: bool = False,
-            backend: str = "cuda") -> torch.Tensor:
+            backend: str = "cuda", ring=None) -> torch.Tensor:
     """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns the
     logits (B, S, vocab_padded), padded vocab slots masked; the MoE aux
     loss is dropped, as in the reference's ``forward``.
@@ -414,38 +418,53 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     run again in the backward (``torch.utils.checkpoint``, the
     counterpart of ``jax.checkpoint``); it changes no value.  ``unroll``
     is accepted for the reference's signature and does nothing: the
-    layers are a Python loop, not a ``lax.scan``.  The reference's
-    ``act_pspec``, ``moe_pspec`` and ``ring`` (sharding and ring
-    attention) have no counterpart yet (ROADMAP Queue 1, item 12)."""
+    layers are a Python loop, not a ``lax.scan``.
+
+    ``ring=(mesh, axis)``: every ``attn``-pattern layer's attention is
+    ring attention over ``axis`` of the ``torch.distributed``
+    ``DeviceMesh`` (where S is a multiple of its size; see
+    ``layers.attention_prefill``).  Every rank of the axis calls this
+    with the same params and batch, and every rank computes the layers
+    outside attention on the whole sequence, as the reference's
+    activations stay global.  Under remat the backward's recompute runs
+    each ring again; every rank runs the same layers in the same order,
+    so the collectives stay matched.  The reference's ``act_pspec`` and
+    ``moe_pspec`` (sharding) have no counterpart yet (ROADMAP Queue 1,
+    item 12c)."""
     check_backend(backend)
     x = _embed(cfg, params, batch, "tokens", "embeds")
-    x, _ = _layers(cfg, params, x, backend, caches=False, remat=remat)
+    x, _ = _layers(cfg, params, x, backend, caches=False, remat=remat,
+                   ring=ring)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _mask_padded_vocab(cfg, x @ params["head"])
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
-            unroll: bool = False, backend: str = "cuda") -> torch.Tensor:
+            unroll: bool = False, backend: str = "cuda",
+            ring=None) -> torch.Tensor:
     """Mean next-token cross entropy of :func:`forward`'s logits (with
     remat, as the reference's) against ``batch['labels']`` (B, S), in
-    fp32; a 0-d tensor.  ``unroll`` does nothing (see :func:`forward`)."""
+    fp32; a 0-d tensor.  ``unroll`` does nothing and ``ring`` goes to
+    :func:`forward`."""
     logits = forward(cfg, params, batch, unroll=unroll,
-                     backend=backend).float()
+                     backend=backend, ring=ring).float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return (lse - picked).mean()
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: dict,
-            backend: str = "cuda") -> tuple[torch.Tensor, Cache]:
+            backend: str = "cuda", ring=None) -> tuple[torch.Tensor, Cache]:
     """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns
     (logits of the last position (B, vocab_padded), a cache holding the
     prompt's k/v, or the Mamba2 conv and ssm states, and a hybrid's
-    shared-block k/v at each site)."""
+    shared-block k/v at each site).  ``ring=(mesh, axis)`` as in
+    :func:`forward`; every rank returns the whole cache."""
     check_backend(backend)
     x = _embed(cfg, params, batch, "tokens", "embeds")
     S = x.shape[1]
-    x, layer_caches = _layers(cfg, params, x, backend, caches=True)
+    x, layer_caches = _layers(cfg, params, x, backend, caches=True,
+                              ring=ring)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, x[:, -1] @ params["head"])
     cache = {"len": torch.full((), S, dtype=torch.int32, device=x.device)}

@@ -22,6 +22,9 @@ import torch
 import torch.distributed as dist
 
 from ..core.pipeline_dp import PipelinePlan
+# HAND_OFFS is read here by the pipeline's callers: the counter of
+# launch/mesh.py's ring_shift, the one hand-off of the port
+from ..launch.mesh import HAND_OFFS, ring_shift, stages_on_host  # noqa: F401
 from ..training import tree
 from .stage import executors_from_plan
 
@@ -68,40 +71,6 @@ class PipelineRunner:
 # GPipe-style microbatch pipeline over a mesh axis
 # ---------------------------------------------------------------------------
 
-#: hand-offs (ring shifts) of :func:`microbatch_pipeline` in this process
-#: since it started, by transport: ``"direct"`` moved the tensor where it
-#: lies (NCCL on the card, gloo on the CPU), ``"host"`` copied a CUDA
-#: tensor to the host for gloo and the received one back
-HAND_OFFS = {"direct": 0, "host": 0}
-
-
-def stages_on_host(group, x: torch.Tensor) -> bool:
-    """Whether :func:`microbatch_pipeline` copies ``x`` to the host for
-    the collectives of ``group``: a CUDA tensor under the gloo backend,
-    whose send and recv read and write the tensor's memory from the host
-    (a CUDA tensor's send aborts the rank: ``tools/gloo_cuda_check.py``).
-    Decided by the backend's name, never by a failed attempt."""
-    return x.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def _shift(y: torch.Tensor, group, sid: int, n_stages: int
-           ) -> torch.Tensor:
-    """One ring hand-off on ``group``: ``y`` to stage ``sid + 1``, and
-    what stage ``sid - 1`` sent back, in one ``batch_isend_irecv`` (peers
-    named by their global ranks)."""
-    ranks = dist.get_process_group_ranks(group)
-    host = stages_on_host(group, y)
-    send = y.cpu() if host else y.contiguous()
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, ranks[(sid + 1) % n_stages], group),
-        dist.P2POp(dist.irecv, recv, ranks[(sid - 1) % n_stages], group)])
-    for req in reqs:
-        req.wait()
-    HAND_OFFS["host" if host else "direct"] += 1
-    return recv.to(y.device) if host else recv
-
-
 def microbatch_pipeline(
     stage_fn: Callable[[int, object, torch.Tensor], torch.Tensor],
     stage_params,
@@ -124,9 +93,9 @@ def microbatch_pipeline(
     The reference's GPipe schedule, tick for tick: n_stages + n_micro - 1
     ticks; each tick stage 0 takes microbatch min(t, n_micro - 1), the
     other stages the tensor handed to them, every stage computes (bubble
-    ticks included), and one ``batch_isend_irecv`` on the axis's
-    sub-group sends each stage's output to the next stage around the
-    ring; the last stage's output at tick t is microbatch
+    ticks included), and one hand-off on the axis's sub-group
+    (``launch/mesh.py``'s :func:`ring_shift`) sends each stage's output
+    to the next stage around the ring; the last stage's output at tick t is microbatch
     t - n_stages + 1's result.  A masked ``all_reduce`` (sum) over the
     sub-group then gives every rank of it the last stage's results, of
     ``x_microbatches``' shape.  One stage sends nothing.  On an N-D mesh
@@ -164,7 +133,8 @@ def microbatch_pipeline(
                              f"{tuple(y.shape)} {y.dtype} for an input of "
                              f"{tuple(cur.shape)} {cur.dtype}; every stage "
                              "keeps its input's shape and dtype")
-        buf = _shift(y, group, sid, n_stages) if n_stages > 1 else y
+        buf = ring_shift([y], group, sid, n_stages)[0] \
+            if n_stages > 1 else y
         out_idx = t - (n_stages - 1)
         if 0 <= out_idx < n_micro:
             outs[out_idx] = y

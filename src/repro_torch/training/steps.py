@@ -12,15 +12,17 @@ from .optim import AdamW, AdamWState
 
 
 def loss_and_grads(cfg: ArchConfig, params, batch, unroll: bool = False,
-                   backend: str = "cuda"):
+                   backend: str = "cuda", ring=None):
     """(loss, grads): ``loss_fn`` at ``params`` (remat on) and its
     gradient, a tree of ``params``' structure (the reference's
     ``jax.value_and_grad``).  Every leaf reaches the loss in every
     family; autograd raises if one does not.  The params passed in are
-    not changed."""
+    not changed.  ``ring=(mesh, axis)`` goes to ``loss_fn``: every rank
+    of the axis calls this with the same arguments and gets the whole
+    gradient."""
     live = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
     loss = loss_fn(cfg, tree.unflatten(params, live), batch, unroll=unroll,
-                   backend=backend)
+                   backend=backend, ring=ring)
     grads = torch.autograd.grad(loss, live)
     return loss.detach(), tree.unflatten(params, grads)
 
@@ -31,7 +33,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, unroll: bool = False,
     loss): :func:`loss_and_grads` (the loss a 0-d tensor, not read on
     the host), then ``opt.update``.  The params passed in are not
     changed.  ``act_pspec``/``moe_pspec`` (sharding) are not ported
-    yet (ROADMAP Queue 1, item 12) and must be ``None``."""
+    yet (ROADMAP Queue 1, item 12c) and must be ``None``."""
     if act_pspec is not None or moe_pspec is not None:
         raise NotImplementedError("act_pspec / moe_pspec: sharded training "
                                   "is ROADMAP Queue 1, item 12")

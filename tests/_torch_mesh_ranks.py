@@ -1,5 +1,6 @@
-"""Multi-rank runs of the port's mesh and GPipe pipeline
-(``repro_torch.launch.mesh``, ``repro_torch.pipeline.microbatch_pipeline``):
+"""Multi-rank runs of the port's mesh, GPipe pipeline and ring attention
+(``repro_torch.launch.mesh``, ``repro_torch.pipeline.microbatch_pipeline``,
+``repro_torch.models.transformer.ring_attention``):
 spawned ``torch.distributed`` ranks with a time limit, and the bodies they
 run.  Imports neither ``jax`` nor ``repro``: each spawned rank imports this
 module, and the ``cuda``-marked test runs it on a machine without JAX."""
@@ -145,6 +146,13 @@ def llama_params(cfg, leaves):
                                  for a in leaves])
 
 
+def _hand_offs_since(before: dict) -> dict:
+    """The ring hand-offs by transport since ``before`` (a copy of
+    ``launch.mesh.HAND_OFFS``)."""
+    from repro_torch.launch import mesh as mesh_mod
+    return {k: n - before[k] for k, n in mesh_mod.HAND_OFFS.items()}
+
+
 def _raised(fn) -> str:
     """The message of the ``ValueError`` ``fn()`` raises ('' if none)."""
     try:
@@ -156,11 +164,15 @@ def _raised(fn) -> str:
 
 # -- rank bodies (module-level: spawned ranks import them) -------------------
 
-def body_four(rank, world, inputs, llama):
+def body_four(rank, world, inputs, llama, ring):
     """The 4-rank CPU run: every case of the pipeline and mesh tests that
-    needs four ranks; returns this rank's results."""
+    needs four ranks, and ring attention over the 4-rank line (``ring``:
+    q, k, v and a reduced Llama's (cfg, numpy params tree, tokens));
+    returns this rank's results."""
     import torch
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.ring_attention import ring_attention
     from repro_torch.pipeline import microbatch_pipeline
 
     def pipe(mesh, ws, xs):
@@ -170,10 +182,12 @@ def body_four(rank, world, inputs, llama):
     ws, xs = inputs["ws"], inputs["xs"]
     line = mesh_mod.make_mesh((4,), ("stage",), device_type="cpu")
     grid = mesh_mod.make_mesh((2, 2), ("data", "stage"), device_type="cpu")
-    out = {"exact": pipe(line, ws, xs),
-           "micro2": pipe(line, ws, inputs["xs2"]),
-           "micro1": pipe(line, ws, inputs["xs1"]),
-           "mesh22": pipe(grid, ws[:2], xs)}
+    before = dict(mesh_mod.HAND_OFFS)
+    out = {"exact": pipe(line, ws, xs)}
+    out["exact_hand_offs"] = _hand_offs_since(before)
+    out.update(micro2=pipe(line, ws, inputs["xs2"]),
+               micro1=pipe(line, ws, inputs["xs1"]),
+               mesh22=pipe(grid, ws[:2], xs))
 
     cfg, leaves, toks = llama
     params = llama_params(cfg, leaves)
@@ -181,6 +195,16 @@ def body_four(rank, world, inputs, llama):
     out["llama"] = microbatch_pipeline(
         llama_stage_fn(cfg, "cuda"), split_stages(params["layers"], 4),
         xs_l, line).numpy()
+
+    (q, k, v), (cfg_r, ptree, toks_r) = ring
+    with torch.no_grad():
+        out["ring"] = {
+            "o": ring_attention(*(torch.tensor(t) for t in (q, k, v)), line,
+                                "stage").numpy(),
+            "logits": M.forward(cfg_r, M.params_from_numpy(cfg_r, ptree,
+                                                           "cpu"),
+                                {"tokens": torch.tensor(toks_r)},
+                                ring=(line, "stage")).numpy()}
 
     test_mesh = mesh_mod.make_test_mesh(device_type="cpu")
     out["test_mesh"] = (tuple(test_mesh.shape), test_mesh.mesh_dim_names)
@@ -258,3 +282,106 @@ def body_cuda_two(rank, world, cfg, toks):
             seq.append(x)
         res["sequential"] = torch.stack(seq).cpu().numpy()
     return res
+
+
+def body_ring(rank, world, inputs, attn_cases, models):
+    """The 8-rank CPU run of ring attention on a (2, 4) ("data", "model")
+    mesh: ``ring_attention``'s output and its dq, dk, dv for each of
+    ``attn_cases`` ({name: (B, S, K, G, D, window)}, inputs and the
+    output gradient from ``inputs``), a bf16 forward, and for each of
+    ``models`` ({name: (cfg, numpy params tree)}) ``forward``,
+    ``prefill`` and ``loss_and_grads`` with ``ring=(mesh, "model")``,
+    and a 62-token forward (no multiple of 4: the blockwise path);
+    the hand-offs of each call by transport."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.ring_attention import ring_attention
+    from repro_torch.training import loss_and_grads, tree
+
+    mesh = mesh_mod.make_mesh((2, 4), ("data", "model"), device_type="cpu")
+    ring = (mesh, "model")
+    out = {"coords": (mesh.get_local_rank("data"),
+                      mesh.get_local_rank("model"))}
+    for name, (*_, w) in attn_cases.items():
+        q, k, v = (torch.tensor(inputs[f"{name}_{t}"]).requires_grad_(True)
+                   for t in "qkv")
+        before = dict(mesh_mod.HAND_OFFS)
+        o = ring_attention(q, k, v, mesh, "model", sliding_window=w)
+        fwd = _hand_offs_since(before)
+        (o * torch.tensor(inputs[f"{name}_do"])).sum().backward()
+        out[name] = {"o": o.detach().numpy(), "dq": q.grad.numpy(),
+                     "dk": k.grad.numpy(), "dv": v.grad.numpy(),
+                     "hand_offs": fwd, "bwd_hand_offs": _hand_offs_since(
+                         {k_: before[k_] + fwd[k_] for k_ in before})}
+    q, k, v = (torch.tensor(inputs[f"s64_{t}"]) for t in "qkv")
+    out["bf16"] = ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 mesh, "model").float().numpy()
+    out["raises"] = {
+        "axis_size": _raised(lambda: ring_attention(q, k, v, mesh, "model",
+                                                    axis_size=2)),
+        "seq": _raised(lambda: ring_attention(q[:, :62], k[:, :62],
+                                              v[:, :62], mesh, "model")),
+        "shape": _raised(lambda: ring_attention(q, k[..., :8], v, mesh,
+                                                "model"))}
+
+    for name, (cfg, ptree) in models.items():
+        params = M.params_from_numpy(cfg, ptree, device="cpu")
+        toks = torch.tensor(inputs[f"{name}_tokens"])
+        batch = {"tokens": toks,
+                 "labels": torch.tensor(inputs[f"{name}_labels"])}
+        before = dict(mesh_mod.HAND_OFFS)
+        with torch.no_grad():
+            logits = M.forward(cfg, params, {"tokens": toks}, ring=ring)
+            fwd = _hand_offs_since(before)
+            last, cache = M.prefill(cfg, params, {"tokens": toks}, ring=ring)
+        loss, grads = loss_and_grads(cfg, params, batch, ring=ring)
+        res = {"logits": logits.numpy(), "last": last.numpy(),
+               "cache": {k_: t.numpy() for k_, t in cache.items()},
+               "loss": float(loss),
+               "grads": [g.numpy() for g in tree.leaves(grads)],
+               "hand_offs": fwd}
+        with torch.no_grad():
+            before = dict(mesh_mod.HAND_OFFS)
+            short = {"tokens": toks[:, :62]}
+            res["short"] = M.forward(cfg, params, short, ring=ring).numpy()
+            res["short_hand_offs"] = _hand_offs_since(before)
+            res["short_plain"] = M.forward(cfg, params, short).numpy()
+        out[name] = res
+    return out
+
+
+def body_cuda_ring(rank, world, inputs, windows):
+    """Gloo ranks on ``cuda:0``: ``ring_attention`` over the line of every
+    rank, forward and backward, for each window; the one-process
+    ``FlashPrefill`` (the flash_prefill kernel and its backward kernel) on
+    the same inputs on rank 0; the hand-offs by transport."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer.ring_attention import ring_attention
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    line = mesh_mod.make_mesh((world,), ("model",))
+    out = {}
+    for w in windows:
+        q, k, v, do = (torch.tensor(inputs[t], device="cuda")
+                       for t in ("q", "k", "v", "do"))
+        runs = [("ring", lambda q, k, v, w=w: ring_attention(
+            q, k, v, line, "model", sliding_window=w))]
+        if rank == 0:
+            runs.append(("one", lambda q, k, v, w=w:
+                         attn_ops.FlashPrefill.apply(q, k, v, w)))
+        for name, fn in runs:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = dict(mesh_mod.HAND_OFFS)
+            o = fn(*leaves)
+            (o * do).sum().backward()
+            torch.cuda.synchronize()
+            out[(name, w)] = {
+                "o": o.detach().cpu().numpy(),
+                **{f"d{t}": x.grad.cpu().numpy()
+                   for t, x in zip("qkv", leaves)},
+                "hand_offs": _hand_offs_since(before)}
+    return out

@@ -49,7 +49,7 @@ from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
                           ssd_inputs)
-from _torch_mesh_ranks import body_cuda_two, run_ranks
+from _torch_mesh_ranks import body_cuda_ring, body_cuda_two, run_ranks
 
 
 @pytest.fixture
@@ -1167,3 +1167,26 @@ def test_microbatch_pipeline_two_gloo_ranks_on_one_card(cuda):
         assert np.array_equal(r["out"], res[0]["sequential"])
         assert r["launches"] == 7 * 2
         assert r["hand_offs"] == {"direct": 0, "host": 7}
+
+
+@pytest.mark.cuda
+def test_ring_attention_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks on cuda:0, ``ring_attention`` at (2, 128, 2, 4, 64)
+    with windows 0 and 48, forward and backward: both ranks return the
+    same bits, within 2e-4 of the one-process ``FlashPrefill`` (the
+    flash_prefill kernel and its backward kernel); one forward hand-off
+    and two backward ones a call, each staged through the host (gloo)."""
+    rng = np.random.default_rng(0)
+    shape, kv = (2, 128, 2, 4, 64), (2, 128, 2, 64)
+    inputs = {t: rng.standard_normal(kv if t in "kv" else shape)
+              .astype(np.float32) for t in ("q", "k", "v", "do")}
+    res = run_ranks(body_cuda_ring, 2, inputs, (0, 48))
+    for w in (0, 48):
+        one = res[0][("one", w)]
+        for r in res:
+            got = r[("ring", w)]
+            assert got["hand_offs"] == {"direct": 0, "host": 3}
+            for key in ("o", "dq", "dk", "dv"):
+                assert np.array_equal(got[key], res[0][("ring", w)][key])
+                np.testing.assert_allclose(got[key], one[key], rtol=2e-4,
+                                           atol=2e-4)
