@@ -243,7 +243,50 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    hand-offs by path, one k/v hand-off's and one layer's ``all_gather``'s
    ms alone, each rank's peak memory, the phase's wall time, each beside
    the card's name and power limit;
-9. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+9. the sharding rules as DTensor placements (``[shard]`` lines):
+   ``repro_torch.launch.sharding`` (``param_pspecs``, ``batch_pspecs``,
+   ``distribute``) and the local-shard boundaries of
+   ``models/transformer/sharded.py``, on ``make_mesh((2, 2), ("data",
+   "model"))`` over four spawned gloo ranks on ``cuda:0`` (time-sliced:
+   not a multi-device speed), whose sub-groups are host-staged gloo
+   (``launch.mesh.HostGloo``: gloo's own CUDA path for DTensor's
+   all-gather kills the rank, ``tools/gloo_cuda_check.py``), then one
+   NCCL rank on a (1, 1) mesh (this process, a world of one).  The
+   one-process kernel path of each case runs first in this process, its
+   gradients and final params kept on the card and read by the ranks
+   through CUDA IPC, the weights on the host in shared memory, each rank
+   comparing its own shards.  (a)
+   each collective DTensor's redistributions issue (all-gather,
+   reduce-scatter, all-reduce, all-to-all) on 16 MiB CUDA tensors over
+   the model pairs: equal to the host's result, the path that carried
+   it, ms.  (b) Llama-3.2-1B at full width, all 16 layers, fp32,
+   ``init_params(cfg, torch.Generator().manual_seed(0))``, one (4, 512)
+   batch from numpy seed 0: ``loss_and_grads`` with ``act_pspec`` None
+   and ``P(("data",), "model", None)``.  (c) three ``make_train_step``
+   steps (AdamW lr 1e-3, eps 1e-6) at 4 of its 16 layers; the losses,
+   the final params and the placements of params, m and v.  (d)
+   granite-moe-3b-a800m at 8 of its 32 layers, ``moe_pspec=P(("data",),
+   None, None, None)``: the routing decisions that differ from the
+   one-process run counted; the gradients held where none differs, else
+   printed.  (e) mamba2-370m at full depth.  (f) the NCCL rank's (b).
+   Held: launches of every rank's counted call (32 flash_prefill and 16
+   flash_prefill_bwd for (b); 24 and 12 for (c); 16, 8 and 96 moe_gemm
+   for (d); 96 ssd_chunk and 48 ssd_chunk_bwd for (e)), the loss within
+   1e-6 relative and every gradient leaf within 5e-5 x max|ref| of the
+   one-process kernel path (``tests/test_torch_training.py``'s LOSS_REL
+   and GRAD_REL), (c)'s params within 1e-4 (Adam's first-step noise at
+   full width; the elements past the reduced test's 1e-5 counted),
+   every returned leaf in its spec's placements.  Printed: the
+   collectives of each counted call by kind (``CommDebugMode``) and by
+   path, the ms of the gloo ranks' counted call (one call a case: three,
+   as in phases 7 and 8, would add about 100 s, each call moving
+   gigabytes of gradients through the host, and the script must end
+   within 1200 s) beside the one-process kernel path's and the NCCL
+   rank's second call (a first call carries the process's warm-up; both
+   printed), each rank's peak memory and
+   seconds by part, the phase's wall time, each beside the card's name
+   and power limit;
+10. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
    in-process plan CLI, flash_prefill's those of Llama's fp32 generate
    and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
@@ -253,7 +296,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    those of the five Llama training steps and of phase 8's one-process
    references, ssd_chunk_bwd's phase 6's; flash_prefill's also phase 8's
    one-process references: (a)'s here, (b)'s in gloo rank 0 and (c)'s in
-   the NCCL rank; the ring itself runs no kernel),
+   the NCCL rank; the ring itself runs no kernel; flash_prefill,
+   flash_prefill_bwd, moe_gemm, ssd_chunk and ssd_chunk_bwd also phase
+   9's counted calls, every rank's and the one-process references'),
    the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -397,6 +442,31 @@ PIPE_HAND_REPS, PIPE_TIMEOUT_S = 10, 300
 # timed alone, each run of ranks under PIPE_TIMEOUT_S
 RING_RANKS, RING_Q, RING_WINDOWS = 4, (1, 8192, 8, 4, 64), (0, 4096)
 RING_CALLS, RING_SEED, RING_HAND_REPS = 3, 0, 10
+# phase 9: the sharding rules as DTensor placements (launch/sharding.py,
+# models/transformer/sharded.py), SHARD_RANKS gloo ranks on cuda:0 as a
+# SHARD_MESH ("data", "model") mesh, then one NCCL rank on a (1, 1) mesh.
+# (a) each collective DTensor issues, SHARD_COLL_MIB MiB a rank; (b)
+# Llama-3.2-1B (LM_ARCH) at full width, all 16 layers, fp32, one
+# SHARD_BATCH token batch from numpy seed SHARD_SEED, act_pspec None and
+# SHARD_ACT; (c) SHARD_STEPS AdamW steps (lr SHARD_LR, eps SHARD_EPS) at
+# SHARD_STEP_LAYERS of its layers; (d) granite (MOE_ARCH) at
+# SHARD_MOE_LAYERS layers, moe_pspec SHARD_MOE; (e) mamba2 (SSM_ARCH) at
+# full depth; (f) the NCCL rank's (b).  One call a case, counted and
+# timed, every run of ranks under PIPE_TIMEOUT_S.  Held to the
+# one-process kernel path: the loss within SHARD_LOSS_REL and every leaf
+# within SHARD_GRAD_REL x max|ref| (tests/test_torch_training.py's
+# LOSS_REL and GRAD_REL); (c)'s params within SHARD_STEP_ATOL, Adam's
+# first-step noise at full width (an element whose gradient is within fp32
+# noise of zero moves by up to lr x its noise / eps; the reduced three-step
+# test's SHARD_PARAM_BAND held at d 128 and is counted here, not held)
+SHARD_RANKS, SHARD_MESH, SHARD_SEED = 4, (2, 2), 0
+SHARD_BATCH, SHARD_COLL_MIB = (4, 512), 16
+SHARD_ACT = (("data",), "model", None)
+SHARD_MOE = (("data",), None, None, None)
+SHARD_STEPS, SHARD_STEP_LAYERS, SHARD_LR, SHARD_EPS = 3, 4, 1e-3, 1e-6
+SHARD_MOE_LAYERS = 8
+SHARD_LOSS_REL, SHARD_GRAD_REL = 1e-6, 5e-5
+SHARD_STEP_ATOL, SHARD_PARAM_BAND = 1e-4, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -2505,10 +2575,12 @@ def _pipe_sequential(fn, stages, xs, n_stages: int):
     return torch.stack(outs)
 
 
-def _pipe_rank(rank, world, port, backend, out_dir, results, body) -> None:
-    """One rank of a phase 7 or phase 8 run (spawned; every rank on
+def _pipe_rank(rank, world, port, backend, out_dir, results, body,
+               args=()) -> None:
+    """One rank of a phase 7, 8 or 9 run (spawned; every rank on
     cuda:0): joins the ``backend`` group, puts ``body(rank, world,
-    backend, out_dir)``'s readings (or its traceback) on ``results``."""
+    backend, out_dir, *args)``'s readings (or its traceback) on
+    ``results``."""
     import os
     import traceback
     from datetime import timedelta
@@ -2528,7 +2600,8 @@ def _pipe_rank(rank, world, port, backend, out_dir, results, body) -> None:
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=PIPE_TIMEOUT_S))
         try:
-            results.put((rank, True, body(rank, world, backend, out_dir)))
+            results.put((rank, True, body(rank, world, backend, out_dir,
+                                          *args)))
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -2608,9 +2681,11 @@ def _pipe_rank_body(rank, world, backend, out_dir) -> dict:
 
 
 def _pipe_spawn(backend: str, world: int, out_dir: str,
-                body=_pipe_rank_body):
+                body=_pipe_rank_body, args=()):
     """Start ``world`` ranks of a ``backend`` group on a free localhost
-    port, each running ``body``; returns (processes, results queue)."""
+    port, each running ``body`` (with ``args`` after its own; host
+    tensors among them go to the ranks in shared memory); returns
+    (processes, results queue)."""
     import multiprocessing as mp
     import socket
     with socket.socket() as s:
@@ -2620,7 +2695,7 @@ def _pipe_spawn(backend: str, world: int, out_dir: str,
     results = ctx.Queue()
     procs = [ctx.Process(target=_pipe_rank, daemon=True,
                          args=(r, world, port, backend, out_dir, results,
-                               body))
+                               body, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3216,6 +3291,533 @@ def run_ring(card: str) -> tuple[int, int]:
     if not ok:
         fail("ring: a phase 8 check failed (see the [ring] lines)")
     return ref_fwd + in_ranks, ref_bwd
+
+
+# -- the sharding rules as DTensor placements (phase 9) ----------------------
+
+def _shard_model(arch: str, layers: int | None = None):
+    """(cfg, params on the host) of ``arch`` at full width (at ``layers``
+    of its layers where given): ``init_params(cfg,
+    torch.Generator().manual_seed(0))``, fp32."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.transformer import model as M
+    cfg = configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+
+
+def _shard_batches(cfg, n: int) -> list[dict]:
+    """``n`` (SHARD_BATCH) token batches on the host from numpy seed
+    SHARD_SEED, labels the tokens shifted by one."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SHARD_SEED)
+    out = []
+    for _ in range(n):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, SHARD_BATCH))
+        out.append({"tokens": t, "labels": torch.roll(t, -1, 1)})
+    return out
+
+
+def _shard_ref(cfg, params, batch, record: bool = False) -> dict:
+    """The one-process kernel path of a phase 9 case in this process:
+    ``loss_and_grads`` once counted and timed, then once more timed (the
+    first call of a process carries its warm-up), the gradients kept on the
+    card (the ranks read them through CUDA IPC);
+    with ``record``, the routing decisions of each MoE layer
+    (``_routes_recorded``), in layer order."""
+    import torch
+    from repro_torch.training import loss_and_grads, tree
+    ops = _kernel_ops()
+    p = tree.map_(lambda t: t.cuda(), params)
+    b = {k: v.cuda() for k, v in batch.items()}
+    routes: dict = {}
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with (_routes_recorded(routes) if record else contextlib.nullcontext()):
+        loss, grads = loss_and_grads(cfg, p, b)
+    torch.cuda.synchronize()
+    ms = [(time.perf_counter() - t) * 1e3]
+    out = {"loss": loss.item(),
+           "launches": {n: ops[n].launch_count(n) for n in ops},
+           "grads": list(tree.leaves(grads)),
+           "routes": [t.cpu() for t in routes.get("cuda", {}).values()]}
+    del grads
+    out["ms"] = ms + _timed_calls(lambda: loss_and_grads(cfg, p, b),
+                                  lambda: None, 1)
+    del p, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_ref_steps(cfg, params, batches) -> dict:
+    """The one-process kernel path of (c): ``make_train_step`` (AdamW
+    SHARD_LR, eps SHARD_EPS) on each batch, counted and timed, the final
+    params kept on the card."""
+    import torch
+    from repro_torch.training import AdamW, make_train_step, tree
+    ops = _kernel_ops()
+    opt = AdamW(lr=SHARD_LR, eps=SHARD_EPS)
+    p = tree.map_(lambda t: t.cuda(), params)
+    state, step = opt.init(p), make_train_step(cfg, opt)
+    losses, ms = [], []
+    _reset_counts()
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, state, loss = step(p, state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss.item())
+    out = {"losses": losses, "ms": ms,
+           "launches": {n: ops[n].launch_count(n) for n in ops},
+           "params": list(tree.leaves(p))}
+    del p, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_layers(cfg, params, layers: int):
+    """(cfg, params) at the first ``layers`` of the stack (views)."""
+    import dataclasses
+    from repro_torch.training import tree
+    return (dataclasses.replace(cfg, n_layers=layers),
+            {**params, "layers": tree.map_(lambda a: a[:layers],
+                                           params["layers"])})
+
+
+def _shard_compare(tree_, ref: list, mesh) -> list[tuple]:
+    """Per leaf of a tree of DTensors against the whole reference leaves
+    (host): (max |local - its shard of ref|, max |that shard|, finite,
+    bit-equal), on this rank's shards alone."""
+    import torch
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.training import tree
+    out = []
+    for t, r in zip(tree.leaves(tree_), ref):
+        loc = t.to_local()
+        r = local_shard(r, mesh, t.placements).to(loc.device)
+        out.append(((loc - r).abs().max().item(), r.abs().max().item(),
+                    bool(torch.isfinite(loc).all()), torch.equal(loc, r)))
+    return out
+
+
+def _shard_transport(mesh, sync) -> dict:
+    """Phase 9 (a) in a gloo rank: each collective DTensor's
+    redistributions issue, on the mesh's ``model`` pairs, on CUDA tensors
+    of SHARD_COLL_MIB MiB a rank (the seeded tensor times the rank's
+    coordinate + 1; sums of such terms are exact): equal to the result
+    computed here, the path that carried it, ms."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.launch import mesh as mesh_mod
+    n = SHARD_COLL_MIB * 2 ** 20 // 4
+    base = torch.randn(n, generator=torch.Generator().manual_seed(
+        SHARD_SEED)).cuda()
+    k, m = mesh.get_local_rank("model"), mesh.shape[1]
+    rep = Replicate()
+    parts = [base * (i + 1) for i in range(m)]
+    total = sum(parts[1:], parts[0])
+    rows = [x.view(4, -1) for x in parts]
+    c = rows[0].shape[1] // m
+
+    def moved(local, src, dst):
+        d = DTensor.from_local(local, mesh, [rep, src], run_check=False)
+        return d.redistribute(mesh, [rep, dst]).to_local()
+    cases = {"all_gather_into_tensor": (
+                 lambda: moved(parts[k], Shard(0), rep), torch.cat(parts)),
+             "reduce_scatter_tensor": (
+                 lambda: moved(parts[k], Partial(), Shard(0)),
+                 total.chunk(m)[k]),
+             "all_reduce": (lambda: moved(parts[k], Partial(), rep), total),
+             "all_to_all_single": (
+                 lambda: moved(rows[k], Shard(0), Shard(1)),
+                 torch.cat([r[:, k * c:(k + 1) * c] for r in rows]))}
+    out = {}
+    for name, (fn, want) in cases.items():
+        before = dict(mesh_mod.COLLECTIVES)
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t) * 1e3,
+                     "equal": torch.equal(got, want),
+                     "paths": {f"{kind} {path}": v - before.get((kind, path),
+                                                                0)
+                               for (kind, path), v in
+                               mesh_mod.COLLECTIVES.items()
+                               if v != before.get((kind, path), 0)}}
+    return out
+
+
+def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
+    """A phase 9 rank: under gloo (world SHARD_RANKS, mesh SHARD_MESH)
+    (a) the transport, then (b)-(e); under NCCL (one rank, mesh (1, 1))
+    (f), (b) alone.  ``data`` (or a queue that delivers it) holds each
+    case's config, host params and batches and the one-process references
+    (the host's tensors in shared memory, the card's through CUDA IPC).  A
+    case's readings: launches, collectives (``CommDebugMode``) and their
+    paths (``launch.mesh.COLLECTIVES``) of the counted call, the loss,
+    per-leaf comparisons of this rank's shards with the reference's,
+    placements, the counted call's ms;
+    the seconds of each part (``spawned``: the host's clock at the
+    spawn)."""
+    from collections import Counter
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.training import (AdamW, loss_and_grads,
+                                      make_train_step, tree)
+
+    torch.cuda.reset_peak_memory_stats()
+    stamps = {"entered": time.time() - spawned}
+    t_last = [time.perf_counter()]
+
+    def stamp(label):
+        now = time.perf_counter()
+        stamps[label] = now - t_last[0]
+        t_last[0] = now
+
+    mesh = make_mesh(SHARD_MESH if world > 1 else (1, 1), ("data", "model"))
+    sync = dist.barrier if world > 1 else (lambda: None)
+    ops = _kernel_ops()
+    res = {"backend": dist.get_backend(mesh.get_group("model")),
+           "coord": tuple(mesh.get_coordinate()),
+           "device": torch.cuda.get_device_name(0)}
+    stamp("mesh")
+    if not isinstance(data, dict):
+        # a queue: the one-process references come once they are computed
+        data = data.get(timeout=PIPE_TIMEOUT_S)
+        stamp("waited for the references")
+    if world > 1:
+        res["transport"] = _shard_transport(mesh, sync)
+        stamp("(a)")
+
+    def counted(fn):
+        """fn() once, counted: its launches, collectives by kind and path,
+        and ms."""
+        _reset_counts()
+        before = Counter(mesh_mod.COLLECTIVES)
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with CommDebugMode() as comm:
+            out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        paths = Counter(mesh_mod.COLLECTIVES)
+        paths.subtract(before)
+        return out, {"launches": {n: ops[n].launch_count(n) for n in ops},
+                     "comm": {str(k).split(".")[-1]: v for k, v in
+                              comm.get_comm_counts().items()},
+                     "paths": {f"{k} {p}": v for (k, p), v in paths.items()
+                               if v}, "ms": [ms]}
+
+    def placed(cfg, params, batch):
+        specs = S.param_pspecs(cfg, params, mesh)
+        b = S.distribute(batch, S.batch_pspecs(cfg, batch, mesh,
+                                               ("data",)), mesh)
+        return S.distribute(params, specs, mesh), specs, b
+
+    def same_places(tree_, specs) -> bool:
+        return all(tuple(t.placements) == S.placements(s, mesh)
+                   for t, s in zip(tree.leaves(tree_), tree.leaves(specs)))
+
+    def grads_case(label, cfg, params, batch, ref, act=None, moe=None,
+                   routes=None):
+        p, specs, b = placed(cfg, params, batch)
+        stamp(f"{label} placed")
+        a = S.P(*act) if act else None
+        m = S.P(*moe) if moe else None
+        rec = {} if routes is not None else None
+        with (_routes_recorded(rec) if rec is not None
+              else contextlib.nullcontext()):
+            (loss, grads), info = counted(lambda: loss_and_grads(
+                cfg, p, b, act_pspec=a, moe_pspec=m))
+        info.update(loss=loss.item(), leaves=_shard_compare(grads, ref, mesh),
+                    placed=same_places(grads, specs))
+        if rec is not None:
+            lo = res["coord"][0] * (SHARD_BATCH[0] // mesh.shape[0])
+            hi = lo + SHARD_BATCH[0] // mesh.shape[0]
+            got = list(rec["cuda"].values())
+            info["flips"] = sum(
+                int((g != r[lo:hi].to(g.device)).any(dim=-1).sum())
+                for g, r in zip(got, routes))
+            info["routed"] = sum(g.shape[0] * g.shape[1] for g in got)
+        del grads
+        if world == 1:          # a second call: cheap on one rank
+            info["ms"] += _timed_calls(lambda: loss_and_grads(
+                cfg, p, b, act_pspec=a, moe_pspec=m), sync, 1)
+        del p, b
+        torch.cuda.empty_cache()
+        stamp(label)
+        return info
+
+    cfg, params, batches, ref_b, ref_c = data["llama"]
+    for act in (None, SHARD_ACT):
+        key = f"(b) act_pspec={act}"
+        res[key] = grads_case(key, cfg, params, batches[0], ref_b["grads"],
+                              act=act)
+    if world > 1:
+        cfg4, params4 = _shard_layers(cfg, params, SHARD_STEP_LAYERS)
+        p, specs, _ = placed(cfg4, params4, batches[1])
+        opt = AdamW(lr=SHARD_LR, eps=SHARD_EPS)
+        state, step = opt.init(p), make_train_step(cfg4, opt)
+        losses, ms = [], []
+        _reset_counts()
+        for batch in batches[1:]:
+            b = S.distribute(batch, S.batch_pspecs(cfg4, batch, mesh,
+                                                   ("data",)), mesh)
+            sync()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, state, loss = step(p, state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss.item())
+        res["(c) steps"] = {
+            "launches": {n: ops[n].launch_count(n) for n in ops},
+            "losses": losses, "ms": ms,
+            "leaves": _shard_compare(p, ref_c["params"], mesh),
+            "placed": all(same_places(t, specs)
+                          for t in (p, state.m, state.v)),
+            "over": sum(int(((t.to_local() - local_shard(
+                r, mesh, t.placements).to(t.device)).abs()
+                > SHARD_PARAM_BAND).sum()) for t, r in
+                zip(tree.leaves(p), ref_c["params"]))}
+        del p, state, b
+        torch.cuda.empty_cache()
+        stamp("(c)")
+        cfg, params, batch, ref = data["granite"]
+        res["(d) granite"] = grads_case("(d)", cfg, params, batch,
+                                        ref["grads"], moe=SHARD_MOE,
+                                        routes=ref["routes"])
+        cfg, params, batch, ref = data["mamba2"]
+        res["(e) mamba2"] = grads_case("(e)", cfg, params, batch,
+                                       ref["grads"])
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["stamps"] = stamps
+    return res
+
+
+def _shard_lines(label, rs, ref, want, card, tol=SHARD_GRAD_REL) -> bool:
+    """Print a (b)-(f) case of every rank against the one-process
+    reference; returns whether it held: launches as ``want`` on every
+    rank, the loss within SHARD_LOSS_REL, every leaf finite, within
+    ``tol`` x max|ref| (``tol`` None: printed, not held) and in its
+    param's placements."""
+    from statistics import median
+    r0 = rs[0]
+    leaves = [max(r["leaves"][i][0] for r in rs) for i in
+              range(len(r0["leaves"]))]
+    refmax = [max(r["leaves"][i][1] for r in rs) for i in
+              range(len(r0["leaves"]))]
+    shares = [e / (SHARD_GRAD_REL * m) if m else e for e, m in
+              zip(leaves, refmax)]
+    finite = all(f for r in rs for _, _, f, _ in r["leaves"])
+    bits = all(b for r in rs for *_, b in r["leaves"])
+    losses = [r["loss"] for r in rs]
+    want_loss = ref["loss"]
+    rel = max(abs(x - want_loss) / abs(want_loss) for x in losses)
+    ms = median(r["ms"][-1] for r in rs)
+    who = (f"{len(rs)} gloo ranks" if len(rs) > 1 else "one NCCL rank")
+    print(f"[shard] {label}: {who}; loss {losses[0]:.6f} vs one-process "
+          f"{want_loss:.6f} ({rel:.2e} relative, limit {SHARD_LOSS_REL:g}); "
+          f"{len(leaves)} leaves, finite {finite}, bit-equal {bits}, worst "
+          f"leaf {max(shares):.3f} of {SHARD_GRAD_REL:g} x max|ref| "
+          f"(leaf {shares.index(max(shares))}); placements kept "
+          f"{all(r['placed'] for r in rs)}; launches {r0['launches']}"
+          + (f" (want {want})" if want else ""))
+    if "comm" in r0:
+        print(f"[shard] {label}: collectives of the counted call (a rank, "
+              f"CommDebugMode) {r0['comm']}; by path {r0['paths']}")
+    print(f"[shard] {label}: ms a call: {who} {ms:.1f}"
+          + (" (the counted call, the ranks' first) -- FOUR PROCESSES "
+             "TIME-SLICED ON ONE CARD, not a multi-device speed"
+             if len(rs) > 1 else f" (a second call; the first "
+             f"{r0['ms'][0]:.1f})")
+          + f"; one-process kernel path {ref['ms'][-1]:.1f} (a second "
+          f"call; the first {ref['ms'][0]:.1f}); on {card}")
+    ok = finite and rel <= SHARD_LOSS_REL \
+        and all(r["placed"] for r in rs) \
+        and all(r["launches"] == want for r in rs)
+    if tol is not None:
+        ok = ok and max(shares) <= 1.0
+    return ok
+
+
+def run_shard(card: str) -> dict:
+    """Phase 9: the sharding rules as DTensor placements (``[shard]``
+    lines).  The one-process kernel path of each case first, in this
+    process (its gradients and params kept on the card, the ranks reading
+    them through CUDA IPC; the params on the host), then (a)-(e) in
+    SHARD_RANKS gloo ranks on cuda:0 and (f) in one NCCL rank (this
+    process, a world of one), each rank comparing its own shards with the
+    references.  Returns the
+    kernels' launches of the phase's counted calls (the ranks' and the
+    one-process references'), by kernel."""
+    import multiprocessing as mp
+    import socket
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+    from statistics import median
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[shard] launch.sharding's rules as DTensor placements: "
+          f"{SHARD_RANKS} gloo ranks on cuda:0 as a {SHARD_MESH} ('data', "
+          f"'model') mesh (time-sliced: no figure here is a multi-device "
+          f"speed), each sub-group host-staged gloo "
+          f"(launch.mesh.HostGloo), then one NCCL rank on a (1, 1) mesh; "
+          f"params placed by param_pspecs, batches (numpy seed "
+          f"{SHARD_SEED}, {SHARD_BATCH}) by batch_pspecs; fp32, TF32 off; "
+          f"on {card}")
+    # the ranks start (spawn, CUDA, the mesh) while the references are
+    # computed, then wait for them: they run nothing on the card meanwhile
+    t0 = time.perf_counter()
+    inbox = mp.get_context("spawn").Queue()
+    procs, results = _pipe_spawn("gloo", SHARD_RANKS, None, _shard_rank_body,
+                                 (inbox, time.time()))
+    # the host's draws are serial: one thread a model
+    with ThreadPoolExecutor(3) as pool:
+        (cfg, params), (g_cfg, g_params), (m_cfg, m_params) = pool.map(
+            _shard_model, (LM_ARCH, MOE_ARCH, SSM_ARCH),
+            (None, SHARD_MOE_LAYERS, None))
+    build_s = time.perf_counter() - t0
+    batches = _shard_batches(cfg, 1 + SHARD_STEPS)
+    ref_b = _shard_ref(cfg, params, batches[0])
+    cfg4, params4 = _shard_layers(cfg, params, SHARD_STEP_LAYERS)
+    ref_c = _shard_ref_steps(cfg4, params4, batches[1:])
+    g_batch = _shard_batches(g_cfg, 1)[0]
+    ref_d = _shard_ref(g_cfg, g_params, g_batch, record=True)
+    m_batch = _shard_batches(m_cfg, 1)[0]
+    ref_e = _shard_ref(m_cfg, m_params, m_batch)
+    print(f"[shard] one-process references (b)-(e) "
+          f"{time.perf_counter() - t0:.1f} s (the gloo ranks starting "
+          f"meanwhile), of which {build_s:.1f} s "
+          f"building the models on the host (init_params(cfg, "
+          f"torch.Generator().manual_seed(0))); on {card}")
+    data = {"llama": (cfg, params, batches, ref_b, ref_c),
+            "granite": (g_cfg, g_params, g_batch, ref_d),
+            "mamba2": (m_cfg, m_params, m_batch, ref_e)}
+    for _ in range(SHARD_RANKS):
+        inbox.put(data)
+    gloo = _pipe_collect(procs, results, "shard gloo ranks")
+    gloo_s = time.perf_counter() - t0
+    # (f) in this process: a world of one, nothing to spawn
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        nccl = [_shard_rank_body(0, 1, "nccl", None,
+                                 {"llama": data["llama"]}, time.time())]
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+    print(f"[shard] ranks: gloo x {len(gloo)} ({gloo[0]['backend']} "
+          f"sub-groups, "
+          f"coordinates {[r['coord'] for r in gloo]}) {gloo_s:.1f} s wall "
+          f"from the spawn, references included; nccl x 1 ({nccl[0]['backend']}, this process) "
+          f"{nccl_s:.1f} s")
+
+    ok = True
+    for name, t in gloo[0]["transport"].items():
+        equal = all(r["transport"][name]["equal"] for r in gloo)
+        ms = median(r["transport"][name]["ms"] for r in gloo)
+        print(f"[shard] (a) {name} ({SHARD_COLL_MIB} MiB a rank, CUDA "
+              f"tensors, the model pairs): equal {equal}; path "
+              f"{t['paths']} (through the host: gloo's own CUDA path for "
+              f"DTensor's all-gather kills the rank, tools/"
+              f"gloo_cuda_check.py); {ms:.2f} ms; on {card}")
+        ok = ok and equal and all(p.endswith("host")
+                                  for p in t["paths"])
+    want1 = _train_launches(cfg, 1)
+    for act in (None, SHARD_ACT):
+        key = f"(b) act_pspec={act}"
+        ok = _shard_lines(f"(b) {LM_ARCH} 16 layers loss_and_grads, "
+                          f"act_pspec={act}", [r[key] for r in gloo], ref_b,
+                          want1, card) and ok
+    print(f"[shard] (c) {LM_ARCH} at {SHARD_STEP_LAYERS} of 16 layers, "
+          f"{SHARD_STEPS} make_train_step steps (AdamW lr {SHARD_LR:g}, eps "
+          f"{SHARD_EPS:g}): losses "
+          f"{[f'{x:.6f}' for x in gloo[0]['(c) steps']['losses']]} "
+          f"vs one-process {[f'{x:.6f}' for x in ref_c['losses']]}")
+    cs = [r["(c) steps"] for r in gloo]
+    worst = max(e for r in cs for e, *_ in r["leaves"])
+    rel = max(abs(a - b) / abs(b) for r in cs
+              for a, b in zip(r["losses"], ref_c["losses"]))
+    want_c = _train_launches(cfg4, SHARD_STEPS)
+    over = sum(r["over"] for r, g in zip(cs, gloo) if g["coord"][0] == 0)
+    print(f"[shard] (c): losses within {rel:.2e} relative (limit "
+          f"{SHARD_LOSS_REL:g}); final params worst |diff| {worst:.3g} "
+          f"(limit {SHARD_STEP_ATOL:g}; {over} elements past "
+          f"{SHARD_PARAM_BAND:g}, the reduced unit test's band, of "
+          f"{sum(t.numel() for t in ref_c['params'])}); params, m and v in "
+          f"their specs' "
+          f"placements {all(r['placed'] for r in cs)}; launches a rank "
+          f"{cs[0]['launches']} (want {want_c}); step ms "
+          f"{[f'{m:.1f}' for m in cs[0]['ms']]} (rank 0; four processes "
+          f"time-sliced on one card) vs one-process "
+          f"{[f'{m:.1f}' for m in ref_c['ms']]}; on {card}")
+    ok = ok and rel <= SHARD_LOSS_REL and worst <= SHARD_STEP_ATOL \
+        and all(r["placed"] and r["launches"] == want_c for r in cs) \
+        and all(f for r in cs for _, _, f, _ in r["leaves"])
+    ds = [r["(d) granite"] for r in gloo]
+    flips = sum(r["flips"] for r, g in zip(ds, gloo) if g["coord"][1] == 0)
+    routed = sum(r["routed"] for r, g in zip(ds, gloo) if g["coord"][1] == 0)
+    print(f"[shard] (d) {MOE_ARCH} at {SHARD_MOE_LAYERS} of 32 layers, "
+          f"moe_pspec={SHARD_MOE}: routing decisions that differ from the "
+          f"one-process run {flips} of {routed} (tokens x layers; the "
+          f"sharded run sums the row-parallel products in another order)")
+    ok = _shard_lines(f"(d) {MOE_ARCH} loss_and_grads", ds, ref_d,
+                      _train_launches(g_cfg, 1), card,
+                      tol=SHARD_GRAD_REL if flips == 0 else None) and ok
+    ok = _shard_lines(f"(e) {SSM_ARCH} 48 layers loss_and_grads",
+                      [r["(e) mamba2"] for r in gloo], ref_e,
+                      _train_launches(m_cfg, 1), card) and ok
+    for act in (None, SHARD_ACT):
+        key = f"(b) act_pspec={act}"
+        ok = _shard_lines(f"(f) {LM_ARCH} on a (1, 1) mesh, act_pspec={act}",
+                          [nccl[0][key]], ref_b, want1, card) and ok
+    for r in gloo[:1] + nccl:
+        print(f"[shard] {r['backend']} rank {r['coord']} seconds by part: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["stamps"].items()))
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in gloo)
+    launches = Counter()
+    for r in gloo:
+        for key, case in r.items():
+            if key.startswith("("):
+                launches.update(case["launches"])
+    for key in nccl[0]:
+        if key.startswith("("):
+            launches.update(nccl[0][key]["launches"])
+    for ref in (ref_b, ref_c, ref_d, ref_e):
+        launches.update(ref["launches"])
+    print(f"[shard] peak memory a rank: gloo {peaks} GiB, nccl "
+          f"{nccl[0]['peak_gib']:.2f} GiB; launches of the phase's counted "
+          f"calls (ranks and one-process references) {dict(launches)}; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s; on {card}")
+    del data, ref_b, ref_c, ref_d, ref_e
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("shard: a phase 9 check failed (see the [shard] lines)")
+    return dict(launches)
 
 
 def _entry_name(mangled: str) -> str:
@@ -4920,6 +5522,11 @@ def main() -> None:
     next(e for e in kernels if e["name"] == "flash_prefill_bwd")[
         "launches"] += ring_bwd
     print(f"[time] ring phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shard = run_shard(card)
+    for e in kernels:
+        e["launches"] += shard.get(e["name"], 0)
+    print(f"[time] shard phase {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -4934,11 +5541,14 @@ def main() -> None:
           f"launches Llama's fp32 generate's, phase 7's {pipe_launches} "
           f"(the pipeline's gloo ranks and its NCCL rank) and phase 8's "
           f"{ring_fwd} (the one-process references of the ring); "
-          f"flash_prefill_bwd: also phase 8's {ring_bwd}")
+          f"flash_prefill_bwd: also phase 8's {ring_bwd}; and phase 9's "
+          f"counted calls (every rank's and the one-process references') "
+          f"of flash_prefill, flash_prefill_bwd, moe_gemm, ssd_chunk and "
+          f"ssd_chunk_bwd: {shard}")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 9. result lines -------------------------------------------------
+    # -- 10. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,15 +15,31 @@ tensors one step round an axis's sub-group (the pipeline's stage
 outputs, ring attention's k/v blocks and their gradients), and
 :func:`gather_axis` concatenates each rank's piece along the axis.
 Under gloo a CUDA tensor goes through the host (:func:`stages_on_host`).
+
+So do the collectives DTensor issues on a mesh's sub-groups (its
+redistributions: all-gather, reduce-scatter, all-reduce, all-to-all):
+gloo's coalesced all-gather, which DTensor calls, reads a CUDA tensor's
+memory from the host and kills the rank (``tools/gloo_cuda_check.py``).
+A CUDA mesh over a gloo process group therefore builds its sub-groups
+with :data:`HOST_GLOO`, a backend the port registers: gloo, with every
+CUDA tensor copied to the host before the collective and the results
+copied back (:class:`HostGloo`).  Chosen by the backend's name, never by
+a failed attempt.
 """
 
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 import torch.distributed as dist
+from torch._C._distributed_c10d import _create_work_from_future
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+#: the port's backend of gloo sub-groups that stage CUDA tensors through
+#: the host (:class:`HostGloo`)
+HOST_GLOO = "gloo_host"
 
 
 def make_mesh(shape, axes, device_type: str = "cuda") -> DeviceMesh:
@@ -47,7 +63,10 @@ def make_mesh(shape, axes, device_type: str = "cuda") -> DeviceMesh:
     if world != math.prod(shape):
         raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
                          f"ranks; the world size is {world}")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    host = device_type == "cuda" and dist.get_backend() == "gloo"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes,
+                            backend_override=host_staged(axes) if host
+                            else None)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -92,11 +111,141 @@ HAND_OFFS = {"direct": 0, "host": 0}
 
 def stages_on_host(group, x: torch.Tensor) -> bool:
     """Whether the collectives of ``group`` copy ``x`` to the host: a
-    CUDA tensor under the gloo backend, whose send and recv read and write
-    the tensor's memory from the host (a CUDA tensor's send aborts the
-    rank: ``tools/gloo_cuda_check.py``).  Decided by the backend's name,
-    never by a failed attempt."""
-    return x.is_cuda and dist.get_backend(group) == "gloo"
+    CUDA tensor under the gloo backend (or :data:`HOST_GLOO`), whose send
+    and recv read and write the tensor's memory from the host (a CUDA
+    tensor's send aborts the rank: ``tools/gloo_cuda_check.py``).  Decided
+    by the backend's name, never by a failed attempt."""
+    return x.is_cuda and dist.get_backend(group) in ("gloo", HOST_GLOO)
+
+
+# ---------------------------------------------------------------------------
+# gloo with CUDA tensors staged through the host
+# ---------------------------------------------------------------------------
+
+#: the collectives :class:`HostGloo` groups carried in this process since it
+#: started, by (kind, path): ``"host"`` copied CUDA tensors to the host and
+#: back, ``"direct"`` handed host tensors to gloo as they were
+COLLECTIVES: Counter = Counter()
+
+
+def _done(result):
+    """A finished ``Work`` whose future holds ``result``."""
+    fut = torch.futures.Future()
+    fut.set_result(result)
+    return _create_work_from_future(fut)
+
+
+class HostGloo(dist.ProcessGroup):
+    """A gloo group that takes CUDA tensors: each collective copies them
+    to the host, runs gloo on the copies, waits, and copies the outputs
+    back into the caller's tensors; host tensors go to gloo as they are.
+    It carries what DTensor's redistributions and the port's hand-offs
+    issue: all-reduce, all-gather (list and into one tensor),
+    reduce-scatter into one tensor, all-to-all of one tensor, broadcast,
+    barrier, send and recv.  Each call finishes before it returns."""
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+
+    def getBackendName(self) -> str:
+        return HOST_GLOO
+
+    # the group's name, which c10d sets after building it (a group from
+    # Python has no C++ backend to hold it)
+    def setGroupName(self, name: str) -> None:
+        self._name = name
+
+    def getGroupName(self) -> str:
+        return self._name
+
+    @property
+    def group_name(self) -> str:
+        return self._name
+
+    def _staged(self, kind: str, ins: list, outs: list, run):
+        """``run(host ins, host outs)`` (gloo's work, waited on), with the
+        outputs copied back; returns a finished work of ``outs``."""
+        host = any(t.is_cuda for t in ins + outs)
+        copies = {id(t): t.cpu() for t in ins + outs if t.is_cuda}
+        run([copies.get(id(t), t) for t in ins],
+            [copies.get(id(t), t) for t in outs]).wait()
+        for t in outs:
+            if t.is_cuda:
+                t.copy_(copies[id(t)])
+        COLLECTIVES[(kind, "host" if host else "direct")] += 1
+        return _done(outs)
+
+    def allreduce(self, tensors, opts=None):
+        opts = opts or dist.AllreduceOptions()
+        return self._staged("all_reduce", [], list(tensors),
+                            lambda i, o: self._gloo.allreduce(o, opts))
+
+    def allgather(self, output_lists, input_tensors, opts=None):
+        opts = opts or dist.AllgatherOptions()
+        outs = [t for ts in output_lists for t in ts]
+
+        def run(i, o):
+            it = iter(o)
+            return self._gloo.allgather([[next(it) for _ in ts]
+                                         for ts in output_lists], i, opts)
+        return self._staged("all_gather", list(input_tensors), outs, run)
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        opts = opts or dist.AllgatherOptions()
+        for out, x in zip(outputs, inputs):
+            self._staged("all_gather_into_tensor", [x], [out],
+                         lambda i, o: self._gloo._allgather_base(o[0], i[0],
+                                                                 opts))
+        return _done(list(outputs))
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        opts = opts or dist.ReduceScatterOptions()
+        for out, x in zip(outputs, inputs):
+            self._staged("reduce_scatter_tensor", [x], [out],
+                         lambda i, o: self._gloo._reduce_scatter_base(
+                             o[0], i[0], opts))
+        return _done(list(outputs))
+
+    def alltoall_base(self, output, input, output_splits, input_splits,
+                      opts=None):
+        opts = opts or dist.AllToAllOptions()
+        return self._staged("all_to_all_single", [input], [output],
+                            lambda i, o: self._gloo.alltoall_base(
+                                o[0], i[0], output_splits, input_splits,
+                                opts))
+
+    def broadcast(self, tensors, opts=None):
+        opts = opts or dist.BroadcastOptions()
+        return self._staged("broadcast", [], list(tensors),
+                            lambda i, o: self._gloo.broadcast(o, opts))
+
+    def barrier(self, opts=None):
+        return self._gloo.barrier(opts or dist.BarrierOptions())
+
+    def send(self, tensors, dst: int, tag: int = 0):
+        return self._gloo.send(tensors, dst, tag)
+
+    def recv(self, tensors, src: int, tag: int = 0):
+        return self._gloo.recv(tensors, src, tag)
+
+    # the names newer torch releases look up first
+    all_gather_single_coalesced = allgather_into_tensor_coalesced
+    reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+
+    def all_to_all_single(self, output, input, output_splits, input_splits,
+                          opts=None):
+        return self.alltoall_base(output, input, output_splits, input_splits,
+                                  opts)
+
+
+def host_staged(axes) -> dict:
+    """``init_device_mesh``'s ``backend_override`` that builds every axis's
+    sub-group with :data:`HOST_GLOO` (registered at the first call)."""
+    if not hasattr(dist.Backend, HOST_GLOO.upper()):
+        dist.Backend.register_backend(HOST_GLOO, HostGloo,
+                                      devices=["cpu", "cuda"])
+    return {a: HOST_GLOO for a in axes}
 
 
 def ring_shift(tensors: list[torch.Tensor], group, idx: int, n: int

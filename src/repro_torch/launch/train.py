@@ -5,10 +5,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --steps 50 --batch 8 --seq 64 --device cpu   # CPU, small
 
-The reference's launcher shards the train step over the host's mesh; on
-one device the mesh is that device (sharded training is ROADMAP Queue 1,
-item 12c; ``launch/mesh.py`` builds multi-rank meshes and
-``loss_fn(ring=...)`` differentiates ring attention over one).  Weights
+The reference's launcher shards the train step over the host's mesh;
+this one is still single-device: its sharding over ``torchrun``'s ranks
+is ROADMAP Queue 1, item 12d.  The pieces are ported:
+``launch/mesh.py`` builds multi-rank meshes, ``launch/sharding.py``
+places params and batches by the reference's rules, and
+``training.make_train_step(act_pspec=, moe_pspec=)`` runs on them.  Weights
 are random from ``--seed``.  On the card every family the launcher takes
 trains: the dense archs (llama, qwen, command-r) through the attention
 kernels and their backward, the MoE archs (granite, mixtral) through

@@ -26,7 +26,9 @@ leaves them to XLA.
 
 ``attention_prefill(..., ring=(mesh, axis))`` runs its core as ring
 attention over that axis of a ``torch.distributed`` device mesh
-(``ring_attention.py``).
+(``ring_attention.py``).  On DTensor inputs (params placed by
+``launch.sharding``) the attention core runs on each rank's local shards
+(``sharded.py``, which also holds the MoE and Mamba2 layers' boundaries).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ...kernels.moe_gemm import ops as moe_ops
 from ...kernels.moe_gemm import ref as moe_ref
 from ...kernels.ssd import ops as ssd_ops
 from ...kernels.ssd import ref as ssd_ref
+from . import sharded
 from .ring_attention import ring_attention, ring_size
 
 BACKENDS = ("cuda", "torch")
@@ -79,8 +82,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
                       * torch.arange(half, dtype=torch.float32,
                                      device=x.device) / half)
     ang = positions[..., None].float() * freqs          # (..., T, half)
-    cos = torch.cos(ang)[..., None, :].to(x.dtype)      # (..., T, 1, half)
-    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    cos = sharded.like(torch.cos(ang)[..., None, :].to(x.dtype), x)
+    sin = sharded.like(torch.sin(ang)[..., None, :].to(x.dtype), x)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
@@ -151,7 +154,8 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     if ring is not None and S % ring_size(*ring) == 0:
         o = ring_attention(q, k, v, *ring, sliding_window=sliding_window)
     else:
-        o = blockwise_causal_attention(q, k, v, sliding_window, backend)
+        o = sharded.attention(blockwise_causal_attention, q, k, v,
+                              sliding_window, backend)
     o = o.reshape(B, S, n_heads * hd) @ p.wo
     return o, {"k": k, "v": v}
 

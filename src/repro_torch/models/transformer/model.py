@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import sharded
 from .config import ArchConfig
 from .layers import (AttnParams, MambaParams, MlpParams, MoeParams,
                      attention_decode, attention_prefill, check_backend,
@@ -238,7 +239,7 @@ def _mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor
         return logits
     pad = torch.arange(cfg.vocab_padded, device=logits.device) \
         >= cfg.vocab_size
-    return logits.masked_fill(pad, -1e30)
+    return logits.masked_fill(sharded.like(pad, logits), -1e30)
 
 
 def _embed(cfg: ArchConfig, params: Params, batch: dict, tokens: str,
@@ -248,7 +249,7 @@ def _embed(cfg: ArchConfig, params: Params, batch: dict, tokens: str,
     reference's keys: ``tokens``/``embeds`` for a sequence,
     ``token``/``embed`` for one decode step)."""
     if cfg.input_mode == "tokens":
-        return params["embed"][batch[tokens].long()]
+        return sharded.embed(params["embed"], batch[tokens].long())
     return batch[embeds]
 
 
@@ -307,21 +308,22 @@ def _ssm_dims(cfg: ArchConfig) -> dict:
                 norm_eps=cfg.norm_eps)
 
 
-def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str
-         ) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str,
+         moe_pspec=None) -> torch.Tensor:
     """The attention block's second half: MoE or SwiGLU MLP on the
     normed residual (the MoE aux loss is dropped, as in the reference's
-    forward and serving path)."""
+    forward and serving path; on DTensors the MoE layer runs on local
+    shards, ``sharded.moe``)."""
     xn = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
-        return moe(lp["moe"], xn, cfg.moe_top_k, cfg.capacity_factor,
-                   backend=backend)[0]
+        return sharded.moe(moe, lp["moe"], xn, cfg.moe_top_k,
+                           cfg.capacity_factor, backend, moe_pspec)
     return mlp(lp["mlp"], xn)
 
 
 def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
-            backend: str, caches: bool, remat: bool = False, ring=None
-            ) -> tuple[torch.Tensor, Cache]:
+            backend: str, caches: bool, remat: bool = False, ring=None,
+            act_pspec=None, moe_pspec=None) -> tuple[torch.Tensor, Cache]:
     """x (B, S, d) through every layer and, after each layer the shared
     block follows, the shared block; returns (the last hidden state,
     before the final norm; with ``caches``, the prefill's cache entries:
@@ -341,7 +343,11 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
     ``ring=(mesh, axis)`` goes to the attention of every ``attn``-pattern
     layer (``attention_prefill``), never to the shared block or a Mamba2
-    layer, as in the reference."""
+    layer, as in the reference.
+
+    ``act_pspec`` redistributes x after each layer and each shared-block
+    application (the reference constrains its scan body's output);
+    ``moe_pspec`` goes to the MoE layers (``sharded.moe``)."""
     B, S, _ = x.shape
     W = _window(cfg, S)
 
@@ -359,18 +365,20 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
                                                  "shared_v": {}}
 
     def layer(x, lp):
+        x = sharded.rows(x)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
             h, layer_cache = attention_prefill(lp["attn"], xn,
                                                **_attn_dims(cfg),
                                                backend=backend, ring=ring)
             x = x + h
-            return x + _ffn(cfg, lp, x, backend), layer_cache
-        h, layer_cache = mamba2_prefill(lp["mamba"], xn, **_ssm_dims(cfg),
-                                        backend=backend)
+            return x + _ffn(cfg, lp, x, backend, moe_pspec), layer_cache
+        h, layer_cache = sharded.mamba2(mamba2_prefill, lp["mamba"], xn,
+                                        **_ssm_dims(cfg), backend=backend)
         return x + h, layer_cache
 
     def shared_block(x):
+        x = sharded.rows(x)
         h, kv = attention_prefill(
             shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
             **_attn_dims(cfg), backend=backend)
@@ -388,12 +396,14 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
     for i, lp in enumerate(_unbind_layers(params)):
         x, layer_cache = run(layer, x, lp)
+        x = sharded.constrain(x, act_pspec)
         if caches:
             for k, t in layer_cache.items():
                 per_layer.setdefault(k, []).append(
                     keep_window(t) if k in ("k", "v") else t)
         if apply[i]:
             x, kv = run(shared_block, x)
+            x = sharded.constrain(x, act_pspec)
             if caches:
                 for k in ("k", "v"):
                     sites["shared_" + k][app_idx[i]] = keep_window(kv[k])
@@ -408,7 +418,8 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
 def forward(cfg: ArchConfig, params: Params, batch: dict,
             remat: bool = True, unroll: bool = False,
-            backend: str = "cuda", ring=None) -> torch.Tensor:
+            backend: str = "cuda", ring=None, act_pspec=None,
+            moe_pspec=None) -> torch.Tensor:
     """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns the
     logits (B, S, vocab_padded), padded vocab slots masked; the MoE aux
     loss is dropped, as in the reference's ``forward``.
@@ -428,44 +439,66 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     outside attention on the whole sequence, as the reference's
     activations stay global.  Under remat the backward's recompute runs
     each ring again; every rank runs the same layers in the same order,
-    so the collectives stay matched.  The reference's ``act_pspec`` and
-    ``moe_pspec`` (sharding) have no counterpart yet (ROADMAP Queue 1,
-    item 12c)."""
+    so the collectives stay matched.
+
+    Sharding: on params placed by ``launch.sharding.distribute`` (DTensors,
+    the batch placed by ``batch_pspecs``) every rank of the mesh calls
+    this and gets the logits as a DTensor (``sharded.py``).
+    ``act_pspec`` (a ``launch.sharding.P`` for the (B, S, d) activations,
+    e.g. ``P(("data",), "model", None)``: sequence over ``model``)
+    redistributes them after the embedding and after every layer;
+    ``moe_pspec`` is the MoE dispatch buffer's (B, E, C, d) spec, which
+    must be ``P(<data axes>, None, None, None)``: the port's buffer is
+    batch-sharded whether it is given or not.  A pspec with plain-tensor
+    params raises ``ValueError``."""
     check_backend(backend)
-    x = _embed(cfg, params, batch, "tokens", "embeds")
+    sharded.check_specs(params["head"], act_pspec, moe_pspec)
+    x = sharded.constrain(_embed(cfg, params, batch, "tokens", "embeds"),
+                          act_pspec)
     x, _ = _layers(cfg, params, x, backend, caches=False, remat=remat,
-                   ring=ring)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                   ring=ring, act_pspec=act_pspec, moe_pspec=moe_pspec)
+    x = rms_norm(sharded.rows(x), params["final_norm"], cfg.norm_eps)
     return _mask_padded_vocab(cfg, x @ params["head"])
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
             unroll: bool = False, backend: str = "cuda",
-            ring=None) -> torch.Tensor:
+            ring=None, act_pspec=None, moe_pspec=None) -> torch.Tensor:
     """Mean next-token cross entropy of :func:`forward`'s logits (with
     remat, as the reference's) against ``batch['labels']`` (B, S), in
-    fp32; a 0-d tensor.  ``unroll`` does nothing and ``ring`` goes to
-    :func:`forward`."""
-    logits = forward(cfg, params, batch, unroll=unroll,
-                     backend=backend, ring=ring).float()
+    fp32; a 0-d tensor.  ``unroll`` does nothing; ``ring``, ``act_pspec``
+    and ``moe_pspec`` go to :func:`forward`.  On placed params the
+    logits' vocab dim is gathered before the loss (``logsumexp`` and the
+    label's ``gather`` then run on whole rows) and the loss is a 0-d
+    DTensor, replicated: every rank holds the value."""
+    logits = forward(cfg, params, batch, unroll=unroll, backend=backend,
+                     ring=ring, act_pspec=act_pspec,
+                     moe_pspec=moe_pspec).float()
+    logits = sharded.replicate_dim(logits, -1)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    return (lse - picked).mean()
+    return sharded.replicated((lse - picked).mean())
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: dict,
-            backend: str = "cuda", ring=None) -> tuple[torch.Tensor, Cache]:
+            backend: str = "cuda", ring=None, act_pspec=None,
+            moe_pspec=None) -> tuple[torch.Tensor, Cache]:
     """batch: {'tokens': (B, S)} or {'embeds': (B, S, d)}.  Returns
     (logits of the last position (B, vocab_padded), a cache holding the
     prompt's k/v, or the Mamba2 conv and ssm states, and a hybrid's
     shared-block k/v at each site).  ``ring=(mesh, axis)`` as in
-    :func:`forward`; every rank returns the whole cache."""
+    :func:`forward`; every rank returns the whole cache.  ``act_pspec``
+    and ``moe_pspec`` as in :func:`forward`: on placed params the logits
+    and the cache's tensors are DTensors (``len`` a plain tensor)."""
     check_backend(backend)
-    x = _embed(cfg, params, batch, "tokens", "embeds")
+    sharded.check_specs(params["head"], act_pspec, moe_pspec)
+    x = sharded.constrain(_embed(cfg, params, batch, "tokens", "embeds"),
+                          act_pspec)
     S = x.shape[1]
     x, layer_caches = _layers(cfg, params, x, backend, caches=True,
-                              ring=ring)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                              ring=ring, act_pspec=act_pspec,
+                              moe_pspec=moe_pspec)
+    x = rms_norm(sharded.rows(x), params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, x[:, -1] @ params["head"])
     cache = {"len": torch.full((), S, dtype=torch.int32, device=x.device)}
     cache.update(layer_caches)

@@ -385,3 +385,151 @@ def body_cuda_ring(rank, world, inputs, windows):
                    for t, x in zip("qkv", leaves)},
                 "hand_offs": _hand_offs_since(before)}
     return out
+
+
+# -- sharding: the rules as DTensor placements --------------------------------
+
+def _full(tree_):
+    """Every DTensor leaf of ``tree_`` gathered (every rank calls this, in
+    the same order), as numpy arrays in ``jax.tree.leaves``' order."""
+    from repro_torch.launch.sharding import full
+    from repro_torch.training import tree
+    return [full(t).detach().cpu().numpy() for t in tree.leaves(tree_)]
+
+
+def _placed_as(tree_, params, specs, mesh) -> bool:
+    """Whether every leaf of ``tree_`` is a DTensor in the placements of
+    its param's spec."""
+    from repro_torch.launch.sharding import placements
+    from repro_torch.training import tree
+    return all(tuple(t.placements) == placements(s, mesh)
+               for t, s in zip(tree.leaves(tree_), tree.leaves(specs)))
+
+
+def _placed_params(cfg, ptree, tokens, mesh, device):
+    """(params, specs, batch): the reference's params tree as the port's,
+    placed by ``param_pspecs``, and a {tokens, labels} batch placed by
+    ``batch_pspecs`` over the mesh's data axes."""
+    import torch
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models.transformer import model as M
+    params = M.params_from_numpy(cfg, ptree, device=device)
+    specs = S.param_pspecs(cfg, params, mesh)
+    toks = torch.as_tensor(tokens, device=device)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    batch = S.distribute(batch, S.batch_pspecs(cfg, batch, mesh,
+                                               batch_axes(mesh)), mesh)
+    return S.distribute(params, specs, mesh), specs, batch
+
+
+def body_shard_step(rank, world, cfg, ptree, tokens, lr, eps):
+    """The 8-rank CPU run of ``tests/test_multidevice.py``'s
+    ``test_sharded_train_step``: a (2, 4) ("data", "model") mesh, the
+    reference's weights placed by ``param_pspecs``, one
+    ``make_train_step`` step (AdamW ``lr``, ``eps``).  Returns the loss,
+    the new params gathered, and whether the new params, m and v have
+    their specs' placements."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import AdamW, make_train_step
+
+    mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+    params, specs, batch = _placed_params(cfg, ptree, tokens, mesh, "cpu")
+    opt = AdamW(lr=lr, eps=eps)
+    new, state, loss = make_train_step(cfg, opt)(params, opt.init(params),
+                                                 batch)
+    return {"loss": float(loss), "params": _full(new),
+            "placed": [_placed_as(t, params, specs, mesh)
+                       for t in (new, state.m, state.v)]}
+
+
+def body_shard_grads(rank, world, models, tokens, act_pspec, moe_pspec):
+    """The 4-rank CPU run on a (2, 2) ("data", "model") mesh of host-staged
+    gloo sub-groups (``launch.mesh.HostGloo``): for each of
+    ``models`` ({name: (cfg, numpy params tree)}) ``loss_and_grads`` with
+    ``act_pspec`` (and ``moe_pspec`` for an MoE config) on the params
+    placed by ``param_pspecs``, the gradients gathered and whether they
+    have their params' placements; ``prefill`` with ``act_pspec`` of the
+    first model (the last logits and the cache gathered); the clipped
+    ``AdamW.update`` of the first model's placed gradients; the
+    ``ValueError`` of a ``moe_pspec`` off the data axes; and the
+    collectives the sub-groups carried, by kind and path."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import AdamW, loss_and_grads
+
+    # the sub-groups a CUDA mesh over gloo gets (host-staged gloo), here
+    # on host tensors: what the card runs, but for the copies
+    axes = ("data", "model")
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=axes,
+                            backend_override=mesh_mod.host_staged(axes))
+    act = S.P(*act_pspec)
+    out = {"backend": torch.distributed.get_backend(mesh.get_group("model"))}
+    for i, (name, (cfg, ptree)) in enumerate(models.items()):
+        params, specs, batch = _placed_params(cfg, ptree, tokens[name], mesh,
+                                              "cpu")
+        moe = S.P(*moe_pspec) if cfg.is_moe else None
+        loss, grads = loss_and_grads(cfg, params, batch, act_pspec=act,
+                                     moe_pspec=moe)
+        out[name] = {"loss": float(loss), "grads": _full(grads),
+                     "placed": _placed_as(grads, params, specs, mesh)}
+        if i == 0:
+            with torch.no_grad():
+                last, cache = M.prefill(cfg, params,
+                                        {"tokens": batch["tokens"]},
+                                        act_pspec=act)
+            out[name]["last"] = S.full(last).numpy()
+            out[name]["cache"] = {k: S.full(t).numpy()
+                                  for k, t in cache.items()}
+            # a clip that engages and an eps that keeps the update
+            # proportional to the clipped gradient: the global norm shows
+            opt = AdamW(lr=1e3, weight_decay=0.0, grad_clip=1e-3, eps=1.0)
+            new, _ = opt.update(grads, opt.init(params), params)
+            out[name]["clipped"] = _full(new)
+        if cfg.is_moe:
+            out[name]["moe_pspec_raises"] = _raised(lambda: M.forward(
+                cfg, params, {"tokens": batch["tokens"]},
+                moe_pspec=S.P(None, ("data",), None, None)))
+    out["collectives"] = dict(mesh_mod.COLLECTIVES)
+    return out
+
+
+def body_cuda_shard(rank, world, cfg, tokens):
+    """Gloo ranks on ``cuda:0``, a (1, world) ("data", "model") mesh: the
+    reduced Llama's ``loss_and_grads`` through the kernels (attention and
+    its backward on each rank's kv heads) on params placed by
+    ``param_pspecs``; the loss, the gradients gathered, the kernels'
+    launches, and on rank 0 the one-process kernel path's loss and
+    gradients."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import loss_and_grads, tree
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    toks = torch.as_tensor(tokens, device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    placed = S.distribute(params, S.param_pspecs(cfg, params, mesh), mesh)
+    pbatch = S.distribute(batch, S.batch_pspecs(cfg, batch, mesh,
+                                                ("data",)), mesh)
+    attn_ops.reset_launches()
+    loss, grads = loss_and_grads(cfg, placed, pbatch,
+                                 act_pspec=S.P(("data",), "model", None))
+    torch.cuda.synchronize()
+    res = {"loss": float(loss), "grads": _full(grads),
+           "launches": {n: attn_ops.launch_count(n)
+                        for n in ("flash_prefill", "flash_prefill_bwd")}}
+    if rank == 0:
+        loss1, grads1 = loss_and_grads(cfg, params, batch)
+        res["one"] = (float(loss1), [g.cpu().numpy()
+                                     for g in tree.leaves(grads1)])
+    return res

@@ -49,7 +49,8 @@ from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
                           ssd_inputs)
-from _torch_mesh_ranks import body_cuda_ring, body_cuda_two, run_ranks
+from _torch_mesh_ranks import (body_cuda_ring, body_cuda_shard,
+                               body_cuda_two, run_ranks)
 
 
 @pytest.fixture
@@ -1190,3 +1191,28 @@ def test_ring_attention_two_gloo_ranks_on_one_card(cuda):
                 assert np.array_equal(got[key], res[0][("ring", w)][key])
                 np.testing.assert_allclose(got[key], one[key], rtol=2e-4,
                                            atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_loss_and_grads_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks on cuda:0, a (1, 2) ("data", "model") mesh, the
+    reduced Llama (2 layers, d 128) placed by ``param_pspecs``, tokens
+    (2, 64), ``act_pspec=P(("data",), "model", None)``: ``loss_and_grads``
+    through the flash_prefill kernel and its backward on each rank's kv
+    heads (4 forward launches with remat's recompute, 2 backward), every
+    DTensor collective direct on the CUDA tensors.  Both ranks hold the
+    same loss and gradients, within 1e-6 relative and 5e-5 x max|leaf|
+    (``tests/test_torch_training.py``'s LOSS_REL and GRAD_REL) of the
+    one-process kernel path."""
+    cfg = configs.get("llama3.2-1b").reduced(n_layers=2, d_model=128)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    res = run_ranks(body_cuda_shard, 2, cfg, toks)
+    loss1, grads1 = res[0]["one"]
+    for r in res:
+        assert r["launches"] == {"flash_prefill": 4, "flash_prefill_bwd": 2}
+        assert abs(r["loss"] - loss1) <= 1e-6 * abs(loss1)
+        assert len(r["grads"]) == len(grads1)
+        for g, g0, w in zip(r["grads"], res[0]["grads"], grads1):
+            assert np.array_equal(g, g0)
+            err = np.abs(g - w).max()
+            assert err <= 5e-5 * np.abs(w).max(), (err, np.abs(w).max())

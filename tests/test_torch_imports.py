@@ -19,8 +19,11 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                      ROOT / "tools" / "kernel_times.py",
                                      ROOT / "tools" / "gloo_cuda_check.py"]
 # modules the subprocess import must reach by name (the walk finds the
-# rest): the mesh builders and the pipeline over them
-NAMED = ("repro_torch.launch.mesh", "repro_torch.pipeline.runner")
+# rest): the mesh builders, the pipeline over them, the sharding rules and
+# the local-shard boundaries
+NAMED = ("repro_torch.launch.mesh", "repro_torch.pipeline.runner",
+         "repro_torch.launch.sharding",
+         "repro_torch.models.transformer.sharded")
 # `import jax`, `from jax...`, `import repro`, `from repro.x` — but not
 # `repro_torch`
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",

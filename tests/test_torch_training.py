@@ -276,13 +276,18 @@ def test_tree_leaves_follow_jax_order(case):
 
 
 def test_train_steps_refuse_shardings_and_eval_step_is_the_loss():
+    """A sharded step needs params placed by ``launch.sharding``: with
+    plain-tensor params an ``act_pspec`` or ``moe_pspec`` raises
+    ``ValueError`` (``tests/test_torch_sharding.py`` runs the sharded
+    step); the eval step is the loss, without gradients."""
     cfg = configs.get("llama3.2-1b").reduced(n_layers=2, d_model=64)
-    for kw in (dict(act_pspec=("data",)), dict(moe_pspec=("data",))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make_train_step(cfg, AdamW(), **kw)
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     b = TokenStream(cfg.vocab_size, 2, 16, device="cpu").batches(1)[0]
+    for kw in (dict(act_pspec=("data",)), dict(moe_pspec=("data",))):
+        with pytest.raises(ValueError, match="launch.sharding.distribute"):
+            make_train_step(cfg, AdamW(), **kw)(params, AdamW().init(params),
+                                                 b)
     loss = make_eval_step(cfg)(params, b)
     assert not loss.requires_grad
     assert torch.equal(loss, M.loss_fn(cfg, params, b))
