@@ -22,9 +22,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    block, padded D and grid) they are listed with, each ``moe_gemm``
    case names its variant and each ``ssd_chunk`` and ``flash_prefill``
    case its plan (G, G', tiles, grid; rows, padded D, grid, tile order),
-   held equal to the C side's; a table of the 15 conv launches
-   of one runner call (plan, ms, device ms against cuDNN's, share of the
-   bound);
+   held equal to the C side's; ``decode_attention`` with its lse
+   output (``with_lse=True``) at phase 10's local shard, q (2, 4, 4, 64)
+   against 272 entries, valid lengths 0, 1, 240 and 272, fp32 and bf16,
+   the lse within 1e-5 x max(1, |ref|) of the plain version's; a table
+   of the 15 conv launches of one runner call (plan, ms, device ms
+   against cuDNN's, share of the bound);
 4. the CNN path: ``repro_torch.compile(vgg16 full width, 8-Pi cluster)``
    then ``Deployment.run`` on one frame and on a list of 8 frames, each
    stage's body replayed from a CUDA graph.  The conv kernel's launch
@@ -206,7 +209,8 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    attention through ``flash_prefill`` at (4, 512, 8, 4, 64).  Four
    spawned gloo ranks, all on ``cuda:0`` (time-sliced: not a
    multi-device speed), each building the weights from
-   ``init_params(cfg, torch.Generator().manual_seed(0))`` and checking
+   ``init_params(cfg, torch.Generator(device="cuda").manual_seed(0))``
+   (on the card: every process draws the same) and checking
    its inputs against the others' (a digest ``all_gather``), one
    counted call (36 ``flash_prefill`` launches a rank: 9 ticks x 4
    layers, bubble ticks included; 9 hand-offs through the host) and 3
@@ -232,7 +236,8 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    under ``check_close``'s bands (the gradients under BWD_TOL x
    max|ref|), every rank's bits equal.  (b) Llama-3.2-1B at full width,
    all 16 layers, fp32, ``init_params(cfg,
-   torch.Generator().manual_seed(0))``, one seeded (1, 8192) prompt:
+   torch.Generator(device="cuda").manual_seed(0))``, one seeded (1, 8192)
+   prompt:
    ``forward(ring=(mesh, "model"))`` and ``prefill(ring=...)``, 48
    hand-offs a call, no kernel launch, ranks bit-equal, the logits (and
    prefill's last logits and every layer's k and v) within 1e-4 x
@@ -260,8 +265,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    reduce-scatter, all-reduce, all-to-all) on 16 MiB CUDA tensors over
    the model pairs: equal to the host's result, the path that carried
    it, ms.  (b) Llama-3.2-1B at full width, all 16 layers, fp32,
-   ``init_params(cfg, torch.Generator().manual_seed(0))``, one (4, 512)
-   batch from numpy seed 0: ``loss_and_grads`` with ``act_pspec`` None
+   ``init_params(cfg, torch.Generator(device="cuda").manual_seed(0))``
+   (drawn on the card, kept on the host), one (4, 512) batch from numpy
+   seed 0: ``loss_and_grads`` with ``act_pspec`` None
    and ``P(("data",), "model", None)``.  (c) three ``make_train_step``
    steps (AdamW lr 1e-3, eps 1e-6) at 4 of its 16 layers; the losses,
    the final params and the placements of params, m and v.  (d)
@@ -286,7 +292,44 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    printed), each rank's peak memory and
    seconds by part, the phase's wall time, each beside the card's name
    and power limit;
-10. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+10. decode on a sharded cache and the train launcher over torchrun's
+   ranks (``[sdecode]`` lines): ``decode_step`` on params placed by
+   ``param_pspecs`` and a cache placed by ``cache_pspecs``
+   (``models/transformer/sharded.py``'s ``decode_attention`` and
+   ``mamba2_decode`` boundaries), four spawned gloo ranks on ``cuda:0``
+   as a (2, 2) ("data", "model") mesh of host-staged sub-groups
+   (time-sliced: not a multi-device speed), then one NCCL rank on a (1,
+   1) mesh (this process).  The one-process kernel path of each case
+   runs first, here: ``serving.lm.prefill_prompt`` of a seeded (4, 512)
+   prompt with room for 32 more tokens, then greedy ``decode_step``
+   calls, counted and timed; its cache and the tokens it fed go to the
+   ranks on the host.  (a) Llama-3.2-1B at full width and depth, fp32,
+   W 544, the cache placed in ``"feature"`` mode (head dim over
+   ``model``: an all-to-all of each layer's cache a step) and in
+   ``"sequence"`` mode (W over ``model``: each rank's kernel over its
+   272 entries with the lse output, the halves combined), 8 steps fed
+   the one-process tokens, then ``generate`` of 8 tokens on the placed
+   params; (b) mamba2-370m at 12 of its 48 layers (a cut for the
+   script's time), feature mode, 4 steps; (c)
+   granite-moe-3b-a800m at 8 of its 32 layers, 4 steps, the routing
+   decisions that differ from the one-process run counted; (d) the NCCL
+   rank's (a), feature mode; (e) ``launch.train.main`` on qwen1.5-0.5b
+   at full width, 3 steps at batch 4, seq 512: four spawned ranks under
+   torchrun's environment variables (``--device cuda:0 --backend
+   gloo``, a (2, 2) mesh), then one at world 1 (NCCL, this process),
+   each step's loss within 1e-5 relative of the one-device launcher's
+   run of the same arguments.  Held: every step's launches a rank (16
+   ``decode_attention`` for (a), 8 and 24 ``moe_gemm`` for (c), none
+   for (b): its step is recurrent torch), the logits, the written k/v
+   rows and (b)'s states within 1e-4 x max|ref| of the one-process path
+   (the LM band; (c) printed, not held, if a route flips), the ranks'
+   gathered logits bit-equal, ``generate``'s launches those of the
+   one-process generate (its differing tokens printed).  Printed: the
+   cache placements, the first step's collectives by kind
+   (``CommDebugMode``) and path, ms a step beside the one-process path,
+   each rank's peak memory, seconds by part, the phase's wall, each
+   beside the card's name and power limit;
+11. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
    in-process plan CLI, flash_prefill's those of Llama's fp32 generate
    and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
@@ -298,7 +341,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    one-process references: (a)'s here, (b)'s in gloo rank 0 and (c)'s in
    the NCCL rank; the ring itself runs no kernel; flash_prefill,
    flash_prefill_bwd, moe_gemm, ssd_chunk and ssd_chunk_bwd also phase
-   9's counted calls, every rank's and the one-process references'),
+   9's counted calls, every rank's and the one-process references', and
+   decode_attention, moe_gemm, flash_prefill, flash_prefill_bwd and
+   ssd_chunk phase 10's the same way),
    the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 number here is
@@ -389,6 +434,10 @@ MT_LOADS = {"saturated": (2.0, 1.5), "churn": (0.65, 3.0)}
 # relative) apart, and that carries through the layers: a logit band
 # only, and no token check
 LM_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 3's decode_attention cases with the lse output: q LSE_Q, LSE_W
+# entries (phase 10's local shard), valid lengths LSE_VALID; the lse
+# within LSE_TOL x max(1, |ref|) of the plain version's
+LSE_Q, LSE_W, LSE_VALID, LSE_TOL = (2, 4, 4, 64), 272, (0, 1, 240, 272), 1e-5
 # phase 6: training Llama-3.2-1B (LM_ARCH) in fp32.  The backward kernel
 # per element within BWD_TOL x max|ref| of each output (fp32 sums in
 # another order); the kernel path's loss within LOSS_TOL relative and each
@@ -467,6 +516,33 @@ SHARD_STEPS, SHARD_STEP_LAYERS, SHARD_LR, SHARD_EPS = 3, 4, 1e-3, 1e-6
 SHARD_MOE_LAYERS = 8
 SHARD_LOSS_REL, SHARD_GRAD_REL = 1e-6, 5e-5
 SHARD_STEP_ATOL, SHARD_PARAM_BAND = 1e-4, 1e-5
+# phase 10: decode_step on a cache placed by launch.sharding.cache_pspecs in
+# each of SDEC_MODES and on params placed by param_pspecs, SDEC_RANKS gloo
+# ranks on cuda:0 as a SDEC_MESH ("data", "model") mesh, then one NCCL
+# rank on a (1, 1) mesh.  The cache is the one-process prefill of a
+# SDEC_PROMPT prompt (numpy seed SDEC_SEED) with room for SDEC_NEW more
+# tokens (W 544 for Llama); SDEC_STEPS decode steps of Llama-3.2-1B (all
+# 16 layers) fed the one-process greedy tokens, then generate of SDEC_GEN
+# tokens on the placed params; SDEC_SSM_STEPS steps of mamba2 at
+# SDEC_SSM_LAYERS of its 48 layers (at 48 the phase ran past its 150 s:
+# each layer gathers its params over "model" every step) and of granite
+# at SDEC_MOE_LAYERS layers, feature mode.  Logits, written
+# k/v rows and states within SDEC_TOL x max|ref| (the LM band, PERF.md
+# section 2).  (e) launch.train.main on SDEC_LAUNCH_ARCH at full width,
+# SDEC_LAUNCH_STEPS steps at batch x seq SDEC_PROMPT: SDEC_RANKS ranks
+# under torchrun's environment (gloo, cuda:0) and one at world 1 (NCCL),
+# each loss within SDEC_LOSS_REL of the one-device launcher's
+SDEC_RANKS, SDEC_MESH, SDEC_SEED = 4, (2, 2), 0
+SDEC_MODES = ("feature", "sequence")
+SDEC_PROMPT, SDEC_NEW, SDEC_STEPS, SDEC_GEN = (4, 512), 32, 8, 8
+SDEC_SSM_STEPS, SDEC_SSM_LAYERS, SDEC_MOE_LAYERS = 4, 12, 8
+SDEC_TOL, SDEC_LOSS_REL = 1e-4, 1e-5
+# the ranks start before phase 9 and wait for their data at most this long
+SDEC_WAIT_S = 900
+SDEC_LAUNCH_ARCH, SDEC_LAUNCH_STEPS = "qwen1.5-0.5b", 3
+SDEC_LAUNCH_ARGV = ["--arch", SDEC_LAUNCH_ARCH, "--steps",
+                    str(SDEC_LAUNCH_STEPS), "--batch", str(SDEC_PROMPT[0]),
+                    "--seq", str(SDEC_PROMPT[1])]
 
 
 def fail(msg: str) -> None:
@@ -694,11 +770,16 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
                 **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
 
 
-def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
+def decode_case(q_shape, w, valid_len, dtype_name, seed=0,
+                lse=False) -> dict:
     """decode_attention against its plain version at q (B, K, G, D) and a
     cache of W entries, and two calls that must give the same bits; the
     library call is SDPA (``enable_gqa``, mask).  The description names
-    the splits of the cache per (b, kv head) (``ops.decode_splits``)."""
+    the splits of the cache per (b, kv head) (``ops.decode_splits``).
+    With ``lse`` the kernel also writes each row's log-sum-exp (the
+    sharded decode's combine reads it): held within LSE_TOL x max(1,
+    |ref|) of the plain version's, its worst share of that limit folded
+    into the case's, both outputs' bits equal on two calls."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
@@ -710,12 +791,19 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
     kk, vv = (torch.randn((b, w, k, d), generator=gen, device="cuda")
               .to(dtype) for _ in range(2))
     vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
-    y = ops.decode_attention(q, kk, vv, vl)
-    y2 = ops.decode_attention(q, kk, vv, vl)
-    y_ref = ref.decode_attention_ref(q, kk, vv, vl)
+    kw = {"with_lse": True} if lse else {}
+    y = ops.decode_attention(q, kk, vv, vl, **kw)
+    y2 = ops.decode_attention(q, kk, vv, vl, **kw)
+    y_ref = ref.decode_attention_ref(q, kk, vv, vl, **kw)
     torch.cuda.synchronize()
+    lse_share = 0.0
+    if lse:
+        (y, l1), (y2, l2), (y_ref, l_ref) = y, y2, y_ref
+        lse_share = ((l1 - l_ref).abs() / (LSE_TOL * l_ref.abs()
+                                            .clamp_min(1.0))).max().item()
     err, of_limit, ok = check_close(y, y_ref, dtype)
-    same = torch.equal(y, y2)      # two calls, the same bits
+    same = torch.equal(y, y2) and (not lse or torch.equal(l1, l2))
+    of_limit = max(of_limit, lse_share)
 
     qh = q.reshape(b, k * g, 1, d)
     kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
@@ -725,19 +813,24 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0) -> dict:
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                               enable_gqa=True)
 
-    ms = time_ms(lambda: ops.decode_attention(q, kk, vv, vl))
-    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, kk, vv, vl))
+    ms = time_ms(lambda: ops.decode_attention(q, kk, vv, vl, **kw))
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, kk, vv, vl,
+                                                        **kw))
     library_ms = time_ms(sdpa)
-    dev = (device_ms(lambda: ops.decode_attention(q, kk, vv, vl)),
+    dev = (device_ms(lambda: ops.decode_attention(q, kk, vv, vl, **kw)),
            device_ms(sdpa))
     live = min(valid_len, w) if valid_len > 0 else w   # entries read
-    nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4
+    nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4 \
+        + (4 * b * k * g if lse else 0)
     splits = ops.decode_splits(b, k, w)
     return dict(kernel="decode_attention",
                 desc=f"q{tuple(q_shape)} W{w} vl{valid_len} S{splits}"
+                + (f" lse (worst {lse_share:.2g} of {LSE_TOL:g} x "
+                   f"max(1, |ref|))" if lse else "")
                 + ("" if same else " NOT BIT-REPRODUCIBLE"),
                 dtype=dtype_name, err=err, splits=splits,
-                of_limit=of_limit, ok=ok and same, per_call=0, ms=ms,
+                of_limit=of_limit, ok=ok and same and of_limit <= 1.0,
+                per_call=0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, dev_ms=dev[0],
                 library_dev_ms=dev[1],
                 **bound(4.0 * b * k * g * d * live, nbytes, dtype_name))
@@ -1006,6 +1099,16 @@ def _extra_cases(cfg) -> list[dict]:
                 if r["splits"] != want_splits:
                     fail(f"decode_attention {r['desc']}: want "
                          f"{want_splits} splits")
+                cases.append(r)
+        # with the lse output, at phase 10's local shards on its (2, 2)
+        # mesh: 2 of the 4 rows, 4 of the 8 kv heads, and a sequence-mode
+        # shard's 272 of the 544 entries, none, one, the decode steps' 240
+        # or all of them valid
+        for vl in LSE_VALID:
+            for dt in ("float32", "bfloat16"):
+                r = decode_case(LSE_Q, LSE_W, vl, dt, lse=True)
+                if r["splits"] != 8:
+                    fail(f"decode_attention {r['desc']}: want 8 splits")
                 cases.append(r)
     if cfg.is_moe:
         # moe_gemm's variants at their edges: the C tail of 128-row tiles
@@ -2184,7 +2287,8 @@ def _train_counted(cfg, rep, label: str) -> dict:
     """A training run's lines and checks: the kernels' launches since
     the last reset against :func:`_train_launches`, finite losses, step
     ms from step 2 on, tokens/s and the peak memory since the last
-    reset.  Returns the launches by kernel."""
+    reset.  Drops the report's params.  Returns the launches by
+    kernel."""
     import torch
 
     ops = _kernel_ops()
@@ -2206,6 +2310,7 @@ def _train_counted(cfg, rep, label: str) -> dict:
           f"{TRAIN_STEPS} {step_ms:.1f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s; peak "
           f"memory {peak:.2f} GiB")
+    rep.params = None     # the trained params are not read: free them
     return got
 
 
@@ -2540,7 +2645,8 @@ def _pipe_stage_fn(cfg, backend: str):
 
 def _pipe_model(n_stages: int):
     """Llama-3.2-1B at full width from ``init_params(cfg,
-    torch.Generator().manual_seed(0))`` on the card: (cfg, its layers as
+    torch.Generator(device="cuda").manual_seed(0))`` on the card: (cfg,
+    its layers as
     ``n_stages`` stages of contiguous layers (leaves (n_stages, L /
     n_stages, ...), views of the stack), the PIPE_MICRO microbatches'
     embeddings (PIPE_MICRO, LM_BATCH, LM_PROMPT, d) of seeded tokens)."""
@@ -2551,8 +2657,8 @@ def _pipe_model(n_stages: int):
     from repro_torch.training import tree
 
     cfg = configs.get(LM_ARCH)
-    params = M.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cuda")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
     toks = np.random.default_rng(PIPE_SEED).integers(
         0, cfg.vocab_size, (PIPE_MICRO, LM_BATCH, LM_PROMPT))
     xs = params["embed"][torch.as_tensor(toks, device="cuda")]
@@ -2702,12 +2808,16 @@ def _pipe_spawn(backend: str, world: int, out_dir: str,
     return procs, results
 
 
-def _pipe_collect(procs, results, label: str) -> list[dict]:
+def _pipe_collect(procs, results, label: str, stop: bool = True
+                  ) -> list[dict]:
     """Every rank's readings, by rank, within PIPE_TIMEOUT_S; a rank's
-    failure or the time limit fails the run, and every rank is stopped."""
+    failure or the time limit fails the run, and every rank is stopped.
+    With ``stop`` False the ranks go on after their readings (they have
+    more to do) unless the run failed."""
     import queue
     got: dict[int, dict] = {}
     deadline = time.monotonic() + PIPE_TIMEOUT_S
+    done = False
     try:
         while len(got) < len(procs):
             if time.monotonic() > deadline:
@@ -2725,8 +2835,9 @@ def _pipe_collect(procs, results, label: str) -> list[dict]:
             if not ok:
                 fail(f"{label}: rank {rank} failed:\n{value}")
             got[rank] = value
+        done = True
     finally:
-        for p in procs:
+        for p in procs if stop or not done else ():
             p.join(timeout=max(0.1, min(30.0, deadline - time.monotonic())))
             if p.is_alive():
                 p.kill()
@@ -2754,8 +2865,8 @@ def run_pipeline() -> int:
           f"{per} (params['layers'] reshaped to ({PIPE_STAGES}, {per}, "
           f"...)), {PIPE_MICRO} microbatches of ({LM_BATCH}, {LM_PROMPT}) "
           f"tokens (numpy seed {PIPE_SEED}), fp32, TF32 off; weights "
-          f"init_params(cfg, torch.Generator().manual_seed(0)) in every "
-          f"process; this process holds "
+          f"init_params(cfg, torch.Generator(device='cuda').manual_seed(0))"
+          f" in every process; this process holds "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB before")
     runs = {}
     with tempfile.TemporaryDirectory(prefix="pipeline-") as out_dir:
@@ -2992,7 +3103,8 @@ def _ring_attn_rank(mesh, sync, rank, out_dir) -> dict:
 
 def _ring_model_rank(mesh, sync, rank, prefill: bool) -> dict:
     """Phase 8 (b) and (c) in one rank: Llama-3.2-1B at full width from
-    ``init_params(cfg, torch.Generator().manual_seed(0))``, one seeded
+    ``init_params(cfg, torch.Generator(device="cuda").manual_seed(0))``,
+    one seeded
     (1, RING_Q[1]) prompt; ``forward(ring=(mesh, "model"))`` (and with
     ``prefill``, ``prefill(ring=...)``) once counted and RING_CALLS times
     timed.  Rank 0 then runs the one-process kernel path of the same
@@ -3008,8 +3120,8 @@ def _ring_model_rank(mesh, sync, rank, prefill: bool) -> dict:
 
     cfg = configs.get(LM_ARCH)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cuda")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
     toks = np.random.default_rng(RING_SEED).integers(
         0, cfg.vocab_size, (1, RING_Q[1]))
     batch = {"tokens": torch.as_tensor(toks, device="cuda")}
@@ -3298,7 +3410,8 @@ def run_ring(card: str) -> tuple[int, int]:
 def _shard_model(arch: str, layers: int | None = None):
     """(cfg, params on the host) of ``arch`` at full width (at ``layers``
     of its layers where given): ``init_params(cfg,
-    torch.Generator().manual_seed(0))``, fp32."""
+    torch.Generator(device="cuda").manual_seed(0), device="cpu")``, fp32
+    (drawn on the card, then copied to the host)."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -3306,8 +3419,8 @@ def _shard_model(arch: str, layers: int | None = None):
     cfg = configs.get(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    return cfg, M.init_params(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
+    return cfg, M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cpu")
 
 
 def _shard_batches(cfg, n: int) -> list[dict]:
@@ -3708,8 +3821,8 @@ def run_shard(card: str) -> dict:
     print(f"[shard] one-process references (b)-(e) "
           f"{time.perf_counter() - t0:.1f} s (the gloo ranks starting "
           f"meanwhile), of which {build_s:.1f} s "
-          f"building the models on the host (init_params(cfg, "
-          f"torch.Generator().manual_seed(0))); on {card}")
+          f"building the models (init_params(cfg, torch.Generator("
+          f"device='cuda').manual_seed(0)), copied to the host); on {card}")
     data = {"llama": (cfg, params, batches, ref_b, ref_c),
             "granite": (g_cfg, g_params, g_batch, ref_d),
             "mamba2": (m_cfg, m_params, m_batch, ref_e)}
@@ -3817,6 +3930,622 @@ def run_shard(card: str) -> dict:
     torch.cuda.empty_cache()
     if not ok:
         fail("shard: a phase 9 check failed (see the [shard] lines)")
+    return dict(launches)
+
+
+# -- decode on a sharded cache and the launcher over torchrun's ranks
+# (phase 10) -----------------------------------------------------------------
+
+def _sdec_model(arch: str, layers: int | None = None):
+    """(cfg, params on the card) of ``arch`` at full width (at ``layers``
+    of its layers where given), fp32, drawn on the card from seed 0 as
+    phase 5's are; the ranks read them through CUDA IPC."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.transformer import model as M
+    cfg = configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+
+def _sdec_prompt(cfg):
+    """SDEC_PROMPT token ids on the host from numpy seed SDEC_SEED."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SDEC_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, SDEC_PROMPT))
+
+
+@contextlib.contextmanager
+def _routes_listed(routes: list):
+    """``model.moe`` wrapped to append each call's routing decisions (a
+    token's sorted top-k set, on the rows the call sees) to ``routes``,
+    in call order: layer by layer, step by step."""
+    import torch
+    from repro_torch.models.transformer import model as M
+
+    real = M.moe
+
+    def recording(p, x, top_k, capacity_factor=1.25, backend="cuda"):
+        with torch.no_grad():
+            probs = torch.softmax((x @ p.router).float(), dim=-1)
+            routes.append(torch.topk(probs, top_k, dim=-1).indices
+                          .sort(dim=-1).values.cpu())
+        return real(p, x, top_k, capacity_factor, backend=backend)
+
+    M.moe = recording
+    try:
+        yield
+    finally:
+        M.moe = real
+
+
+def _sdec_ref(cfg, params, prompt, steps: int, gen: bool = False,
+              record: bool = False) -> dict:
+    """The one-process kernel path of a phase 10 case in this process, on
+    ``params`` (on the card):
+    ``prefill_prompt`` of ``prompt`` with room for SDEC_NEW tokens (its
+    cache copied to the host for the ranks), then ``steps`` greedy
+    ``decode_step`` calls, each counted and timed: the tokens fed, the
+    logits, the k/v rows each step wrote (attention) or the states after
+    the last step (Mamba2), on the host; with ``gen``, ``generate`` of
+    SDEC_GEN tokens; with ``record``, the MoE routing of the steps."""
+    import torch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+    ops = _kernel_ops()
+    p = params
+    x = prompt.cuda()
+    out = {"feed": [], "logits": [], "rows": [], "ms": [], "routes": []}
+    with torch.no_grad():
+        _reset_counts()
+        _, cache = lm.prefill_prompt(cfg, p, x, SDEC_NEW)
+        out["prefill_launches"] = {n: ops[n].launch_count(n) for n in ops}
+        out["cache"] = {k: v.to("cpu", copy=True) for k, v in cache.items()}
+        tok = x[:, -1].long()
+        start = prompt.shape[1] - 1
+        _reset_counts()
+        with (_routes_listed(out["routes"]) if record
+              else contextlib.nullcontext()):
+            for s in range(steps):
+                out["feed"].append(tok.cpu())
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = M.decode_step(cfg, p, cache, {"token": tok})
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["logits"].append(logits.cpu())
+                if "k" in cache:
+                    out["rows"].append({k: cache[k][:, :, start + s].cpu()
+                                        for k in ("k", "v")})
+                tok = logits.argmax(dim=-1)
+        out["launches"] = {n: ops[n].launch_count(n) for n in ops}
+        if "conv" in cache:
+            out["states"] = {k: cache[k].cpu() for k in ("conv", "ssm")}
+        del cache
+        if gen:
+            _reset_counts()
+            out["gen"] = lm.generate(cfg, p, x, SDEC_GEN).cpu()
+            out["gen_launches"] = {n: ops[n].launch_count(n) for n in ops}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sdec_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
+    """A phase 10 rank: under gloo (world SDEC_RANKS, mesh SDEC_MESH) (a)
+    Llama in each cache mode and its ``generate``, (b) mamba2, (c)
+    granite; under NCCL (one rank, mesh (1, 1)) (d), (a)'s feature mode
+    alone.  ``data`` (or a queue that delivers it) holds each case's
+    config, params (on the card, read through CUDA IPC) and the
+    one-process reference.  Each decode step
+    is counted (launches a step), its logits' and written rows' local
+    shards compared with the reference's, the whole logits' digest
+    kept (the ranks compare them); the first step of a case also counts
+    its collectives (``CommDebugMode``) and their paths
+    (``launch.mesh.COLLECTIVES``)."""
+    from collections import Counter
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    torch.cuda.reset_peak_memory_stats()
+    stamps = {"entered": time.time() - spawned}
+    t_last = [time.perf_counter()]
+
+    def stamp(label):
+        now = time.perf_counter()
+        stamps[label] = now - t_last[0]
+        t_last[0] = now
+
+    mesh = make_mesh(SDEC_MESH if world > 1 else (1, 1), ("data", "model"))
+    sync = dist.barrier if world > 1 else (lambda: None)
+    ops = _kernel_ops()
+    res = {"backend": dist.get_backend(mesh.get_group("model")),
+           "coord": tuple(mesh.get_coordinate())}
+    stamp("mesh")
+    if not isinstance(data, dict):
+        data = data.get(timeout=SDEC_WAIT_S)       # phase 9 runs meanwhile
+        stamp("waited for phase 9 and the references")
+
+    def compare(t, ref, places=None) -> tuple:
+        """(max |local - its shard of ref|, max |that shard|, bit-equal)
+        on this rank's shard of a DTensor ``t``."""
+        loc = t.to_local().float()
+        r = local_shard(ref, mesh, places or t.placements).to(loc.device)
+        return ((loc - r.float()).abs().max().item(),
+                r.abs().max().item(), torch.equal(loc, r.float()))
+
+    def run_case(label, cfg, params, ref, mode, steps, routes=None):
+        cache = dict(ref["cache"])
+        cache = S.distribute(cache, S.cache_pspecs(cfg, cache, mesh,
+                                                   ("data",), mode), mesh)
+        places = {k: [str(p) for p in t.placements] for k, t in cache.items()}
+        sync()
+        stamp(f"{label} placed")
+        info = {"launches": [], "logits": [], "rows": [], "digests": [],
+                "ms": [], "places": places}
+        start = ref["cache"]["k"].shape[2] - SDEC_NEW - 1 \
+            if "k" in ref["cache"] else None
+        rec: list = []
+        with (_routes_listed(rec) if routes is not None
+              else contextlib.nullcontext()), torch.no_grad():
+            for s in range(steps):
+                tok = S.distribute({"token": ref["feed"][s]}, S.batch_pspecs(
+                    cfg, {"token": ref["feed"][s]}, mesh, ("data",)),
+                    mesh)["token"]
+                _reset_counts()
+                before = Counter(mesh_mod.COLLECTIVES)
+                sync()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with (CommDebugMode() if s == 0
+                      else contextlib.nullcontext()) as comm:
+                    logits, cache = M.decode_step(cfg, params, cache,
+                                                  {"token": tok})
+                torch.cuda.synchronize()
+                info["ms"].append((time.perf_counter() - t) * 1e3)
+                info["launches"].append({n: ops[n].launch_count(n)
+                                         for n in ops})
+                if s == 0:
+                    paths = Counter(mesh_mod.COLLECTIVES)
+                    paths.subtract(before)
+                    info["comm"] = {str(k).split(".")[-1]: v for k, v in
+                                    comm.get_comm_counts().items()}
+                    info["paths"] = {f"{k} {p}": v for (k, p), v in
+                                     paths.items() if v}
+                info["logits"].append(compare(logits, ref["logits"][s]))
+                info["digests"].append(_digest(S.full(logits)))
+                if start is not None:
+                    slot = start + s
+                    for k in ("k", "v"):
+                        c = cache[k]
+                        pl = list(c.placements)
+                        wl = c.to_local().shape[2]
+                        w0 = (mesh.get_local_rank("model") * wl
+                              if Shard(2) in pl else 0)
+                        if not w0 <= slot < w0 + wl:
+                            continue       # another rank holds the slot
+                        row = c.to_local()[:, :, slot - w0]
+                        rp = [Replicate() if p == Shard(2) else p
+                              for p in pl]
+                        ref_row = local_shard(ref["rows"][s][k][:, :, None],
+                                              mesh, rp)[:, :, 0]
+                        ref_row = ref_row.to(row.device)
+                        info["rows"].append((
+                            (row - ref_row).abs().max().item(),
+                            ref_row.abs().max().item(),
+                            torch.equal(row, ref_row)))
+        if "states" in ref:
+            info["states"] = [compare(cache[k], ref["states"][k])
+                              for k in ("conv", "ssm")]
+        if routes is not None:
+            lo = res["coord"][0] * (SDEC_PROMPT[0] // mesh.shape[0])
+            hi = lo + SDEC_PROMPT[0] // mesh.shape[0]
+            info["flips"] = sum(int((g != r[lo:hi]).any(dim=-1).sum())
+                                for g, r in zip(rec, routes))
+            info["routed"] = sum(g.shape[0] * g.shape[1] for g in rec)
+        del cache
+        torch.cuda.empty_cache()
+        stamp(label)
+        return info
+
+    cfg, params, prompt, ref = data["llama"]
+    p = S.distribute(params, S.param_pspecs(cfg, params, mesh), mesh)
+    stamp("(a) params placed")
+    for mode in (SDEC_MODES if world > 1 else SDEC_MODES[:1]):
+        res[f"(a) {mode}"] = run_case(f"(a) {mode}", cfg, p, ref, mode,
+                                         SDEC_STEPS)
+    if world > 1:
+        _reset_counts()
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            toks = lm.generate(cfg, p, prompt.cuda(), SDEC_GEN)
+        toks = S.full(toks).cpu()
+        torch.cuda.synchronize()
+        res["(a) generate"] = {
+            "ms": (time.perf_counter() - t) * 1e3,
+            "launches": {n: ops[n].launch_count(n) for n in ops},
+            "differ": int((toks != ref["gen"]).sum()),
+            "type": type(toks).__name__}
+        stamp("(a) generate")
+    del p
+    torch.cuda.empty_cache()
+    if world > 1:
+        cfg, params, prompt, ref = data["mamba2"]
+        p = S.distribute(params, S.param_pspecs(cfg, params, mesh), mesh)
+        res["(b) mamba2"] = run_case("(b)", cfg, p, ref, "feature",
+                                        SDEC_SSM_STEPS)
+        del p
+        cfg, params, prompt, ref = data["granite"]
+        p = S.distribute(params, S.param_pspecs(cfg, params, mesh), mesh)
+        res["(c) granite"] = run_case("(c)", cfg, p, ref, "feature",
+                                         SDEC_SSM_STEPS,
+                                         routes=ref["routes"])
+        del p
+        torch.cuda.empty_cache()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["stamps"] = stamps
+    return res
+
+
+def _sdec_lines(label, rs, ref, want, card, tol=SDEC_TOL) -> bool:
+    """Print a decode case of every rank against the one-process
+    reference; returns whether it held: every step's launches as
+    ``want`` on every rank, the logits (and written rows, and states)
+    within ``tol`` x max|ref| (None: printed, not held), the ranks'
+    gathered logits bit-equal."""
+    from statistics import median
+
+    def share(pairs):
+        err = max((e for e, _, _ in pairs), default=0.0)
+        top = max((m for _, m, _ in pairs), default=0.0)
+        return err / (SDEC_TOL * top) if top else err
+
+    r0 = rs[0]
+    steps = len(r0["logits"])
+    logit_share = max(share([r["logits"][s] for r in rs])
+                      for s in range(steps))
+    rows = [x for r in rs for x in r["rows"]]
+    row_share = share(rows) if rows else 0.0
+    rows_bits = sum(b for *_, b in rows)
+    state_share = max((share([r["states"][i] for r in rs])
+                       for i in range(2)), default=0.0) \
+        if "states" in r0 else 0.0
+    agree = all(r["digests"] == r0["digests"] for r in rs)
+    launches_ok = all(x == want for r in rs for x in r["launches"])
+    ms = [median(r["ms"][s] for r in rs) for s in range(steps)]
+    who = (f"{len(rs)} gloo ranks" if len(rs) > 1 else "one NCCL rank")
+    print(f"[sdecode] {label}: {who}, {steps} steps fed the one-process "
+          f"greedy tokens; cache placements {r0['places']}; logits worst "
+          f"{logit_share:.3f} of {SDEC_TOL:g} x max|ref|"
+          + (f"; written k/v rows worst {row_share:.3f} of it ({rows_bits} "
+             f"of {len(rows)} rank-rows bit-equal)" if rows else "")
+          + (f"; conv/ssm states after the last step worst "
+             f"{state_share:.3f} of it" if "states" in r0 else "")
+          + f"; ranks' gathered logits bit-equal {agree}; launches a step "
+          f"a rank {r0['launches'][0]} (want {want}, every step "
+          f"{launches_ok})")
+    print(f"[sdecode] {label}: collectives of the first step (a rank, "
+          f"CommDebugMode) {r0.get('comm')}; by path {r0.get('paths')}")
+    print(f"[sdecode] {label}: ms a step {[f'{m:.1f}' for m in ms]}"
+          + (" -- FOUR PROCESSES TIME-SLICED ON ONE CARD, not a "
+             "multi-device speed" if len(rs) > 1 else "")
+          + f"; one-process kernel path {[f'{m:.1f}' for m in ref['ms']]};"
+          f" on {card}")
+    ok = agree and launches_ok and row_share <= 1.0
+    if tol is not None:
+        ok = ok and logit_share <= 1.0 and state_share <= 1.0
+    return ok
+
+
+def _sdec_rank(rank, world, port, lport, results, lresults, inbox,
+               spawned) -> None:
+    """One gloo rank of phase 10 on cuda:0, spawned before phase 9 (its
+    start-up overlaps that phase): (a)-(c) in a gloo group on ``port``
+    (``_sdec_rank_body``, its data from ``inbox``; readings on
+    ``results``), the group ended, then (e) as a rank under torchrun's
+    environment variables (``MASTER_PORT`` ``lport``):
+    ``launch.train.main`` counted (readings on ``lresults``).  A failure
+    puts its traceback on the queue of the part that failed."""
+    import os
+    import traceback
+    from datetime import timedelta
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    queue_ = results
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=PIPE_TIMEOUT_S))
+        try:
+            res = _sdec_rank_body(rank, world, "gloo", None, inbox, spawned)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, res))
+        queue_ = lresults
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(lport))
+        lresults.put((rank, True, _launch_counted(
+            SDEC_LAUNCH_ARGV + ["--device", "cuda:0", "--backend",
+                                "gloo"])))
+    except BaseException:
+        queue_.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def sdec_spawn():
+    """Start phase 10's SDEC_RANKS rank processes (``_sdec_rank``); they
+    import, join their gloo group and build their mesh while phase 9
+    runs, then wait for the decode cases.  Returns what
+    :func:`run_sharded_decode` takes."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results, lresults, inbox = ctx.Queue(), ctx.Queue(), ctx.Queue()
+    port, lport = _free_port(), _free_port()
+    spawned = time.time()
+    procs = [ctx.Process(target=_sdec_rank, daemon=True,
+                         args=(r, SDEC_RANKS, port, lport, results, lresults,
+                               inbox, spawned))
+             for r in range(SDEC_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, results, lresults, inbox, time.perf_counter()
+
+
+def _launch_counted(argv) -> dict:
+    """``launch.train.main(argv)`` with the kernels counted: its losses,
+    step seconds, launches and peak memory."""
+    import torch
+    from repro_torch.launch import train as launcher
+    ops = _kernel_ops()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    rep = launcher.main(argv)
+    return {"losses": rep.losses, "step_s": rep.step_s,
+            "wall_s": time.perf_counter() - t,
+            "launches": {n: ops[n].launch_count(n) for n in ops},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_phase(card: str, procs, lresults, started: float
+                  ) -> tuple[bool, Counter]:
+    """Phase 10 (e): ``launch.train.main`` on SDEC_LAUNCH_ARCH at full
+    width, as SDEC_RANKS ranks under torchrun's environment on cuda:0
+    (``--backend gloo``; phase 10's rank processes, which went on to it
+    after (a)-(c), at ``started``), then as one rank at world 1 (NCCL,
+    this process), each step's loss held within SDEC_LOSS_REL of the
+    one-device launcher's run of the same arguments (this process, no
+    torchrun environment, while the ranks run).  Returns (held, the
+    launches of all three)."""
+    import os
+    from collections import Counter
+    from repro_torch import configs
+    from repro_torch.launch import train as launcher
+
+    cfg = configs.get(SDEC_LAUNCH_ARCH)
+    argv = SDEC_LAUNCH_ARGV
+    if launcher.under_torchrun():
+        fail("sdecode (e): this process has torchrun's environment; its "
+             "one-device run would be a rank")
+    t0 = time.perf_counter()
+    one = _launch_counted(argv + ["--device", "cuda"])
+    one_s = time.perf_counter() - t0
+    gloo = _pipe_collect(procs, lresults, "launcher gloo ranks")
+    gloo_s = time.perf_counter() - started
+    t0 = time.perf_counter()
+    env = {k: os.environ.get(k) for k in launcher.TORCHRUN_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    try:
+        nccl = _launch_counted(argv + ["--device", "cuda"])
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    nccl_s = time.perf_counter() - t0
+    want = _train_launches(cfg, SDEC_LAUNCH_STEPS)
+    ok = one["launches"] == want
+    print(f"[sdecode] (e) launch.train.main {' '.join(argv)}: one device "
+          f"(no torchrun environment) losses "
+          f"{[f'{x:.6f}' for x in one['losses']]}, step ms "
+          f"{[f'{1e3 * x:.1f}' for x in one['step_s']]}, peak "
+          f"{one['peak_gib']:.2f} GiB, launches {one['launches']} (want "
+          f"{want}), {one_s:.1f} s (the gloo ranks starting meanwhile); "
+          f"on {card}")
+    for label, rs, wall in ((f"{SDEC_RANKS} gloo ranks under torchrun's "
+                             f"environment, --device cuda:0 --backend gloo "
+                             f"(a (2, 2) mesh)", gloo, gloo_s),
+                            ("one rank at world 1, --device cuda (NCCL, a "
+                             "(1, 1) mesh)", [nccl], nccl_s)):
+        rel = max(abs(a - b) / abs(b) for r in rs
+                  for a, b in zip(r["losses"], one["losses"]))
+        held = rel <= SDEC_LOSS_REL and all(
+            len(r["losses"]) == SDEC_LAUNCH_STEPS
+            and r["launches"] == want for r in rs)
+        ok = ok and held
+        peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in rs)
+        print(f"[sdecode] (e) {label}: losses "
+              f"{[f'{x:.6f}' for x in rs[0]['losses']]} ({rel:.2e} relative "
+              f"to one device, limit {SDEC_LOSS_REL:g}); launches a rank "
+              f"{rs[0]['launches']} (every rank as wanted "
+              f"{all(r['launches'] == want for r in rs)}); step ms rank 0 "
+              f"{[f'{1e3 * x:.1f}' for x in rs[0]['step_s']]}"
+              + (" (time-sliced on one card, not a multi-device speed)"
+                 if len(rs) > 1 else "")
+              + f"; peak memory a rank {peaks} GiB; wall {wall:.1f} s"
+              + (" from the ranks' (a)-(c) readings" if len(rs) > 1
+                 else "") + f"; on {card}")
+    launches = Counter(one["launches"])
+    for r in gloo + [nccl]:
+        launches.update(r["launches"])
+    return ok, launches
+
+
+def run_sharded_decode(card: str, ranks) -> dict:
+    """Phase 10: ``decode_step`` on a sharded cache and the train launcher
+    over torchrun's ranks (``[sdecode]`` lines).  The one-process kernel
+    path of each decode case first, in this process (the params handed
+    to the ranks on the card, the cache and the tokens it fed on the
+    host), then (a)-(c) in SDEC_RANKS gloo ranks on cuda:0 (``ranks``,
+    from :func:`sdec_spawn`) and (d) in one NCCL rank (this process, a
+    world of one), then (e), which the same ranks start while (d) runs.
+    Returns the kernels' launches of the phase's counted calls (the
+    ranks' and the one-process references'), by kernel."""
+    import socket
+    from collections import Counter
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[sdecode] decode_step on a cache placed by cache_pspecs "
+          f"(modes {SDEC_MODES}) and on params placed by param_pspecs: "
+          f"{SDEC_RANKS} gloo ranks on cuda:0 as a {SDEC_MESH} ('data', "
+          f"'model') mesh (time-sliced: no figure here is a multi-device "
+          f"speed; host-staged gloo sub-groups), then one NCCL rank on a "
+          f"(1, 1) mesh; prompt {SDEC_PROMPT} from numpy seed {SDEC_SEED}, "
+          f"cache room for {SDEC_NEW} more; fp32, TF32 off; on {card}")
+    t0 = time.perf_counter()
+    procs, results, lresults, inbox, spawned = ranks
+    cfg, params = _sdec_model(LM_ARCH)
+    m_cfg, m_params = _sdec_model(SSM_ARCH, SDEC_SSM_LAYERS)
+    g_cfg, g_params = _sdec_model(MOE_ARCH, SDEC_MOE_LAYERS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompt = _sdec_prompt(cfg)
+    ref_a = _sdec_ref(cfg, params, prompt, SDEC_STEPS, gen=True)
+    m_prompt = _sdec_prompt(m_cfg)
+    ref_b = _sdec_ref(m_cfg, m_params, m_prompt, SDEC_SSM_STEPS)
+    g_prompt = _sdec_prompt(g_cfg)
+    ref_c = _sdec_ref(g_cfg, g_params, g_prompt, SDEC_SSM_STEPS,
+                      record=True)
+    print(f"[sdecode] one-process references {time.perf_counter() - t0:.1f}"
+          f" s, of which {build_s:.1f} s drawing the models on the card (seed "
+          f"0); the gloo ranks spawned {t0 - spawned:.1f} s before, during "
+          f"phase 9; on {card}")
+    data = {"llama": (cfg, params, prompt, ref_a),
+            "mamba2": (m_cfg, m_params, m_prompt, ref_b),
+            "granite": (g_cfg, g_params, g_prompt, ref_c)}
+    for _ in range(SDEC_RANKS):
+        inbox.put(data)
+    gloo = _pipe_collect(procs, results, "sdecode gloo ranks", stop=False)
+    gloo_s = time.perf_counter() - t0
+    # the ranks go on to (e) (the weights on the host, then the steps)
+    # while (d) and (e)'s one-device run use the card
+    started = time.perf_counter()
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        nccl = [_sdec_rank_body(0, 1, "nccl", None,
+                                {"llama": data["llama"]}, time.time())]
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+    print(f"[sdecode] ranks: gloo x {len(gloo)} ({gloo[0]['backend']} "
+          f"sub-groups, coordinates {[r['coord'] for r in gloo]}) "
+          f"{gloo_s:.1f} s wall from the phase's start, references "
+          f"included; nccl "
+          f"x 1 ({nccl[0]['backend']}, this process) {nccl_s:.1f} s")
+
+    attn = dict.fromkeys(_kernel_ops(), 0)
+    attn["decode_attention"] = cfg.n_layers
+    ok = True
+    for mode in SDEC_MODES:
+        ok = _sdec_lines(f"(a) {LM_ARCH} {cfg.n_layers} layers, {mode} "
+                         f"mode",
+                         [r[f"(a) {mode}"] for r in gloo], ref_a, attn,
+                         card) and ok
+    gen = [r["(a) generate"] for r in gloo]
+    want_gen = dict(ref_a["gen_launches"])
+    gen_ms = [f"{r['ms']:.0f}" for r in gen]
+    print(f"[sdecode] (a) generate {SDEC_GEN} tokens on the placed params "
+          f"(eager Decoder, the cache in prefill's placements): tokens "
+          f"that differ from the one-process generate "
+          f"{[r['differ'] for r in gen]} of {SDEC_PROMPT[0] * SDEC_GEN} a "
+          f"rank; launches a rank {gen[0]['launches']} (one-process "
+          f"{want_gen}); ms {gen_ms} "
+          f"(time-sliced); on {card}")
+    ok = ok and all(r["launches"] == want_gen for r in gen)
+    ssm = dict.fromkeys(_kernel_ops(), 0)
+    ok = _sdec_lines(f"(b) {SSM_ARCH} at {m_cfg.n_layers} of 48 layers, "
+                     f"feature mode",
+                     [r["(b) mamba2"] for r in gloo], ref_b, ssm, card) \
+        and ok
+    cs = [r["(c) granite"] for r in gloo]
+    flips = sum(r["flips"] for r, g in zip(cs, gloo) if g["coord"][1] == 0)
+    routed = sum(r["routed"] for r, g in zip(cs, gloo)
+                 if g["coord"][1] == 0)
+    print(f"[sdecode] (c) {MOE_ARCH} at {SDEC_MOE_LAYERS} of 32 layers: "
+          f"routing decisions that differ from the one-process run {flips} "
+          f"of {routed} (tokens x layers x steps)")
+    moe = dict(attn, decode_attention=g_cfg.n_layers,
+               moe_gemm=3 * g_cfg.n_layers)
+    ok = _sdec_lines(f"(c) {MOE_ARCH} {SDEC_MOE_LAYERS} layers, feature "
+                     f"mode", cs, ref_c, moe, card,
+                     tol=SDEC_TOL if flips == 0 else None) and ok
+    ok = _sdec_lines(f"(d) {LM_ARCH} on a (1, 1) mesh, feature mode",
+                     [nccl[0]["(a) feature"]], ref_a, attn, card) and ok
+    for r in gloo[:1] + nccl:
+        print(f"[sdecode] {r['backend']} rank {r['coord']} seconds by part: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["stamps"].items()))
+    launches = Counter()
+    for r in gloo + nccl:
+        for key, case in r.items():
+            if key.startswith("("):
+                for x in (case["launches"] if isinstance(case["launches"],
+                                                         list)
+                          else [case["launches"]]):
+                    launches.update(x)
+    for ref in (ref_a, ref_b, ref_c):
+        launches.update(ref["prefill_launches"])
+        launches.update(ref["launches"])
+        launches.update(ref.get("gen_launches", {}))
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in gloo)
+    print(f"[sdecode] peak memory a rank: gloo {peaks} GiB, "
+          f"nccl {nccl[0]['peak_gib']:.2f} GiB; decode part "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    del data, ref_a, ref_b, ref_c, params, m_params, g_params
+    torch.cuda.empty_cache()
+    held, launched = _launch_phase(card, procs, lresults, started)
+    ok = ok and held
+    launches.update(launched)
+    print(f"[sdecode] launches of the phase's counted calls (ranks and "
+          f"one-process references) {dict(launches)}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    if not ok:
+        fail("sdecode: a phase 10 check failed (see the [sdecode] lines)")
     return dict(launches)
 
 
@@ -5523,10 +6252,16 @@ def main() -> None:
         "launches"] += ring_bwd
     print(f"[time] ring phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    sdec_ranks = sdec_spawn()      # phase 10's ranks start during phase 9
     shard = run_shard(card)
     for e in kernels:
         e["launches"] += shard.get(e["name"], 0)
     print(f"[time] shard phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sdec = run_sharded_decode(card, sdec_ranks)
+    for e in kernels:
+        e["launches"] += sdec.get(e["name"], 0)
+    print(f"[time] sharded decode phase {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -5544,11 +6279,13 @@ def main() -> None:
           f"flash_prefill_bwd: also phase 8's {ring_bwd}; and phase 9's "
           f"counted calls (every rank's and the one-process references') "
           f"of flash_prefill, flash_prefill_bwd, moe_gemm, ssd_chunk and "
-          f"ssd_chunk_bwd: {shard}")
+          f"ssd_chunk_bwd: {shard}; and phase 10's counted calls (decode "
+          f"steps, generate, the launcher's steps and their one-process "
+          f"references): {sdec}")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 10. result lines ------------------------------------------------
+    # -- 11. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@
 // o[b, kh, g] = softmax(q k^T / sqrt(D)) v over the cache entries
 // w < valid_len, the rest masked with -1e30 as in the reference (a
 // valid_len <= 0 masks every entry; then all W entries get equal weight).
+// Optionally also each row's natural-log log-sum-exp of the scaled scores,
+// lse (B, K, G) fp32, as the plain version gives it: a cache split over
+// ranks combines the ranks' outputs by it (a rank with no valid entry
+// gives about -1e30, so it weighs 0).
 // valid_len is read on the device, from the pointer the wrapper passes:
 // the counterpart of the TPU kernel's scalar prefetch.  The host never
 // reads it, so a decode step does not wait on the card once per layer.
@@ -36,7 +40,8 @@
 //     order: lane groups by shuffles, warps through shared memory, then
 //     after a cluster barrier each rank folds splits 0..S-1 over
 //     distributed shared memory for its share of the G D outputs and
-//     stores them.  One launch a call, no workspace, no atomics: a run
+//     stores them (and, where asked, each of its rows' lse from the
+//     folded m and l).  One launch a call, no workspace, no atomics: a run
 //     repeats bit for bit, and the launch can be captured in a graph.
 // Heads run eight at a time (more than eight re-read the split's rows).
 //
@@ -54,8 +59,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 64;
 constexpr int MAX_D = 128;
 constexpr int MAX_SPLIT = 8;
-constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// the reference's mask value, -1e30 in natural-log units, in the log2
+// units the scores are held in: a masked row's lse comes out -1e30
+constexpr float NEG = -1e30f * LOG2E;
 
 // fp32 values of one 16-byte load
 template <typename T> struct Lanes;
@@ -112,7 +120,8 @@ template <typename T, int GC>
 __global__ void __launch_bounds__(THREADS, GC == 8 ? 1 : 2)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ valid_len,
-                   T* __restrict__ o, int W, int K, int G, int D, int S) {
+                   T* __restrict__ o, float* __restrict__ lse, int W,
+                   int K, int G, int D, int S) {
   constexpr int VEC = Lanes<T>::VEC;
   constexpr int U = GC == 8 ? 2 : 32 / VEC;        // passes in flight
   extern __shared__ __align__(16) float smem[];
@@ -319,14 +328,16 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[j] = a[j] / den;
     store4(o + qo + (long long)g * D + d, out);
+    if (lse != nullptr && d == 0)                 // one thread a row
+      lse[(long long)bk * G + g] = (mx + log2f(den)) * LN2;
   }
   hopper::cluster_sync();                         // no block leaves early
 }
 
 template <typename T, int GC>
 cudaError_t launch_g(const void* q, const void* k, const void* v,
-                     const int* valid_len, void* o, int B, int W, int K,
-                     int G, int D, int S, cudaStream_t stream) {
+                     const int* valid_len, void* o, float* lse, int B, int W,
+                     int K, int G, int D, int S, cudaStream_t stream) {
   auto kernel = decode_attn_kernel<T, GC>;
   static bool configured = false;
   if (!configured) {
@@ -341,40 +352,43 @@ cudaError_t launch_g(const void* q, const void* k, const void* v,
   return hopper::launch_cluster(
       kernel, dim3((unsigned)blocks), dim3(THREADS), smem_bytes(GC, G, D),
       stream, S, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid_len, static_cast<T*>(o), W, K, G, D, S);
+      static_cast<const T*>(v), valid_len, static_cast<T*>(o), lse, W, K, G,
+      D, S);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* valid_len, void* o, int B, int W, int K, int G,
-                   int D, int S, cudaStream_t st) {
-  if (G <= 1) return launch_g<T, 1>(q, k, v, valid_len, o, B, W, K, G, D, S, st);
-  if (G <= 2) return launch_g<T, 2>(q, k, v, valid_len, o, B, W, K, G, D, S, st);
-  if (G <= 4) return launch_g<T, 4>(q, k, v, valid_len, o, B, W, K, G, D, S, st);
-  return launch_g<T, 8>(q, k, v, valid_len, o, B, W, K, G, D, S, st);
+                   const int* vl, void* o, float* lse, int B, int W, int K,
+                   int G, int D, int S, cudaStream_t st) {
+  if (G <= 1) return launch_g<T, 1>(q, k, v, vl, o, lse, B, W, K, G, D, S, st);
+  if (G <= 2) return launch_g<T, 2>(q, k, v, vl, o, lse, B, W, K, G, D, S, st);
+  if (G <= 4) return launch_g<T, 4>(q, k, v, vl, o, lse, B, W, K, G, D, S, st);
+  return launch_g<T, 8>(q, k, v, vl, o, lse, B, W, K, G, D, S, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Contiguous q (b, kh, g, d), k/v
 // (b, w, kh, d) and o like q, 16-byte aligned; valid_len points to one
-// int32 on the device; d a multiple of 8 up to 128, g <= 64; splits
-// 1..8, at most w (ops.py's `decode_splits`).
+// int32 on the device; lse null, or contiguous fp32 (b, kh, g); d a
+// multiple of 8 up to 128, g <= 64; splits 1..8, at most w (ops.py's
+// `decode_splits`).
 // Returns a cudaError_t: 0 after a launch that the runtime accepted.
 extern "C" int decode_attention_launch(int dtype, const void* q,
                                        const void* k, const void* v,
-                                       const void* valid_len, void* o, int b,
-                                       int w, int kh, int g, int d,
-                                       int splits, void* stream) {
+                                       const void* valid_len, void* o,
+                                       void* lse, int b, int w, int kh, int g,
+                                       int d, int splits, void* stream) {
   if (d < 8 || d > MAX_D || d % 8 != 0 || g < 1 || g > MAX_G || w < 1 ||
       splits < 1 || splits > MAX_SPLIT || splits > w)
     return (int)cudaErrorInvalidValue;
   const int* vl = static_cast<const int*>(valid_len);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, vl, o, b, w, kh, g, d, splits, st);
+    return (int)launch<float>(q, k, v, vl, o, ls, b, w, kh, g, d, splits, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, vl, o, b, w, kh, g, d, splits,
-                                      st);
+    return (int)launch<__nv_bfloat16>(q, k, v, vl, o, ls, b, w, kh, g, d,
+                                      splits, st);
   return (int)cudaErrorInvalidValue;
 }

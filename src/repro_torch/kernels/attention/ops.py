@@ -56,8 +56,9 @@ ARGTYPES = {
     # window; stream
     "flash_prefill_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 10
                           + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
-    # dtype; q, k, v, valid_len, o; b, w, kh, g, d, splits; stream
-    "decode_attention": ([ctypes.c_int] + [ctypes.c_void_p] * 5
+    # dtype; q, k, v, valid_len, o, lse (or null); b, w, kh, g, d,
+    # splits; stream
+    "decode_attention": ([ctypes.c_int] + [ctypes.c_void_p] * 6
                          + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
 #: what the card says to a differentiated bf16 attention
@@ -304,13 +305,16 @@ class FlashPrefill(torch.autograd.Function):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
+                     valid_len: torch.Tensor, *, with_lse: bool = False):
     """One query token per (batch, kv head) against a cache.
 
     q: (B, K, G, D); k/v: (B, W, K, D); ``valid_len``: a one-element
     int32 tensor on q's device (on the GPU the kernel reads it there:
     the host never waits for it).  Entries at or past ``valid_len`` are
-    masked.  Returns (B, K, G, D) in q's dtype.
+    masked.  Returns (B, K, G, D) in q's dtype; with ``with_lse``,
+    (that, lse): each row's natural-log log-sum-exp of its scaled scores,
+    (B, K, G) fp32, from the same launch (about -1e30 where
+    ``valid_len`` <= 0).
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or (k.shape[0], k.shape[2], k.shape[3]) != \
@@ -323,7 +327,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: valid_len must be a "
                          "one-element int32 tensor")
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid_len.reshape(()))
+        return decode_attention_ref(q, k, v, valid_len.reshape(()),
+                                    with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")
@@ -339,9 +344,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, K, G, D = q.shape
     W = k.shape[1]
     o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    _KERNELS.launch("decode_attention", q, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), valid_len.data_ptr(), o.data_ptr(), B, W,
-                    K, G, D, decode_splits(B, K, W))
-    return o
+    lse = q.new_empty((B, K, G), dtype=torch.float32) if with_lse else None
+    if o.numel():
+        _KERNELS.launch("decode_attention", q, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), valid_len.data_ptr(), o.data_ptr(),
+                        None if lse is None else lse.data_ptr(), B, W, K, G,
+                        D, decode_splits(B, K, W))
+    return (o, lse) if with_lse else o

@@ -76,17 +76,22 @@ def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         valid_len) -> torch.Tensor:
+                         valid_len, with_lse: bool = False):
     """One query token per (batch, kv-head) against a cache.
 
     q: (B, K, G, D); k/v: (B, W, K, D); ``valid_len``: int or 0-d
     tensor.  Entries at or past ``valid_len`` are masked.  Returns
-    (B, K, G, D).
+    (B, K, G, D); with ``with_lse``, (that, lse): each row's log-sum-exp
+    of its scaled, masked scores, (B, K, G) fp32 (-1e30 where every entry
+    is masked).
     """
     W, D = k.shape[1], q.shape[-1]
     s = torch.einsum("bkgd,bwkd->bkgw", q.float(), k.float()) \
         * (1.0 / math.sqrt(D))
     mask = torch.arange(W, device=q.device) < valid_len
-    w = torch.softmax(s.masked_fill(~mask, NEG), dim=-1)
+    s = s.masked_fill(~mask, NEG)
+    w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkd->bkgd", w.to(v.dtype).float(), v.float())
+    if with_lse:
+        return o.to(q.dtype), torch.logsumexp(s, dim=-1)
     return o.to(q.dtype)

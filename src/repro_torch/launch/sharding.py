@@ -32,7 +32,7 @@ from typing import Any
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
-from ..models.transformer.sharded import _axes, placements
+from ..models.transformer.sharded import _axes, from_local, placements
 from ..training import tree
 
 __all__ = ["P", "param_pspecs", "batch_pspecs", "cache_pspecs",
@@ -248,10 +248,7 @@ def distribute(tree_, specs, mesh) -> Any:
         check_divides(t.shape, spec, mesh)
         places = placements(spec, mesh)
         local = local_shard(t, mesh, places).to(mesh.device_type, copy=True)
-        return DTensor.from_local(local.contiguous(), mesh, places,
-                                  run_check=False, shape=t.shape,
-                                  stride=torch.empty(t.shape,
-                                                     device="meta").stride())
+        return from_local(local.contiguous(), mesh, places, t.shape)
     return tree.map_(place, tree_, specs)
 
 

@@ -28,13 +28,15 @@ leaves them to XLA.
 attention over that axis of a ``torch.distributed`` device mesh
 (``ring_attention.py``).  On DTensor inputs (params placed by
 ``launch.sharding``) the attention core runs on each rank's local shards
-(``sharded.py``, which also holds the MoE and Mamba2 layers' boundaries).
+(``sharded.py``, which also holds the MoE and Mamba2 layers' boundaries),
+and so does ``attention_decode``'s cache write and kernel on a placed
+cache.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -160,6 +162,19 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     return o, {"k": k, "v": v}
 
 
+def _decode_core(backend: str) -> Callable:
+    """``core(q, k, v, valid_len, with_lse=False)``: the
+    ``decode_attention`` kernel (``"cuda"``) or its plain version."""
+    if check_backend(backend) == "torch":
+        return attn_ref.decode_attention_ref
+
+    def core(q, k, v, valid_len, with_lse=False):
+        return attn_ops.decode_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), valid_len,
+                                         with_lse=with_lse)
+    return core
+
+
 def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len: torch.Tensor, *,
                      n_heads: int, n_kv: int, hd: int, rope_theta: float,
@@ -173,28 +188,22 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
     Unlike the reference, which returns new arrays, the new k/v are
     written into ``cache_k``/``cache_v`` in place (no copy of the
     cache per token); they are returned for the reference's signature.
-    Nothing here reads ``cache_len`` on the host.
+    Nothing here reads ``cache_len`` on the host.  On DTensors (params
+    and a cache placed by ``launch.sharding``; ``cache_len`` plain or
+    replicated) the write and the kernel run on local shards
+    (``sharded.decode_attention``).
     """
     if cache_len.dim() != 0:
         raise ValueError("attention_decode: cache_len must be a 0-d tensor "
                          "(one length for the whole batch)")
     B = x.shape[0]
-    W = cache_k.shape[1]
     q, k, v = qkv_project(p, x, n_heads, n_kv, hd)
-    pos = cache_len.reshape(1, 1)
+    pos = sharded.local(cache_len).reshape(1, 1)
     q = rope(q.reshape(B, 1, n_heads, hd), pos, rope_theta) \
         .reshape(B, n_kv, n_heads // n_kv, hd)
     k = rope(k, pos, rope_theta)
-    last = torch.clamp(cache_len, max=W - 1)
-    slot = ((cache_len % W) if sliding_window else last).long().reshape(1)
-    cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
-    valid_len = (last + 1).to(torch.int32)
-    if check_backend(backend) == "torch":
-        o = attn_ref.decode_attention_ref(q, cache_k, cache_v, valid_len)
-    else:
-        o = attn_ops.decode_attention(q.contiguous(), cache_k, cache_v,
-                                      valid_len)
+    o = sharded.decode_attention(_decode_core(backend), q, k, v, cache_k,
+                                 cache_v, cache_len, sliding_window)
     o = o.reshape(B, 1, n_heads * hd) @ p.wo
     return o, cache_k, cache_v
 

@@ -515,36 +515,51 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
     tensors in place (the reference returns new arrays); the returned
     cache holds those same tensors and a new ``len``.  The host never
     reads ``len``: one step queues its work on the card without waiting.
-    """
+
+    Sharding: on params placed by ``launch.sharding.distribute`` the
+    cache must be placed too (by ``cache_pspecs`` in either mode, or as
+    ``prefill`` on placed params returns it), ``len`` plain or
+    replicated; every rank of the mesh calls this, the logits come back
+    as a DTensor and the cache is written in place in its own placements
+    (``sharded.decode_attention``, ``sharded.mamba2_decode``; the MoE
+    layer and the embedding through ``sharded.moe`` and
+    ``sharded.embed``).  Plain params with a placed cache, or the
+    reverse, raise ``ValueError``."""
     check_backend(backend)
+    head = params["head"]
+    sharded.check_cache(head, cache)
     x = _embed(cfg, params, inputs, "token", "embed")[:, None, :]  # (B,1,d)
+    x = sharded.like(x, head) if not sharded.placed(x) else x
     cache_len = cache["len"]
     apply, app_idx = shared_apply_flags(cfg)
     shared = params.get("shared")
+
+    def attend(p, xn, k, v):
+        return attention_decode(p, xn, k, v, cache_len, **_attn_dims(cfg),
+                                backend=backend)[0]
+
     for i, lp in enumerate(_unbind_layers(params)):
+        x = sharded.rows(x)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
-            h, _, _ = attention_decode(
-                lp["attn"], xn, cache["k"][i], cache["v"][i], cache_len,
-                **_attn_dims(cfg), backend=backend)
-            x = x + h
-            x = x + _ffn(cfg, lp, x, backend)
+            x = x + attend(lp["attn"], xn, sharded.layer(cache["k"], i),
+                           sharded.layer(cache["v"], i))
+            x = x + _ffn(cfg, lp, sharded.rows(x), backend)
         else:
-            h, new = mamba2_decode(
-                lp["mamba"], xn, {"conv": cache["conv"][i],
-                                  "ssm": cache["ssm"][i]}, **_ssm_dims(cfg))
-            x = x + h
-            cache["conv"][i] = new["conv"]
-            cache["ssm"][i] = new["ssm"]
+            x = x + sharded.mamba2_decode(
+                mamba2_decode, lp["mamba"], xn,
+                sharded.layer(cache["conv"], i),
+                sharded.layer(cache["ssm"], i), **_ssm_dims(cfg))
         if apply[i]:
             ai = app_idx[i]
-            h, _, _ = attention_decode(
-                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
-                cache["shared_k"][ai], cache["shared_v"][ai], cache_len,
-                **_attn_dims(cfg), backend=backend)
-            x = x + h
+            x = sharded.rows(x)
+            x = x + attend(shared["attn"],
+                           rms_norm(x, shared["ln1"], cfg.norm_eps),
+                           sharded.layer(cache["shared_k"], ai),
+                           sharded.layer(cache["shared_v"], ai))
+            x = sharded.rows(x)
             x = x + mlp(shared["mlp"],
                         rms_norm(x, shared["ln2"], cfg.norm_eps))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mask_padded_vocab(cfg, (x @ params["head"])[:, 0])
+    x = rms_norm(sharded.rows(x), params["final_norm"], cfg.norm_eps)
+    logits = _mask_padded_vocab(cfg, (x @ head)[:, 0])
     return logits, {**cache, "len": cache_len + 1}

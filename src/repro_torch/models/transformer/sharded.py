@@ -36,6 +36,24 @@ that does not divide its axes is replicated, as the rules replicate it):
   concatenation of z, x, B, C and dt, which no local split follows; GSPMD
   gathers there as well).
 
+``decode_step`` on a cache placed by ``cache_pspecs`` (either mode) has
+two more, each taking a layer's slice of the cache (:func:`layer`, a
+DTensor over the stored local shards) and writing it in place:
+
+* :func:`decode_attention`: the new token's k/v written into the local
+  shards first (on the ranks that hold its slot), then the
+  ``decode_attention`` kernel on local shards.  Where W is whole (the
+  ``"feature"`` layout, or the prefill's), the layer's cache is
+  redistributed to the core's placements (batch over the data axes, K
+  over ``model``: with feature mode's head-dim shards an all-to-all of
+  the layer's cache at each step).  Where W is split over ``model``
+  (``"sequence"``), each rank attends over its own W/m entries, with its
+  local valid length, and the ranks' partial outputs combine by their
+  log-sum-exps (:func:`combine`), gathered over the ``model`` sub-group;
+* :func:`mamba2_decode`: the Mamba2 step on this rank's batch rows, the
+  params and the layer's conv/ssm states gathered to whole rows; each
+  rank writes its own shard of the new states back, with no collective.
+
 :func:`like` gives a plain tensor that every rank computes alike (the
 rope tables, the padded-vocab mask) the placement of the DTensor it
 meets; :func:`constrain` is ``with_sharding_constraint``.  ``act_pspec``
@@ -87,6 +105,66 @@ def placements(spec, mesh) -> tuple:
             raise ValueError(f"spec {tuple(spec)!r}: the axes of dim {d} "
                              f"must be in the mesh's order {names}")
     return tuple(out)
+
+
+def check_cache(params_leaf, cache: dict) -> None:
+    """``ValueError`` when params and cache are not both placed: placed
+    params (DTensors) need a cache of DTensors (``len`` may be either), a
+    placed cache needs placed params."""
+    want = placed(params_leaf)
+    for key, t in cache.items():
+        if placed(t) != want and not (want and key == "len"):
+            raise ValueError(
+                f"decode_step: cache[{key!r}] is "
+                f"{'a plain tensor' if want else 'a DTensor'} and the "
+                f"params are {'placed' if want else 'plain tensors'}: "
+                "place both by launch.sharding.distribute, or neither")
+
+
+def placed(t) -> bool:
+    """Whether ``t`` is a DTensor."""
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def from_local(loc: torch.Tensor, mesh, places, shape) -> torch.Tensor:
+    """A DTensor of global ``shape`` (contiguous strides) over this rank's
+    shard ``loc`` (used as it is: no copy, no check)."""
+    return DTensor.from_local(loc, mesh, places, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    """``t[i]``: layer ``i``'s slice of a stacked cache leaf (L, ...).  Of
+    a DTensor, a DTensor over the view ``t.to_local()[i]`` (L is never
+    split), so writes into its local shard write the cache."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    if any(p == Shard(0) for p in t.placements):
+        raise ValueError("a cache's leading (layer) dim is never split")
+    return from_local(t.to_local()[i], t.device_mesh,
+                      [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                       for p in t.placements], t.shape[1:])
+
+
+def grow(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` with ``n`` zero entries appended along ``dim``; a DTensor
+    (``dim`` whole on every rank) grown on its local shard, in its own
+    placements."""
+    def grown(x):
+        room = x.new_zeros((*x.shape[:dim], n, *x.shape[dim + 1:]))
+        return torch.cat([x, room], dim=dim)
+    if not isinstance(t, DTensor):
+        return grown(t)
+    if Shard(dim) in t.placements:
+        raise ValueError(f"grow: dim {dim} is split over the mesh")
+    return from_local(grown(t.to_local()), t.device_mesh, t.placements,
+                      (*t.shape[:dim], t.shape[dim] + n, *t.shape[dim + 1:]))
 
 
 def check_specs(params_leaf, act_pspec, moe_pspec) -> None:
@@ -348,3 +426,167 @@ def mamba2(layer: Callable, p, x, **kw):
         lambda *a: layer(type(p)(*a[:n]), a[n], **kw), mesh,
         [(t, rep_all, p_grads) for t in p] + [(x, x_places, x_places)],
         (x_places, {"conv": x_places, "ssm": x_places}))
+
+
+# ---------------------------------------------------------------------------
+# decode on a placed cache
+# ---------------------------------------------------------------------------
+
+def _shard_start(mesh, places, dim: int, size: int) -> int:
+    """The first index of this rank's shard of a dim that ``places``
+    splits into local pieces of ``size`` (several mesh dims on it: the
+    first outermost, as DTensor splits it)."""
+    coord, idx = mesh.get_coordinate(), 0
+    for i, p in enumerate(places):
+        if p == Shard(dim):
+            idx = idx * mesh.shape[i] + coord[i]
+    return idx * size
+
+
+def _write_slot(cache, new, slot: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` on this rank's shards: cache (B, W, K, D),
+    a DTensor over the stored shards, new (B, 1, K, D) a DTensor too.
+    ``new`` is taken to the cache's placements (W whole); where W is
+    split, the slot is written by the rank that holds it, chosen on the
+    device: every rank writes its local slot's own value back but that
+    one (no host read of ``slot``)."""
+    mesh, places = cache.device_mesh, tuple(cache.placements)
+    loc = cache.to_local()
+    row = new.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                  for p in places]).to_local().to(loc.dtype)
+    if Shard(1) not in places:
+        loc.index_copy_(1, slot, row)
+        return
+    w = loc.shape[1]
+    at = slot - _shard_start(mesh, places, 1, w)
+    own = (at >= 0) & (at < w)
+    at = at.clamp(0, w - 1)
+    loc.index_copy_(1, at, torch.where(own, row, loc.index_select(1, at)))
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` stacked on a new dim 0, in the
+    order of the ranks' coordinates: one ``all_gather`` (a host-staged
+    gloo group copies CUDA tensors through the host itself; plain gloo
+    gets host copies here)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x[None]
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = x.cpu() if host else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(x.device)
+
+
+def combine(os: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The attention over the union of disjoint sets of cache entries from
+    each set's output and log-sum-exp, stacked on dim 0: os (n, ..., D),
+    lses (n, ...).  In fp32, in the sets' order: M = max lse,
+    o = sum e^(lse - M) o / sum e^(lse - M).  A set with no valid entry
+    has lse about -1e30 and weighs 0."""
+    lse = lses.float()
+    w = torch.exp(lse - lse.amax(dim=0))
+    return (w[..., None] * os.float()).sum(0) / w.sum(0)[..., None]
+
+
+def decode_attention(core: Callable, q, k, v, cache_k, cache_v, cache_len,
+                     sliding_window: int):
+    """One decode step's attention: the new token's k/v (B, 1, K, D)
+    written at its slot of ``cache_k``/``cache_v`` (B, W, K, D; the slot
+    ``len`` or, for a sliding window, ``len % W``), then
+    ``core(q, k, v, valid_len, with_lse=...)`` (the ``decode_attention``
+    kernel or its plain version) for q (B, K, G, D) over the first
+    ``min(len, W - 1) + 1`` entries.  Returns (B, K, G, D).
+
+    Plain tensors: written in place, then the core on the whole cache.
+    A placed cache (DTensors, written in place on its local shards):
+
+    * W whole (feature mode, or the prefill's layout): the layer's cache
+      redistributed to the core's placements, batch over the data axes
+      and K over ``model`` where they divide (from feature mode's head-dim
+      shards an all-to-all), q likewise, the core on the local shards;
+    * W split over ``model`` (sequence mode): each rank's core over its
+      W/m entries with the local valid length ``clamp(valid - r W/m, 0,
+      W/m)`` and their lse; the (o, lse) of the ``model`` ranks gathered
+      and combined (:func:`combine`), the same bits on each.
+
+    Nothing reads ``len`` on the host."""
+    W = cache_k.shape[1]
+    n = local(cache_len)
+    last = torch.clamp(n, max=W - 1)
+    slot = ((n % W) if sliding_window else last).long().reshape(1)
+    valid = (last + 1).to(torch.int32)
+    if not isinstance(cache_k, DTensor):
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+        return core(q, cache_k, cache_v, valid)
+    _write_slot(cache_k, k, slot)
+    _write_slot(cache_v, v, slot)
+    mesh = cache_k.device_mesh
+    names = mesh.mesh_dim_names
+    split = [names[i] for i, p in enumerate(cache_k.placements)
+             if p == Shard(1)]
+    rows_ = _batch(mesh, q.shape[0])
+    rep = Replicate()
+    if not split:
+        heads = (Shard(1) if MODEL_AXIS in names
+                 and _split(q.shape[1], mesh, [MODEL_AXIS]) else rep)
+        q_places = _places(mesh, {**rows_, MODEL_AXIS: heads}, rep)
+        kv = _places(mesh, {**rows_, MODEL_AXIS: Shard(2) if heads != rep
+                            else rep}, rep)
+        return _local(lambda q, k, v: core(q, k, v, valid), mesh,
+                      [(q, q_places, q_places), (cache_k, kv, kv),
+                       (cache_v, kv, kv)], q_places)
+    if split != [MODEL_AXIS]:
+        raise ValueError(f"decode_attention: the cache's W is split over "
+                         f"{split}; only {MODEL_AXIS!r} combines")
+    group = mesh.get_group(MODEL_AXIS)
+    w = W // mesh.size(names.index(MODEL_AXIS))
+    mine = (valid - mesh.get_local_rank(MODEL_AXIS) * w).clamp(0, w) \
+        .to(torch.int32)
+    q_places = _places(mesh, rows_, rep)
+    kv = _places(mesh, {**rows_, MODEL_AXIS: Shard(1)}, rep)
+
+    def body(q, k, v):
+        o, lse = core(q, k, v, mine, with_lse=True)
+        parts = _gather(torch.cat([o.float().reshape(-1), lse.reshape(-1)]),
+                        group)
+        os = parts[:, :o.numel()].reshape(-1, *o.shape)
+        return combine(os, parts[:, o.numel():].reshape(-1, *lse.shape)) \
+            .to(o.dtype)
+    return _local(body, mesh, [(q, q_places, q_places), (cache_k, kv, kv),
+                               (cache_v, kv, kv)], q_places)
+
+
+def mamba2_decode(step: Callable, p, x, conv, ssm, **kw):
+    """``step(p, x, {"conv": conv, "ssm": ssm}, **kw)`` (``mamba2_decode``:
+    (out, new states)), its new states written into ``conv``/``ssm`` (a
+    layer's slices of the cache) in place; returns out.  On DTensors: x
+    and both states batch over the data axes and whole over ``model`` (the
+    states' feature shards gathered), the params gathered over ``model``,
+    the step on this rank's rows; each rank then writes its own shards of
+    the new states (taking a shard of a whole row moves nothing)."""
+    if not isinstance(x, DTensor):
+        out, new = step(p, x, {"conv": conv, "ssm": ssm}, **kw)
+        conv.copy_(new["conv"])
+        ssm.copy_(new["ssm"])
+        return out
+    mesh = x.device_mesh
+    rep = Replicate()
+    x_places = _places(mesh, _batch(mesh, x.shape[0]), rep)
+    rep_all = _places(mesh, {}, rep)
+    n = len(p)
+
+    def body(*a):
+        out, new = step(type(p)(*a[:n]), a[n],
+                        {"conv": a[n + 1], "ssm": a[n + 2]}, **kw)
+        return out, new["conv"], new["ssm"]
+    out, new_conv, new_ssm = _local(
+        body, mesh, [(t, rep_all, rep_all) for t in p]
+        + [(t, x_places, x_places) for t in (x, conv, ssm)],
+        (x_places, x_places, x_places))
+    for c, t in ((conv, new_conv), (ssm, new_ssm)):
+        c.to_local().copy_(t.redistribute(mesh, c.placements).to_local())
+    return out

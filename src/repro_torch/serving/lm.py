@@ -2,7 +2,13 @@
 
 The JAX package jits ``decode_step``; here :class:`Decoder` replays it
 from a CUDA graph on a CUDA device (:mod:`repro_torch.exec.graph`), and
-runs it eagerly on the CPU.
+runs it eagerly on the CPU and on placed params.
+
+Params placed by ``launch.sharding.distribute`` serve as they are, as
+the reference's jitted ``generate`` takes sharded params through GSPMD:
+every rank of the mesh calls :func:`generate` with the same prompt, the
+cache keeps the placements ``prefill`` gives it, and the tokens come
+back as a DTensor.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ import torch
 
 from ..exec import graph as cuda_graph
 from ..models.transformer import model as M
+from ..models.transformer import sharded
 from ..models.transformer.config import ArchConfig
 
 
@@ -24,6 +31,8 @@ def prefill_prompt(cfg: ArchConfig, params, prompt: torch.Tensor,
     layers and of a hybrid's shared-block sites grow; a sliding-window
     cache is a ring buffer and keeps its size, and a Mamba2 cache (conv
     and ssm states) has none to grow.
+    On placed params the cache's tensors are DTensors, each grown on its
+    local shards in its own placements (``sharded.grow``).
     Returns (the prefill's last logits, the cache).
     """
     key = "tokens" if cfg.input_mode == "tokens" else "embeds"
@@ -32,9 +41,7 @@ def prefill_prompt(cfg: ArchConfig, params, prompt: torch.Tensor,
     if not cfg.sliding_window:
         for key in ("k", "v", "shared_k", "shared_v"):
             if key in cache:
-                c = cache[key]
-                room = c.new_zeros((*c.shape[:2], n_new + 1, *c.shape[3:]))
-                cache[key] = torch.cat([c, room], dim=2)
+                cache[key] = sharded.grow(cache[key], 2, n_new + 1)
     return logits, cache
 
 
@@ -52,13 +59,18 @@ class Decoder:
     replays the graph.  The logits of a replay are the graph's own
     tensor, which the next call overwrites.  No step reads a device
     value on the host.
+
+    On params placed by ``launch.sharding.distribute`` (DTensors: chosen
+    by the params' type) every step runs eagerly: a sharded step's
+    collectives may stage through the host (gloo), which a CUDA graph
+    cannot capture, so none is tried.
     """
 
     def __init__(self, cfg: ArchConfig, params, cache: dict,
                  backend: str = "cuda", capture: bool = True):
         self.cfg, self.params, self.backend = cfg, params, backend
         self.cache = {**cache, "len": cache["len"].clone()}
-        self.capture = capture
+        self.capture = capture and not sharded.placed(params["head"])
         self.graph: cuda_graph.Graph | None = None
         self.key = "token" if cfg.input_mode == "tokens" else "embed"
 
@@ -93,6 +105,13 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
     generator on the prompt's device seeded with 0).  The loop never
     reads a token on the host.
 
+    On placed params (every rank of the mesh calls this with the same
+    prompt) the decode steps run eagerly (:class:`Decoder`), the argmax
+    and the sampling read each row's whole vocab (gathered over
+    ``model``; a sampled draw over the whole batch on every rank, so the
+    ranks draw alike and as one device would), and the tokens are a
+    DTensor.
+
     A config with ``input_mode == "embeds"`` has no token loop (each
     step's input is an embedding from a frontend the repo stubs): it
     raises ``ValueError``; drive its ``prefill_prompt`` and
@@ -106,16 +125,19 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int,
         raise ValueError("prompt must have at least 2 tokens")
     _, cache = prefill_prompt(cfg, params, prompt, n_new, backend)
     if temperature > 0 and generator is None:
-        generator = torch.Generator(device=prompt.device).manual_seed(0)
+        generator = torch.Generator(
+            device=sharded.local(prompt).device).manual_seed(0)
     decoder = Decoder(cfg, params, cache, backend, capture=n_new > 1)
     tok = prompt[:, -1].long()
     toks = []
     for _ in range(n_new):
         logits = decoder(tok)
         if temperature > 0:
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            probs = torch.softmax(sharded.local(sharded.replicated(
+                logits)).float() / temperature, dim=-1)
+            tok = sharded.like(torch.multinomial(
+                probs, 1, generator=generator)[:, 0], logits)
         else:
-            tok = logits.argmax(dim=-1)
+            tok = sharded.replicate_dim(logits, -1).argmax(dim=-1)
         toks.append(tok)
     return torch.stack(toks, dim=1).to(torch.int32)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Any
 
 import torch
 
@@ -25,6 +26,8 @@ class TrainReport:
     #: each step's host-clock seconds, batch drawn to loss read (the read
     #: waits for the device)
     step_s: list[float] = field(default_factory=list)
+    #: the params after the last step
+    params: Any = None
 
     @property
     def final_loss(self) -> float:
@@ -62,6 +65,7 @@ def train(cfg: ArchConfig, steps: int = 100, batch: int = 8, seq: int = 128,
                   flush=True)
     rep.steps = steps
     rep.wall_s = time.time() - t0
+    rep.params = params
     if ckpt_path:
         checkpoint.save(Path(ckpt_path), params)
     return rep

@@ -25,10 +25,18 @@ def free_port() -> int:
 
 
 def _rank_main(body, rank, world, port, backend, results, args):
+    import os
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
+        if backend is None:
+            # torchrun's environment: the body starts the group itself
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                              LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                              MASTER_PORT=str(port))
+            results.put((rank, True, body(rank, world, *args)))
+            return
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=RUN_TIMEOUT_S))
@@ -44,7 +52,10 @@ def _rank_main(body, rank, world, port, backend, results, args):
 def run_ranks(body, world: int, *args, backend: str = "gloo",
               timeout: float = RUN_TIMEOUT_S) -> list:
     """``body(rank, world, *args)`` in ``world`` spawned ranks of one
-    process group (``backend``, ``tcp://localhost`` on a free port);
+    process group (``backend``, ``tcp://localhost`` on a free port;
+    ``backend=None``: no group, but torchrun's environment variables,
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``, for a body that starts the group itself);
     returns each rank's result, by rank.  A rank that raises fails the
     run with its traceback, one that dies with no result with its exit
     code; past ``timeout`` seconds (a P2P deadlock) every rank is killed
@@ -532,4 +543,152 @@ def body_cuda_shard(rank, world, cfg, tokens):
         loss1, grads1 = loss_and_grads(cfg, params, batch)
         res["one"] = (float(loss1), [g.cpu().numpy()
                                      for g in tree.leaves(grads1)])
+    return res
+
+
+# -- sharded decode: decode_step on a placed cache ----------------------------
+
+def body_shard_decode(rank, world, cases, modes, gen):
+    """The 4-rank CPU run of ``decode_step`` on placed params and a placed
+    cache, a (2, 2) ("data", "model") mesh of host-staged gloo sub-groups
+    (``launch.mesh.HostGloo``, as a CUDA mesh over gloo gets).  ``cases``:
+    {name: (cfg, numpy params tree, numpy cache, fed tokens (B, n))}; for
+    each case and each of ``modes`` the params placed by ``param_pspecs``,
+    the cache by ``cache_pspecs(mode)``, n teacher-forced steps, each
+    step's logits and cache gathered, whether the cache came back as the
+    same tensors in the same placements, and its k (or conv)
+    placements.  ``gen`` (a case name, a prompt, new tokens): ``generate``
+    on that case's placed params (the tokens gathered), whether its
+    ``Decoder`` kept from capturing, and the messages of the mixed-input
+    ``ValueError``s."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    axes = ("data", "model")
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=axes,
+                            backend_override=mesh_mod.host_staged(axes))
+    out = {}
+    with torch.no_grad():
+        for name, (cfg, ptree, cache_np, fed) in cases.items():
+            plain = M.params_from_numpy(cfg, ptree, device="cpu")
+            params = S.distribute(plain, S.param_pspecs(cfg, plain, mesh),
+                                  mesh)
+            for mode in modes:
+                cache = {k: torch.as_tensor(v) for k, v in cache_np.items()}
+                cache = S.distribute(cache, S.cache_pspecs(
+                    cfg, cache, mesh, ("data",), mode), mesh)
+                places = {k: tuple(t.placements) for k, t in cache.items()}
+                steps, in_place = [], True
+                for t in range(fed.shape[1]):
+                    logits, new = M.decode_step(
+                        cfg, params, cache,
+                        {"token": torch.as_tensor(fed[:, t])})
+                    in_place = in_place and all(
+                        new[k] is cache[k] for k in cache if k != "len") \
+                        and all(tuple(new[k].placements) == places[k]
+                                for k in new)
+                    cache = new
+                    steps.append({"logits": S.full(logits).numpy(),
+                                  "cache": {k: S.full(v).numpy()
+                                            for k, v in cache.items()}})
+                out[name, mode] = {"steps": steps, "in_place": in_place,
+                                   "places": {k: [str(p) for p in v]
+                                              for k, v in places.items()},
+                                   "len": type(cache["len"]).__name__}
+        name, prompt, n_new = gen
+        cfg, ptree, cache_np, _ = cases[name]
+        plain = M.params_from_numpy(cfg, ptree, device="cpu")
+        params = S.distribute(plain, S.param_pspecs(cfg, plain, mesh), mesh)
+        toks = lm.generate(cfg, params, torch.as_tensor(prompt), n_new)
+        _, cache = lm.prefill_prompt(cfg, params, torch.as_tensor(prompt),
+                                     n_new)
+        decoder = lm.Decoder(cfg, params, cache)
+        decoder(torch.as_tensor(prompt[:, -1]).long())
+        plain_cache = {k: torch.as_tensor(v) for k, v in cache_np.items()}
+        placed_cache = S.distribute(plain_cache, S.cache_pspecs(
+            cfg, plain_cache, mesh, ("data",)), mesh)
+        token = {"token": torch.as_tensor(prompt[:, -1])}
+        out["generate"] = {
+            "tokens": S.full(toks).numpy(), "type": type(toks).__name__,
+            "captured": (decoder.capture, decoder.graph is not None),
+            "cache": {k: [str(p) for p in getattr(t, "placements", ())]
+                      for k, t in cache.items()},
+            "mixed": [_raised(lambda: M.decode_step(cfg, plain, placed_cache,
+                                                    token)),
+                      _raised(lambda: M.decode_step(cfg, params, plain_cache,
+                                                    token))]}
+    out["collectives"] = dict(mesh_mod.COLLECTIVES)
+    return out
+
+
+# -- the train launcher under torchrun's environment --------------------------
+
+def body_launch_train(rank, world, argv):
+    """A rank that ``torchrun`` would start (its environment set by
+    ``run_ranks(backend=None)``): ``launch.train.main(argv)``, which
+    starts and ends the process group.  Returns the losses and whether
+    the final params are in their ``param_pspecs`` placements."""
+    from repro_torch import configs
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import train
+    from repro_torch.training import tree
+
+    rep = train.main(argv)
+    leaves = tree.leaves(rep.params)
+    mesh = leaves[0].device_mesh
+    cfg = configs.get("llama3.2-1b").reduced(n_layers=2, d_model=128)
+    specs = S.param_pspecs(cfg, rep.params, mesh)
+    return {"losses": rep.losses,
+            "placed": all(tuple(t.placements) == S.placements(s, mesh)
+                          for t, s in zip(leaves, tree.leaves(specs))),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+
+def body_cuda_sdecode(rank, world, cfg, toks, steps):
+    """Gloo ranks on ``cuda:0``, a (1, world) ("data", "model") mesh: the
+    reduced Llama's ``prefill_prompt`` cache (one process, the kernel
+    path) placed by ``cache_pspecs`` in each mode, ``steps`` decode steps
+    through the ``decode_attention`` kernel on local shards, each step's
+    logits gathered and launches counted; rank 0 also runs the
+    one-process kernel path's steps."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serving import lm
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    prompt = torch.as_tensor(toks, device="cuda")
+    placed = S.distribute(params, S.param_pspecs(cfg, params, mesh), mesh)
+    res = {}
+    with torch.no_grad():
+        _, cache0 = lm.prefill_prompt(cfg, params, prompt, steps)
+        feed = prompt[:, -1].long()
+        for mode in ("feature", "sequence", None):
+            cache = {k: v.clone() for k, v in cache0.items()}
+            if mode is not None:
+                cache = S.distribute(cache, S.cache_pspecs(
+                    cfg, cache, mesh, ("data",), mode), mesh)
+            elif rank:
+                break
+            out, launches = [], []
+            for _ in range(steps):
+                attn_ops.reset_launches()
+                logits, cache = M.decode_step(
+                    cfg, placed if mode else params, cache, {"token": feed})
+                torch.cuda.synchronize()
+                launches.append(attn_ops.launch_count("decode_attention"))
+                out.append(S.full(logits).cpu().numpy())
+            res[mode or "one"] = {"logits": out, "launches": launches,
+                                  "places": [str(p) for p in getattr(
+                                      cache["k"], "placements", ())]}
     return res

@@ -49,8 +49,8 @@ from _torch_cases import (CONV_CASE_PLANS, CONV_CASES, CONV_PLAN_CASES,
                           decode_inputs, image, lm_config, lm_tokens,
                           moe_gemm_inputs, np_params, prefill_inputs,
                           ssd_inputs)
-from _torch_mesh_ranks import (body_cuda_ring, body_cuda_shard,
-                               body_cuda_two, run_ranks)
+from _torch_mesh_ranks import (body_cuda_ring, body_cuda_sdecode,
+                               body_cuda_shard, body_cuda_two, run_ranks)
 
 
 @pytest.fixture
@@ -1216,3 +1216,55 @@ def test_sharded_loss_and_grads_two_gloo_ranks_on_one_card(cuda):
             assert np.array_equal(g, g0)
             err = np.abs(g - w).max()
             assert err <= 5e-5 * np.abs(w).max(), (err, np.abs(w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid_len", [0, 1, 240, 272])
+def test_decode_lse_matches_plain_version(valid_len, dtype, cuda):
+    """``decode_attention(..., with_lse=True)`` at a sharded decode's local
+    shard (q (2, 4, 4, 64), 272 entries): one launch, the output within
+    the attention band and each row's lse within 1e-5 x max(1, |ref|) of
+    the plain version's (about -1e30 with no valid entry), the same bits
+    on a second call."""
+    q, kk, vv = (_t(a, cuda).to(dtype)
+                 for a in decode_inputs(2, 4, 4, 64, 272))
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=cuda)
+    before = attn_ops.launch_count("decode_attention")
+    got, lse = attn_ops.decode_attention(q, kk, vv, vl, with_lse=True)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count("decode_attention") == before + 1
+    want, want_lse = attn_ref.decode_attention_ref(q, kk, vv, vl,
+                                                   with_lse=True)
+    _assert_attn_close(got, want, dtype)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 4)
+    assert ((lse - want_lse).abs()
+            <= 1e-5 * want_lse.abs().clamp_min(1)).all()
+    again, lse2 = attn_ops.decode_attention(q, kk, vv, vl, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_sharded_decode_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks on cuda:0, a (1, 2) ("data", "model") mesh, the
+    reduced Llama (2 layers, d 128): the kernel path's prefill cache
+    placed by ``cache_pspecs`` in feature mode (head dim split; an
+    all-to-all to the kernel's kv heads) and in sequence mode (W split;
+    each rank's kernel with the lse output, the halves combined), 3
+    decode steps: two ``decode_attention`` launches a step a rank, the
+    logits on both ranks bit-equal and within 1e-4 x max|ref| of the
+    one-process kernel path."""
+    cfg = configs.get("llama3.2-1b").reduced(n_layers=2, d_model=128)
+    # 8 prefilled tokens and room for 4: W 12, shards of 6
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9))
+    res = run_ranks(body_cuda_sdecode, 2, cfg, toks, 3)
+    want = res[0]["one"]["logits"]
+    for mode, split in (("feature", "S(4)"), ("sequence", "S(2)")):
+        for r in res:
+            got = r[mode]
+            assert got["places"][1] == split       # the model axis's
+            assert got["launches"] == [cfg.n_layers] * 3
+            for a, b, w in zip(got["logits"], res[0][mode]["logits"], want):
+                assert np.array_equal(a, b)
+                assert np.abs(a - w).max() <= 1e-4 * np.abs(w).max()
