@@ -329,7 +329,23 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    (``CommDebugMode``) and path, ms a step beside the one-process path,
    each rank's peak memory, seconds by part, the phase's wall, each
    beside the card's name and power limit;
-11. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+11. the launch tooling, in a subprocess under 60 s (``--launch-tools``):
+   (a) ``launch.dryrun.run_combo`` of Llama-3.2-1B x decode_32k,
+   prefill_32k and train_4k at pod1, each on fake cuda tensors over a
+   fake process group of 256 ranks, printing its roofline terms at the
+   H100's peaks, dominant term, memory a device, useful-FLOPs ratio and
+   seconds; decode_32k's census (FLOPs, bytes, collectives by kind)
+   equal to ``DRYRUN_PIN``, the CPU tests' numbers under another torch;
+   (b) the census of a real one-device Llama-3.2-1B prefill at (4, 511),
+   fp32 and bf16, kernels, against the same call's census on fake cuda
+   tensors: FLOPs, bytes and calls by entry equal, ``flash_prefill``'s
+   16 entries each its ``ops.flash_prefill_work`` (phase 3's bound
+   inputs), the call's device ms (``torch.profiler``) beside the
+   census's roofline bound, and the fake run's temp bytes beside the
+   card's peak; (c) ``launch.profile``'s listings of (a)'s decode census
+   and ``launch.report``'s two tables over (a)'s records; each line
+   beside the card's name and power limit;
+12. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
    in-process plan CLI, flash_prefill's those of Llama's fp32 generate
    and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
@@ -364,10 +380,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_FLOPS = {"float32": 67e12,        # fp32 FMA, outside the tensor cores
-              "bfloat16": 989e12}      # bf16 tensor cores
-HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 1e-4      # x max(1, max|ref|): fp32 sums in another order
 # bf16, per element: |y - ref| <= BF16_TOL x (|ref| + rms(ref)).  The
 # |ref| term is the output's own rounding (one bf16 ulp is at most 2^-7
@@ -545,6 +557,24 @@ SDEC_LAUNCH_ARGV = ["--arch", SDEC_LAUNCH_ARCH, "--steps",
                     "--seq", str(SDEC_PROMPT[1])]
 
 
+# phase 11: the launch tooling (launch/dryrun.py, hlo_analysis.py,
+# roofline.py, profile.py, report.py), in a subprocess of its own under
+# LAUNCH_S seconds.  (a) the dry run of these combos at pod1 (a fake group
+# of 256 ranks, fake cuda tensors); Llama-3.2-1B x decode_32k's census
+# held to DRYRUN_PIN, the CPU tests' numbers (tests/test_torch_dryrun.py
+# holds torch on the CPU to them); (b) the census of a real one-device
+# prefill of LAUNCH_PROMPT against the same call's on fake cuda tensors;
+# (c) profile and report over (a)
+LAUNCH_S = 60
+LAUNCH_COMBOS = [("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "prefill_32k"),
+                 ("llama3.2-1b", "train_4k")]
+DRYRUN_PIN = {"flops": 35596009472.0, "bytes": 34585613816.0,
+              "coll": {"bytes": {"all-reduce": 1081344.0,
+                                 "all-gather": 8590721024.0},
+                       "counts": {"all-reduce": 33.0, "all-gather": 80.0}}}
+LAUNCH_PROMPT = (4, 511)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -623,7 +653,9 @@ def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
-    """The card's least time for the work, and which side bounds it."""
+    """The card's least time for the work, and which side bounds it, at
+    the H100 SXM's published peaks (``launch/roofline.py``)."""
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, PEAK_FLOPS
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return dict(t_ops_ms=t_ops * 1e3, t_bytes_ms=t_bytes * 1e3,
@@ -756,8 +788,6 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
     dev = (device_ms(lambda: ops.flash_prefill(q, kk, vv,
                                                sliding_window=window)),
            device_ms(sdpa))
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-    nbytes = 2 * (q.numel() + kk.numel()) * q.element_size()  # q, k, v, o
     return dict(kernel="flash_prefill", desc=f"q{tuple(shape)} w{window} "
                 + _prefill_plan_text(pl)
                 + ("" if same else " NOT BIT-REPRODUCIBLE")
@@ -767,7 +797,9 @@ def prefill_case(shape, window, dtype_name, seed=0) -> dict:
                 ok=ok and same and same_layout,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
-                **bound(4.0 * b * k * g * d * pairs, nbytes, dtype_name))
+                **bound(*ops.flash_prefill_work(shape, window,
+                                                q.element_size()),
+                        dtype_name))
 
 
 def decode_case(q_shape, w, valid_len, dtype_name, seed=0,
@@ -819,9 +851,6 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0,
     library_ms = time_ms(sdpa)
     dev = (device_ms(lambda: ops.decode_attention(q, kk, vv, vl, **kw)),
            device_ms(sdpa))
-    live = min(valid_len, w) if valid_len > 0 else w   # entries read
-    nbytes = (2 * q.numel() + 2 * b * live * k * d) * q.element_size() + 4 \
-        + (4 * b * k * g if lse else 0)
     splits = ops.decode_splits(b, k, w)
     return dict(kernel="decode_attention",
                 desc=f"q{tuple(q_shape)} W{w} vl{valid_len} S{splits}"
@@ -833,7 +862,9 @@ def decode_case(q_shape, w, valid_len, dtype_name, seed=0,
                 per_call=0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, dev_ms=dev[0],
                 library_dev_ms=dev[1],
-                **bound(4.0 * b * k * g * d * live, nbytes, dtype_name))
+                **bound(*ops.decode_attention_work(
+                    q_shape, w, q.element_size(), valid_len, with_lse=lse),
+                    dtype_name))
 
 
 def ssd_case(shape, dtype_name, seed=0) -> dict:
@@ -876,12 +907,6 @@ def ssd_case(shape, dtype_name, seed=0) -> dict:
     ms = time_ms(lambda: ops.ssd_chunk(x, dt, A, Bm, Cm))
     plain_ms = time_ms(lambda: ref.ssd_chunk_ref(x, dt, A, Bm, Cm))
     dev = device_ms(lambda: ops.ssd_chunk(x, dt, A, Bm, Cm))
-    pairs = q * (q + 1) // 2          # causal (i, j) pairs of a chunk
-    flops = (2.0 * bc * pairs * n          # C B^T, once per chunk
-             + 2.0 * bc * h * pairs * p    # M @ x
-             + 2.0 * bc * h * q * p * n)   # the state
-    nbytes = (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
-              + st.numel()) * x.element_size()
     return dict(kernel="ssd_chunk",
                 desc=f"(BC,Q,H,P,N){tuple(shape)} G{pl.g} G'{pl.gs} "
                 f"TQ{ops.TQ} TJ{ops.TJ} NS{ops.NS} grid{pl.grid}"
@@ -892,7 +917,9 @@ def ssd_case(shape, dtype_name, seed=0) -> dict:
                 ok=all(c[2] for c in checks) and same and same_layout,
                 per_call=0, ms=ms,
                 plain_ms=plain_ms, library_ms=None, dev_ms=dev,
-                library_dev_ms=None, **bound(flops, nbytes, dtype_name))
+                library_dev_ms=None,
+                **bound(*ops.ssd_chunk_work(bc, q, h, p, n,
+                                            x.element_size()), dtype_name))
 
 
 def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
@@ -921,13 +948,12 @@ def moe_case(x_shape, f, dtype_name, seed=0) -> dict:
     library_ms = time_ms(lambda: torch.bmm(x, w))
     dev = (device_ms(lambda: ops.moe_gemm(x, w)),
            device_ms(lambda: torch.bmm(x, w)))
-    nbytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
     return dict(kernel="moe_gemm", desc=f"x{tuple(x_shape)} F{f} {variant}"
                 + ("" if same else " NOT BIT-REPRODUCIBLE"), variant=variant,
                 dtype=dtype_name, err=err, of_limit=of_limit, ok=ok and same,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
-                **bound(2.0 * e * c * d * f, nbytes, dtype_name))
+                **bound(*ops.work(e, c, d, f, x.element_size()), dtype_name))
 
 
 def _print_cases(cases) -> None:
@@ -1928,8 +1954,6 @@ def bwd_case(shape, window, seed=0) -> dict:
                                                          window), iters=5)
     library_ms = time_ms(sdpa_bwd)
     dev = (device_ms(kernel), device_ms(sdpa_bwd))
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-    nbytes = 4 * 4 * (q.numel() + kk.numel())   # q o do dq, k v dk dv
     del out
     return dict(kernel="flash_prefill_bwd", desc=f"q{tuple(shape)} w{window}"
                 + ("" if same else " NOT BIT-REPRODUCIBLE"),
@@ -1937,7 +1961,8 @@ def bwd_case(shape, window, seed=0) -> dict:
                 of_limit=of_limit, ok=of_limit <= 1.0 and same and finite,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
-                **bound(10.0 * b * k * g * d * pairs, nbytes, "float32"))
+                **bound(*ops.flash_prefill_bwd_work(shape, window),
+                        "float32"))
 
 
 def moe_bwd_case(shape, seed=0) -> dict:
@@ -1990,7 +2015,6 @@ def moe_bwd_case(shape, seed=0) -> dict:
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
     dev = (device_ms(kernel), device_ms(library))
-    nbytes = 4 * (2 * x.numel() + 2 * w.numel() + dy.numel())
     del y, y_ref, got, again, want
     return dict(kernel="moe_gemm", desc=f"backward x{tuple(shape[:3])} "
                 f"F{f} dx {plans[0]}, dw {plans[1]}"
@@ -2001,7 +2025,7 @@ def moe_bwd_case(shape, seed=0) -> dict:
                 ok=all(r[2] for r in checks) and same and as_planned,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 dev_ms=dev[0], library_dev_ms=dev[1],
-                **bound(4.0 * e * c * d * f, nbytes, "float32"))
+                **bound(*ops.bwd_work(e, c, d, f), "float32"))
 
 
 def ssd_bwd_case(shape, overflow=False, seed=0) -> dict:
@@ -2082,10 +2106,6 @@ def ssd_bwd_case(shape, overflow=False, seed=0) -> dict:
     dev = device_ms(lambda: ops.ssd_chunk_bwd(*args, dy, dst))
     kernel_dev = device_ms(launch)
     finish_dev = device_ms(lambda: ops.bwd_finish(dt, A, *part, *dbc))
-    pairs = q * (q + 1) // 2
-    flops = bc * (4.0 * pairs * p * h + 6.0 * pairs * n + 4.0 * q * p * n * h)
-    nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel()
-                  + 4 * Bm.numel() + dst.numel())
     return dict(kernel="ssd_chunk_bwd",
                 desc=f"(BC,Q,H,P,N){tuple(shape)}"
                 + (f" A=-1 cum_last {cum_last.max().item():.0f}.."
@@ -2102,7 +2122,8 @@ def ssd_bwd_case(shape, overflow=False, seed=0) -> dict:
                 and launched == 1,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 dev_ms=dev, library_dev_ms=None, kernel_dev_ms=kernel_dev,
-                finish_dev_ms=finish_dev, **bound(flops, nbytes, "float32"))
+                finish_dev_ms=finish_dev,
+                **bound(*ops.ssd_chunk_bwd_work(bc, q, h, p, n), "float32"))
 
 
 @contextlib.contextmanager
@@ -4786,6 +4807,7 @@ def run_cnn_tuned(model, cluster, dep, frames, ref_t) -> None:
     import torch
     import repro_torch
     from repro_torch.api import deployment as deployment_mod
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.api.specs import ExecSpec, PlanSpec
     from repro_torch.core import planner as planner_mod
     from repro_torch.exec import autotune, calibrate
@@ -6195,6 +6217,182 @@ def run_cnn() -> dict:
     }
 
 
+def _launch_records(out_dir, card: str) -> list[dict]:
+    """Phase 11 (a): each LAUNCH_COMBOS combo's dry run on fake cuda
+    tensors, its roofline terms, memory a device, useful FLOPs and
+    seconds; Llama's decode census against DRYRUN_PIN."""
+    from pathlib import Path as _P
+    from repro_torch.launch import dryrun
+    recs = []
+    for arch, shape in LAUNCH_COMBOS:
+        rec = dryrun.run_combo(arch, shape, False, _P(out_dir), force=True,
+                               save_census=True, device="cuda")
+        if not rec["ok"]:
+            print(rec["traceback"], file=sys.stderr)
+            fail(f"launch: dry run of {arch} {shape} failed: "
+                 f"{rec['error']}")
+        ro, mem = rec["roofline"], rec["memory"]
+        print(f"[launch] (a) {arch} {shape} pod1 ({rec['n_devices']} fake "
+              f"ranks, {ro['dtype']}): compute {ro['compute_s']:.3e} s, "
+              f"memory {ro['memory_s']:.3e} s, collective "
+              f"{ro['collective_s']:.3e} s, dominant {ro['dominant']}; a "
+              f"device: {ro['flops']:.4g} FLOPs, {ro['bytes_accessed']:.4g} "
+              f"bytes, {ro['coll_bytes']:.4g} collective bytes "
+              f"{ro['coll_breakdown']['counts']}, arguments "
+              f"{mem['argument_bytes'] / 2**30:.2f} GiB, temp "
+              f"{mem['temp_bytes'] / 2**30:.2f} GiB, output "
+              f"{mem['output_bytes'] / 2**30:.2f} GiB; useful FLOPs "
+              f"{rec['useful_flops_ratio']:.4f}; wall {rec['wall_s']} s "
+              f"(inputs {rec['lower_s']} s, step {rec['compile_s']} s); "
+              f"H100 peaks, {card}")
+        recs.append(rec)
+    ro = recs[0]["roofline"]
+    got = {"flops": ro["flops"], "bytes": ro["bytes_accessed"],
+           "coll": ro["coll_breakdown"]}
+    print(f"[launch] (a) {' '.join(LAUNCH_COMBOS[0])} census, torch "
+          f"{__import__('torch').__version__}: {got} "
+          f"({'equal' if got == DRYRUN_PIN else 'DIFFERS from'} the CPU "
+          f"tests' {DRYRUN_PIN})")
+    if got != DRYRUN_PIN:
+        fail(f"launch: the census of {LAUNCH_COMBOS[0]} differs from the "
+             f"CPU tests'")
+    return recs
+
+
+def _launch_census(card: str) -> None:
+    """Phase 11 (b): a real one-device prefill of Llama-3.2-1B at
+    LAUNCH_PROMPT (fp32, bf16; kernels) under the census, against the
+    same call's census on fake cuda tensors; the roofline bound's share
+    of the measured device time; the fake run's temp bytes beside the
+    card's peak."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch.hlo_analysis import Census, mem_tracker
+    from repro_torch.launch.roofline import of_census
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import tree
+
+    cfg = configs.get(LM_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg, gen, device="cuda", dtype=dtype)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, LAUNCH_PROMPT,
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+
+        def call(p=params, b=batch):
+            with torch.no_grad():
+                return M.prefill(cfg, p, b, backend="cuda")
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with Census() as real:
+            call()
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        mode = FakeTensorMode()
+        with mode:
+            fparams = M.init_params(cfg, torch.Generator(device="cpu"),
+                                    device="cuda", dtype=dtype)
+            fbatch = {"tokens": torch.empty(LAUNCH_PROMPT, dtype=torch.int32,
+                                            device="cuda")}
+        tracker = mem_tracker()
+        args = tree.leaves(fparams) + [fbatch["tokens"]]
+        tracker.track_external(*args)
+        with mode, tracker, Census() as fake:
+            call(fparams, fbatch)
+        peak = max((v.get("Total", 0) for d, v in tracker.get_tracker_snapshot(
+            "peak").items() if torch.device(d).type == "cuda"), default=0)
+        arg_bytes = sum(t.numel() * t.element_size() for t in args)
+        r, f = real.census, fake.census
+        mults = ({k: e["mult"] for k, e in r.by_computation.items()},
+                 {k: e["mult"] for k, e in f.by_computation.items()})
+        equal = (r.flops == f.flops and r.hbm_bytes == f.hbm_bytes
+                 and mults[0] == mults[1])
+        b, s = LAUNCH_PROMPT
+        q_shape = (b, s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.hd)
+        work = attn_ops.flash_prefill_work(q_shape, 0, params["head"]
+                                           .element_size())
+        e = f.by_computation.get("flash_prefill", {})
+        flash_ok = (e.get("mult"), e.get("flops"), e.get("hbm_bytes")) == (
+            cfg.n_layers, cfg.n_layers * work[0], cfg.n_layers * work[1])
+        roof = of_census(r, name)
+        ms = device_ms(call, iters=5)
+        bound_ms = roof.bound_s * 1e3
+        print(f"[launch] (b) {LM_ARCH} prefill {LAUNCH_PROMPT} {name}, "
+              f"kernels: real census {r.flops:.6g} FLOPs, {r.hbm_bytes:.6g} "
+              f"bytes, {sum(mults[0].values())} calls in "
+              f"{len(mults[0])} entries; fake cuda census {f.flops:.6g} "
+              f"FLOPs, {f.hbm_bytes:.6g} bytes: "
+              f"{'equal' if equal else 'DIFFER'}; flash_prefill "
+              f"{e.get('mult')} calls of {work[0]:.6g} FLOPs, {work[1]} "
+              f"bytes (phase 3's bound inputs at q{q_shape}): "
+              f"{'equal' if flash_ok else 'DIFFER'}; device "
+              f"{ms:.3f} ms, roofline bound {bound_ms:.3f} ms "
+              f"({roof.dominant}), {100 * bound_ms / ms:.1f}% of it; temp "
+              f"bytes (fake) "
+              f"{(peak - arg_bytes) / 2**20:.1f} MiB beside the card's peak "
+              f"{card_peak / 2**20:.1f} MiB above the arguments; {card}")
+        if not equal:
+            diff = {k: (r.by_computation.get(k), f.by_computation.get(k))
+                    for k in set(mults[0]) | set(mults[1])
+                    if r.by_computation.get(k) != f.by_computation.get(k)}
+            fail(f"launch: the real and the fake census differ: {diff}")
+        if not flash_ok:
+            fail(f"launch: flash_prefill's census entry {e} is not "
+                 f"{cfg.n_layers} x {work}")
+        del params, batch, fparams
+        torch.cuda.empty_cache()
+
+
+def _launch_tools(out_dir: str) -> None:
+    """Phase 11 (c): profile's listings of (a)'s decode census and the
+    report's two tables over (a)'s records."""
+    from pathlib import Path as _P
+    from repro_torch.launch import profile, report
+    census = _P(out_dir) / ("__".join(LAUNCH_COMBOS[0]) + "__pod1"
+                            ".census.json.gz")
+    for line in profile.listing(profile.load(census), top=5).splitlines():
+        print(f"[launch] (c) profile: {line}")
+    recs = report.load(out_dir)
+    for kind, table in (("roofline", report.roofline_table(recs)),
+                        ("dryrun", report.dryrun_table(recs))):
+        for line in table.splitlines():
+            print(f"[launch] (c) report {kind}: {line}")
+
+
+def launch_phase(out_dir: str, card: str) -> None:
+    """Phase 11's body, in its own process (``--launch-tools``)."""
+    t0 = time.perf_counter()
+    _launch_records(out_dir, card)
+    t1 = time.perf_counter()
+    _launch_census(card)
+    t2 = time.perf_counter()
+    _launch_tools(out_dir)
+    print(f"[launch] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) "
+          f"{time.perf_counter() - t2:.1f}")
+
+
+def run_launch(card: str) -> None:
+    """Phase 11 in a subprocess under LAUNCH_S seconds; fails the run if
+    it fails or outlasts them."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            proc = subprocess.run([sys.executable, str(Path(__file__)),
+                                   "--launch-tools", out_dir, card],
+                                  timeout=LAUNCH_S)
+        except subprocess.TimeoutExpired:
+            fail(f"launch: phase 11 outlasted its {LAUNCH_S} s")
+        if proc.returncode != 0:
+            fail(f"launch: phase 11 exited with {proc.returncode}")
+
+
 def main() -> None:
     # the port's package comes from this checkout; alone, the script
     # stops here with an ImportError and prints nothing
@@ -6262,6 +6460,9 @@ def main() -> None:
     for e in kernels:
         e["launches"] += sdec.get(e["name"], 0)
     print(f"[time] sharded decode phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_launch(card)
+    print(f"[time] launch tooling phase {time.perf_counter() - t0:.1f} s")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -6285,7 +6486,7 @@ def main() -> None:
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 11. result lines ------------------------------------------------
+    # -- 12. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6294,4 +6495,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--launch-tools"]:
+        launch_phase(*sys.argv[2:4])
+    else:
+        main()

@@ -1,8 +1,9 @@
 """Config registry of the port: the ten architectures of the JAX
-package's ``configs/`` (copies of its data files).
-
-``shapes.py`` of the reference is not carried: it imports JAX for its
-input specs, and the serving path does not need it.
+package's ``configs/`` (copies of its data files), and the dry run's
+four input shapes (``shapes.py``: ``SHAPES``, ``InputShape``,
+``LONG_CONTEXT_WINDOW``, ``arch_for_shape``, and ``input_specs``, whose
+stand-ins are fake tensors where the reference's are
+``ShapeDtypeStruct`` ones).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import importlib
 
 from ..models.transformer.config import ArchConfig
+from .shapes import (LONG_CONTEXT_WINDOW, SHAPES, InputShape, arch_for_shape,
+                     input_specs)
 
 _MODULES = {
     "qwen1.5-4b": "qwen1_5_4b",
@@ -38,4 +41,5 @@ def all_archs() -> dict[str, ArchConfig]:
     return {n: get(n) for n in ARCH_NAMES}
 
 
-__all__ = ["ArchConfig", "ARCH_NAMES", "get", "all_archs"]
+__all__ = ["ArchConfig", "ARCH_NAMES", "get", "all_archs", "InputShape",
+           "SHAPES", "LONG_CONTEXT_WINDOW", "arch_for_shape", "input_specs"]

@@ -18,6 +18,14 @@ capture launches nothing) and credit it at each replay
 from the table of the graph being captured while there is one, so they
 live as long as the graph that reads them.
 
+A census of a call (``repro_torch.launch.hlo_analysis``) counts each
+kernel's work, not its launch: a wrapper passes the FLOPs and bytes of
+its call to :func:`record_work`, and the census takes them while it is
+active in this thread (on fake tensors the wrappers launch nothing and
+record the same).  What a wrapper runs in torch around its kernel (its
+allocations, ``ssd_chunk_bwd``'s finish) is covered by that work, so
+the census leaves it out (:func:`quiet`).
+
 Thread workers (``repro_torch.dist`` in thread mode) launch kernels and
 capture graphs in one process at once.  So the stack of scratch tables
 being built is each thread's own, every count goes through :func:`bump`
@@ -73,6 +81,8 @@ class _ThreadStack(threading.local):
 
 #: the scratch tables of the graphs this thread is building, innermost last
 _OWNED = _ThreadStack()
+#: the censuses active in this thread, innermost last
+CENSUS = _ThreadStack()
 #: seconds each library took to build in this process (0.0 = reused),
 #: and the compiler's output (``-Xptxas -v``: registers, spills, smem)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -231,6 +241,36 @@ def scratch(device: torch.device, name: str, numel: int,
         make = torch.zeros if zero else torch.empty
         held = table[name] = make(numel, dtype=dtype, device=device)
     return held
+
+
+def record_work(name: str, work: tuple[float, float]) -> None:
+    """Count one call of kernel ``name`` doing ``work`` (FLOPs, bytes) in
+    the census active in this thread; nothing without one."""
+    if CENSUS:
+        CENSUS.items[-1].kernel(name, *work)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Within the block, the census active in this thread (if any) counts
+    no torch op: a kernel wrapper's own allocations and finish, which its
+    :func:`record_work` covers."""
+    census = CENSUS.items[-1] if CENSUS else None
+    if census is not None:
+        census.quiet += 1
+    try:
+        yield
+    finally:
+        if census is not None:
+            census.quiet -= 1
+
+
+def fake_call(name: str, work: tuple[float, float], out):
+    """A kernel wrapper's answer on fake tensors: ``out`` (empty tensors of
+    the kernel's outputs), with ``work`` recorded (:func:`record_work`);
+    nothing is launched or counted as a launch."""
+    record_work(name, work)
+    return out
 
 
 def refuse_grad(kernel: str, why: str, *tensors) -> None:

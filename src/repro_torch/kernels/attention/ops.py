@@ -19,6 +19,14 @@ Python; the C side derives the same from the shape, and its
 
 :func:`launch_count` counts each kernel's launches since the last
 :func:`reset_launches`, so a run can show that it went through them.
+
+Each wrapper's work, the FLOPs and the bytes of one call
+(:func:`flash_prefill_work`, :func:`flash_prefill_bwd_work`,
+:func:`decode_attention_work`), is what ``chip_smoke.py`` bounds it by
+and what a census (``launch/hlo_analysis.py``) counts for it.  On fake
+tensors (``torch._subclasses.fake_tensor``) a wrapper refuses what the
+kernel refuses, launches nothing and returns empty outputs of the
+kernel's shapes and dtypes, its work recorded (``_build.fake_call``).
 """
 
 from __future__ import annotations
@@ -30,7 +38,10 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, library, refuse_grad
+from torch._subclasses.fake_tensor import is_fake
+
+from .._build import (DTYPE_CODES, Launchers, fake_call, library,
+                      record_work, refuse_grad)
 from .ref import decode_attention_ref, flash_prefill_bwd_ref, flash_prefill_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -179,6 +190,53 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
                          f"kernel loads them in 16-byte chunks)")
 
 
+def causal_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal attention over ``s`` positions scores:
+    each position sees itself and the ones before it, the last
+    ``window`` of them with a sliding window (0: all)."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_prefill_work(q_shape, window: int, esz: int
+                       ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one ``flash_prefill`` call at q (B, S, K, G, D)
+    of ``esz``-byte elements: two products of 2 D FLOPs a causal pair
+    and (query, head) row; q, k, v read once and o written once."""
+    b, s, k, g, d = q_shape
+    return (4.0 * b * k * g * d * causal_pairs(s, window),
+            2 * (b * s * k * g * d + b * s * k * d) * esz)
+
+
+def flash_prefill_bwd_work(q_shape, window: int, esz: int = 4
+                           ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one ``flash_prefill_bwd`` call (fp32): five
+    products a causal pair (the scores again, dP, dV, dK, dQ); q, o, do
+    and k, v read once, dq, dk, dv written once."""
+    b, s, k, g, d = q_shape
+    return (10.0 * b * k * g * d * causal_pairs(s, window),
+            4 * (b * s * k * g * d + b * s * k * d) * esz)
+
+
+def decode_attention_work(q_shape, w: int, esz: int,
+                          valid_len: int | None = None,
+                          with_lse: bool = False) -> tuple[float, int]:
+    """(FLOPs, bytes) of one ``decode_attention`` call at q (B, K, G, D)
+    over a cache of ``w`` entries: two products over the entries the
+    kernel reads, ``min(valid_len, w)`` of them, or all ``w`` where
+    ``valid_len`` is not given or at most 0.  The wrappers never read
+    ``valid_len`` on the host, so a census (on fake tensors, where it is
+    unknown, and on real ones alike) counts all ``w``, as the reference's
+    XLA decode computes every entry."""
+    b, k, g, d = q_shape
+    live = min(valid_len, w) if valid_len is not None and valid_len > 0 \
+        else w
+    return (4.0 * b * k * g * d * live,
+            (2 * b * k * g * d + 2 * b * live * k * d) * esz + 4
+            + (4 * b * k * g if with_lse else 0))
+
+
 def _check_cuda(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (kernel "
@@ -214,6 +272,12 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding_window = int(sliding_window)
     if sliding_window < 0:
         raise ValueError(f"flash_prefill: sliding_window {sliding_window}")
+    if is_fake(q):
+        refuse_grad("flash_prefill", "differentiate it through "
+                    "FlashPrefill.apply", q, k, v)
+        _check_cuda("flash_prefill", q, k, v)
+        return fake_call("flash_prefill", flash_prefill_work(
+            q.shape, sliding_window, q.element_size()), torch.empty_like(q))
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, sliding_window)
     if q.device.type != "cuda":
@@ -234,6 +298,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _KERNELS.launch("flash_prefill", q, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), o.data_ptr(), B, S, K, G, D,
                     sliding_window)
+    record_work("flash_prefill", flash_prefill_work(
+        q.shape, sliding_window, q.element_size()))
     return o
 
 
@@ -257,6 +323,16 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sliding_window < 0:
         raise ValueError(f"flash_prefill_bwd: sliding_window "
                          f"{sliding_window}")
+    if is_fake(q):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(BF16_GRAD)
+        refuse_grad("flash_prefill_bwd", "no double backward", q, k, v, o,
+                    do)
+        _check_cuda("flash_prefill_bwd", q, k, v, o, do)
+        return fake_call("flash_prefill_bwd", flash_prefill_bwd_work(
+            q.shape, sliding_window), (torch.empty_like(q),
+                                       torch.empty_like(k),
+                                       torch.empty_like(v)))
     if q.device.type == "cpu":
         return flash_prefill_bwd_ref(q, k, v, o, do, sliding_window)
     if q.device.type != "cuda":
@@ -277,6 +353,8 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
                     delta.data_ptr(), B, S, K, G, D, sliding_window)
+    record_work("flash_prefill_bwd",
+                flash_prefill_bwd_work(q.shape, sliding_window))
     return dq, dk, dv
 
 
@@ -326,6 +404,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or valid_len.dtype != torch.int32:
         raise ValueError("decode_attention: valid_len must be a "
                          "one-element int32 tensor")
+    if is_fake(q):
+        refuse_grad("decode_attention", "it serves decoding; training runs "
+                    "through flash_prefill", q, k, v)
+        _check_cuda("decode_attention", q, k, v)
+        if k.shape[1] == 0:
+            raise ValueError("decode_attention: empty cache")
+        o = torch.empty_like(q)
+        return fake_call("decode_attention", decode_attention_work(
+            q.shape, k.shape[1], q.element_size(), with_lse=with_lse),
+            (o, q.new_empty(q.shape[:3], dtype=torch.float32))
+            if with_lse else o)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid_len.reshape(()),
                                     with_lse=with_lse)
@@ -350,4 +439,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.data_ptr(), valid_len.data_ptr(), o.data_ptr(),
                         None if lse is None else lse.data_ptr(), B, W, K, G,
                         D, decode_splits(B, K, W))
+        record_work("decode_attention", decode_attention_work(
+            q.shape, W, q.element_size(), with_lse=with_lse))
     return (o, lse) if with_lse else o

@@ -16,6 +16,13 @@ makes has), and the C side refuses a variant that the shape does not fit.
 
 :class:`MoeGemm` is the product under autograd: its backward is two more
 launches of the same kernel, on transposed operands.
+
+:func:`work` is one call's FLOPs and bytes (and :func:`bwd_work` the
+backward pair's), what ``chip_smoke.py`` bounds the kernel by and what a
+census (``launch/hlo_analysis.py``) counts for each call.  On fake
+tensors the wrapper refuses what the kernel refuses, launches nothing
+and returns an empty output of the kernel's shape and dtype, its work
+recorded (``_build.fake_call``).
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from pathlib import Path
 
 import torch
 
-from .._build import (DTYPE_CODES, Launchers, bump, count_table, refuse_grad,
-                      scratch)
+from torch._subclasses.fake_tensor import is_fake
+
+from .._build import (DTYPE_CODES, Launchers, bump, count_table, fake_call,
+                      quiet, record_work, refuse_grad, scratch)
 from .ref import moe_gemm_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -69,6 +78,21 @@ def reset_launches() -> None:
     _KERNELS.reset()
     for name in variant_counts:
         variant_counts[name] = 0
+
+
+def work(e: int, c: int, d: int, f: int, esz: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call at x (E, C, D), w (E, D, F) of
+    ``esz``-byte elements: x and w read once, y written once."""
+    return 2.0 * e * c * d * f, (e * c * d + e * d * f + e * c * f) * esz
+
+
+def bwd_work(e: int, c: int, d: int, f: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of :class:`MoeGemm`'s backward pair (fp32) at the
+    forward's x (E, C, D), w (E, D, F): dx and dw, each 2 E C D F; x, w
+    (and the transposed copies the launches read), dy read and dx, dw
+    written, dy counted once."""
+    return 4.0 * e * c * d * f, 4 * (2 * e * c * d + 2 * e * d * f
+                                     + e * c * f)
 
 
 def variant(e: int, c: int, d: int, f: int, dtype: torch.dtype,
@@ -138,8 +162,9 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _check_cuda(x: torch.Tensor, w: torch.Tensor) -> tuple:
-    """Raise on what no variant takes; return the call's :func:`_plan`."""
+def _check_cuda(x: torch.Tensor, w: torch.Tensor, aligned=None) -> tuple:
+    """Raise on what no variant takes; return the call's :func:`_plan`
+    (``aligned`` None: read from the pointers)."""
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"moe_gemm: dtype {x.dtype} not supported (kernel "
                          f"takes {sorted(map(str, DTYPE_CODES))})")
@@ -150,7 +175,8 @@ def _check_cuda(x: torch.Tensor, w: torch.Tensor) -> tuple:
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("moe_gemm: inputs must be contiguous")
     E, C, D = x.shape
-    return _plan(E, C, D, w.shape[2], x.dtype, _aligned(x, w))
+    return _plan(E, C, D, w.shape[2], x.dtype,
+                 _aligned(x, w) if aligned is None else aligned)
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -160,6 +186,14 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             or w.shape[1] != x.shape[2]:
         raise ValueError(f"moe_gemm: want x (E,C,D), w (E,D,F); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if is_fake(x):
+        refuse_grad("moe_gemm", "differentiate through MoeGemm.apply, "
+                    "whose backward launches this kernel twice", x, w)
+        _check_cuda(x, w, aligned=True)   # as every tensor the model makes
+        E, C, D = x.shape
+        return fake_call("moe_gemm", work(E, C, D, w.shape[2],
+                                          x.element_size()),
+                         x.new_empty((E, C, w.shape[2])))
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
@@ -174,10 +208,12 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return y
     ws = counters = None
     if n_count:                      # the stream variant's 16-byte loads
-        ws, counters = _scratch(x, n_part, n_count)
+        with quiet():
+            ws, counters = _scratch(x, n_part, n_count)
     _KERNELS.launch("moe_gemm", x, x.data_ptr(), w.data_ptr(), y.data_ptr(),
                     E, C, D, F, VARIANTS.index(v), rows, ws, counters)
     bump(variant_counts, v)
+    record_work("moe_gemm", work(E, C, D, F, x.element_size()))
     return y
 
 

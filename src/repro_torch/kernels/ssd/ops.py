@@ -13,6 +13,13 @@ reports (:func:`bwd_layout`).  :class:`SsdChunk` puts :func:`ssd_chunk`
 under autograd, its backward one :func:`ssd_chunk_bwd` call.
 :func:`launch_count` counts each kernel's launches since the last
 :func:`reset_launches`, so a run can show that it went through it.
+
+:func:`ssd_chunk_work` and :func:`ssd_chunk_bwd_work` are one call's
+FLOPs and bytes, what ``chip_smoke.py`` bounds the kernels by and what a
+census (``launch/hlo_analysis.py``) counts for each call.  On fake
+tensors the wrappers refuse what the kernels refuse, launch nothing and
+return empty outputs of the kernels' shapes and dtypes, their work
+recorded (``_build.fake_call``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,10 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import DTYPE_CODES, Launchers, library, refuse_grad
+from torch._subclasses.fake_tensor import is_fake
+
+from .._build import (DTYPE_CODES, Launchers, fake_call, library, quiet,
+                      record_work, refuse_grad)
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 CSRC = Path(__file__).parent / "csrc"
@@ -174,6 +184,34 @@ def kernel_layout(bc: int, q: int, h: int, p: int, n: int, g: int,
     return out[0], (out[1], out[2], out[3])
 
 
+def ssd_chunk_work(bc: int, q: int, h: int, p: int, n: int, esz: int
+                   ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one ``ssd_chunk`` call at x (bc, q, h, p), B/C
+    (bc, q, n) of ``esz``-byte elements: C Bᵀ over the causal pairs once
+    a chunk, M @ x a head, and the state; x, dt, A, B, C read once, y and
+    the state written once."""
+    pairs = q * (q + 1) // 2          # causal (i, j) pairs of a chunk
+    flops = (2.0 * bc * pairs * n          # C B^T, once per chunk
+             + 2.0 * bc * h * pairs * p    # M @ x
+             + 2.0 * bc * h * q * p * n)   # the state
+    x = bc * q * h * p
+    return flops, (2 * x + bc * q * h + h + 2 * bc * q * n
+                   + bc * h * p * n) * esz
+
+
+def ssd_chunk_bwd_work(bc: int, q: int, h: int, p: int, n: int
+                       ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one ``ssd_chunk_bwd`` call (fp32), its kernel
+    and :func:`bwd_finish` together: the products over the causal pairs
+    and the state's; x, dy, dx, dt and ddt, A and dA, B, C, dB, dC and
+    dst each once."""
+    pairs = q * (q + 1) // 2
+    flops = bc * (4.0 * pairs * p * h + 6.0 * pairs * n
+                  + 4.0 * q * p * n * h)
+    return flops, 4 * (3 * bc * q * h * p + 2 * bc * q * h + 2 * h
+                       + 4 * bc * q * n + bc * h * p * n)
+
+
 def _check_cuda(x: torch.Tensor, *others: torch.Tensor) -> None:
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"ssd_chunk: dtype {x.dtype} not supported (kernel "
@@ -217,6 +255,18 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (fp32 or bf16 on the GPU; fp32 decays and accumulation either way).
     """
     _check_shapes("ssd_chunk", x, dt, A, Bm, Cm)
+    BC, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    if is_fake(x):
+        refuse_grad("ssd_chunk", "differentiate it through SsdChunk.apply, "
+                    "whose backward is the ssd_chunk_bwd kernel", x, dt, A,
+                    Bm, Cm)
+        _check_cuda(x, dt, A, Bm, Cm)
+        if x.numel() and N:
+            plan(BC, Q, H, P, N, x.dtype)
+        return fake_call("ssd_chunk", ssd_chunk_work(
+            BC, Q, H, P, N, x.element_size()),
+            (torch.empty_like(x), x.new_empty((BC, H, P, N))))
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
@@ -225,8 +275,6 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 "whose backward is the ssd_chunk_bwd kernel", x, dt, A, Bm,
                 Cm)
     _check_cuda(x, dt, A, Bm, Cm)
-    BC, Q, H, P = x.shape
-    N = Bm.shape[-1]
     y = torch.empty_like(x)
     if x.numel() == 0 or N == 0:
         return y, x.new_zeros((BC, H, P, N))   # nothing to sum
@@ -235,6 +283,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _KERNELS.launch("ssd_chunk", x, x.data_ptr(), dt.data_ptr(),
                     A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                     y.data_ptr(), st.data_ptr(), BC, Q, H, P, N, pl.g)
+    record_work("ssd_chunk", ssd_chunk_work(BC, Q, H, P, N,
+                                            x.element_size()))
     return y, st
 
 
@@ -324,6 +374,17 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_chunk_bwd: want dy {tuple(x.shape)}, dst "
                          f"{(BC, H, P, N)}; got {tuple(dy.shape)}, "
                          f"{tuple(dst.shape)}")
+    if is_fake(x):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(BF16_GRAD)
+        refuse_grad("ssd_chunk_bwd", "no double backward", x, dt, A, Bm,
+                    Cm, dy, dst)
+        _check_cuda(x, dt, A, Bm, Cm, dy, dst)
+        if x.numel():
+            bwd_plan(BC, Q, H, P, N)
+        return fake_call("ssd_chunk_bwd", ssd_chunk_bwd_work(BC, Q, H, P, N),
+                         tuple(torch.empty_like(t)
+                               for t in (x, dt, A, Bm, Cm)))
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, dt, A, Bm, Cm, dy, dst)
     if x.device.type != "cuda":
@@ -343,7 +404,10 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _KERNELS.launch("ssd_chunk_bwd", x, *(t.data_ptr() for t in (
         x, dt, A, Bm, Cm, dy, dst, dx, ddtp, dcc, uw, dcr, dBp, dCp)),
         BC, Q, H, P, N)
-    return (dx, *bwd_finish(dt, A, ddtp, dcc, uw, dcr, dBp, dCp))
+    with quiet():
+        out = (dx, *bwd_finish(dt, A, ddtp, dcc, uw, dcr, dBp, dCp))
+    record_work("ssd_chunk_bwd", ssd_chunk_bwd_work(BC, Q, H, P, N))
+    return out
 
 
 def bwd_finish(dt, A, ddtp, dcc, uw, dcr, dBp, dCp):

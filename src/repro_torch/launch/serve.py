@@ -14,8 +14,9 @@ Dense, MoE (granite, mixtral), Mamba2 and hybrid (zamba2) archs run.
 Weights are random from ``--seed``, as in the JAX package's launcher.
 The archs that take embeddings (llava, musicgen) have no token loop and
 stop as the reference's launcher stops them, pointing at the dry run
-(ROADMAP Queue 1, item 13); their ``prefill`` and ``decode_step`` run
-from the library.
+(``python -m repro_torch.launch.dryrun``, which runs their decode step on
+fake tensors); their ``prefill`` and ``decode_step`` run from the
+library.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
         cfg = cfg.reduced(n_layers=2, d_model=128)
     if cfg.input_mode != "tokens":
         raise SystemExit(f"{args.arch} takes embeddings; use the dry-run "
-                         f"for its serve_step (not ported yet: ROADMAP "
-                         f"Queue 1, item 13)")
+                         f"for its serve_step: python -m "
+                         f"repro_torch.launch.dryrun --arch {args.arch} "
+                         f"--shape decode_32k")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "

@@ -112,6 +112,7 @@ def qkv_project(p: AttnParams, x: torch.Tensor, n_heads: int, n_kv: int,
     v = x @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q, k, v = (sharded.heads(t, n_kv) for t in (q, k, v))
     q = q.reshape(B, S, n_kv, n_heads // n_kv, hd)   # (B,S,K,G,D)
     k = k.reshape(B, S, n_kv, hd)
     v = v.reshape(B, S, n_kv, hd)
@@ -148,8 +149,8 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, n_heads, n_kv, hd)
     pos = torch.arange(S, device=x.device)[None, :]
-    q = rope(q.reshape(B, S, n_heads, hd), pos, rope_theta) \
-        .reshape(B, S, n_kv, n_heads // n_kv, hd)
+    q = rope(sharded.split_grad(q.reshape(B, S, n_heads, hd), n_kv, 2), pos,
+             rope_theta).reshape(B, S, n_kv, n_heads // n_kv, hd)
     k = rope(k, pos, rope_theta)
     # x is global and equal on every rank, so every rank takes the same
     # branch: none rings while another waits
@@ -158,7 +159,7 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     else:
         o = sharded.attention(blockwise_causal_attention, q, k, v,
                               sliding_window, backend)
-    o = o.reshape(B, S, n_heads * hd) @ p.wo
+    o = sharded.split_grad(o.reshape(B, S, n_heads * hd), n_kv, 2) @ p.wo
     return o, {"k": k, "v": v}
 
 

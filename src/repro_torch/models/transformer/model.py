@@ -371,7 +371,7 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
             h, layer_cache = attention_prefill(lp["attn"], xn,
                                                **_attn_dims(cfg),
                                                backend=backend, ring=ring)
-            x = x + h
+            x = sharded.rows(x + h)
             return x + _ffn(cfg, lp, x, backend, moe_pspec), layer_cache
         h, layer_cache = sharded.mamba2(mamba2_prefill, lp["mamba"], xn,
                                         **_ssm_dims(cfg), backend=backend)
@@ -382,7 +382,7 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
         h, kv = attention_prefill(
             shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
             **_attn_dims(cfg), backend=backend)
-        x = x + h
+        x = sharded.rows(x + h)
         return x + mlp(shared["mlp"],
                        rms_norm(x, shared["ln2"], cfg.norm_eps)), kv
 
@@ -476,7 +476,7 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
                      moe_pspec=moe_pspec).float()
     logits = sharded.replicate_dim(logits, -1)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    picked = sharded.pick(logits, batch["labels"].long())
     return sharded.replicated((lse - picked).mean())
 
 
@@ -538,13 +538,17 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
         return attention_decode(p, xn, k, v, cache_len, **_attn_dims(cfg),
                                 backend=backend)[0]
 
+    # each residual branch is taken to whole rows before its add: on a
+    # Partial branch DTensor's own choice (divide the residual, or reduce
+    # the branch) differs between torch releases
     for i, lp in enumerate(_unbind_layers(params)):
         x = sharded.rows(x)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_pattern == "attn":
-            x = x + attend(lp["attn"], xn, sharded.layer(cache["k"], i),
-                           sharded.layer(cache["v"], i))
-            x = x + _ffn(cfg, lp, sharded.rows(x), backend)
+            x = x + sharded.rows(attend(lp["attn"], xn,
+                                        sharded.layer(cache["k"], i),
+                                        sharded.layer(cache["v"], i)))
+            x = x + sharded.rows(_ffn(cfg, lp, sharded.rows(x), backend))
         else:
             x = x + sharded.mamba2_decode(
                 mamba2_decode, lp["mamba"], xn,
@@ -553,13 +557,13 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
         if apply[i]:
             ai = app_idx[i]
             x = sharded.rows(x)
-            x = x + attend(shared["attn"],
-                           rms_norm(x, shared["ln1"], cfg.norm_eps),
-                           sharded.layer(cache["shared_k"], ai),
-                           sharded.layer(cache["shared_v"], ai))
+            x = x + sharded.rows(attend(
+                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+                sharded.layer(cache["shared_k"], ai),
+                sharded.layer(cache["shared_v"], ai)))
             x = sharded.rows(x)
-            x = x + mlp(shared["mlp"],
-                        rms_norm(x, shared["ln2"], cfg.norm_eps))
+            x = x + sharded.rows(mlp(shared["mlp"],
+                                     rms_norm(x, shared["ln2"], cfg.norm_eps)))
     x = rms_norm(sharded.rows(x), params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, (x @ head)[:, 0])
     return logits, {**cache, "len": cache_len + 1}

@@ -197,6 +197,34 @@ def like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def heads(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """``t`` ready to have its ``dim`` viewed as (n, ...) heads: a DTensor
+    whose ``dim`` is split over mesh dims whose sizes' product does not
+    divide ``n`` gathered on those mesh dims first (DTensor views no
+    shard that cuts a head in two, such as 8 kv heads over a ``model``
+    axis of 16; GSPMD reshards there too); else ``t``."""
+    if not isinstance(t, DTensor):
+        return t
+    cut = Shard(dim % t.dim())
+    split = [i for i, p in enumerate(t.placements) if p == cut]
+    if n % math.prod(t.device_mesh.shape[i] for i in split) == 0:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p == cut else p
+                                          for p in t.placements])
+
+
+def split_grad(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``t``, a merge of heads into ``dim`` (its backward views the
+    gradient's ``dim`` as (n, ...) again), with a gradient hook that takes
+    the gradient through :func:`heads` first: a DTensor's gradient may
+    arrive split where ``n`` does not divide, which DTensor's view refuses
+    (torch 2.11) rather than redistribute.  A plain tensor, or one that
+    needs no gradient, as it is."""
+    if isinstance(t, DTensor) and t.requires_grad:
+        t.register_hook(lambda g: heads(g, n, dim))
+    return t
+
+
 def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` with ``dim`` whole on every rank (a DTensor's shards of it
     gathered; the other placements kept)."""
@@ -341,6 +369,28 @@ def attention(core: Callable, q, k, v, sliding_window: int, backend: str):
     places = _places(mesh, dims, Replicate())
     return _local(lambda q, k, v: core(q, k, v, sliding_window, backend),
                   mesh, [(t, places, places) for t in (q, k, v)], places)
+
+
+def pick(logits, labels):
+    """``logits.gather(-1, labels[..., None])[..., 0]`` (logits (B, S, V),
+    labels (B, S)) on each rank's local shards, V whole (``loss_fn``
+    gathers it first): the labels taken to the logits' placements, the
+    output and the logits' gradient in them too.  DTensor's own gather
+    backward zeros a tensor of the logits' global shape, replicated, on
+    every rank (``aten.new_zeros`` of the global size) before its
+    scatter; this one zeros the local shard."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    mesh, places = logits.device_mesh, tuple(logits.placements)
+    if any(p == Shard(logits.dim() - 1) or isinstance(p, Partial)
+           for p in places):
+        raise ValueError("pick: the logits' vocab dim must be whole and "
+                         f"summed on every rank; placements {places}")
+    labels = like(labels, logits) if not isinstance(labels, DTensor) \
+        else labels
+    return _local(lambda lg, lb: lg.gather(-1, lb[..., None])[..., 0],
+                  mesh, [(logits, places, places), (labels, places, places)],
+                  places)
 
 
 def check_moe_pspec(moe_pspec, mesh) -> None:

@@ -306,7 +306,8 @@ def test_serve_launcher_runs_moe_and_mamba2_on_cpu(arch, capsys):
 @pytest.mark.parametrize("arch", ["llava-next-34b", "musicgen-medium"])
 def test_serve_launcher_refuses_what_is_not_ported(arch):
     """The archs that take embeddings stop as the reference's launcher
-    stops them, pointing at the dry run, not ported yet."""
+    stops them, pointing at the port's dry run."""
     with pytest.raises(SystemExit, match="takes embeddings; use the dry-run"
-                       ".*ROADMAP Queue 1, item 13"):
+                       ".*python -m repro_torch.launch.dryrun --arch "
+                       f"{arch} --shape decode_32k"):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
