@@ -512,11 +512,15 @@ RING_CALLS, RING_SEED, RING_HAND_REPS = 3, 0, 10
 # SHARD_ACT; (c) SHARD_STEPS AdamW steps (lr SHARD_LR, eps SHARD_EPS) at
 # SHARD_STEP_LAYERS of its layers; (d) granite (MOE_ARCH) at
 # SHARD_MOE_LAYERS layers, moe_pspec SHARD_MOE; (e) mamba2 (SSM_ARCH) at
-# full depth; (f) the NCCL rank's (b).  One call a case, counted and
-# timed, every run of ranks under PIPE_TIMEOUT_S.  Held to the
-# one-process kernel path: the loss within SHARD_LOSS_REL and every leaf
-# within SHARD_GRAD_REL x max|ref| (tests/test_torch_training.py's
-# LOSS_REL and GRAD_REL); (c)'s params within SHARD_STEP_ATOL, Adam's
+# full depth; (f) the NCCL rank's (b); (g) (b)'s model and batch with
+# ring=(mesh, "model"): prefill with act_pspec None and SHARD_ACT, and
+# loss_and_grads with SHARD_ACT, on the gloo ranks and the NCCL rank.  One
+# call a case, counted and timed, every run of ranks under
+# PIPE_TIMEOUT_S.  Held to the one-process kernel path: the loss within
+# SHARD_LOSS_REL and every leaf within SHARD_GRAD_REL x max|ref|
+# (tests/test_torch_training.py's LOSS_REL and GRAD_REL), (g)'s last
+# prefill logits within LM_LOGIT_TOL["float32"] x max|ref| (phase 8 (b)'s
+# band for the ring's forward); (c)'s params within SHARD_STEP_ATOL, Adam's
 # first-step noise at full width (an element whose gradient is within fp32
 # noise of zero moves by up to lr x its noise / eps; the reduced three-step
 # test's SHARD_PARAM_BAND held at d 128 and is counted here, not held)
@@ -559,15 +563,22 @@ SDEC_LAUNCH_ARGV = ["--arch", SDEC_LAUNCH_ARCH, "--steps",
 
 # phase 11: the launch tooling (launch/dryrun.py, hlo_analysis.py,
 # roofline.py, profile.py, report.py), in a subprocess of its own under
-# LAUNCH_S seconds.  (a) the dry run of these combos at pod1 (a fake group
-# of 256 ranks, fake cuda tensors); Llama-3.2-1B x decode_32k's census
-# held to DRYRUN_PIN, the CPU tests' numbers (tests/test_torch_dryrun.py
-# holds torch on the CPU to them); (b) the census of a real one-device
-# prefill of LAUNCH_PROMPT against the same call's on fake cuda tensors;
-# (c) profile and report over (a)
-LAUNCH_S = 60
-LAUNCH_COMBOS = [("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "prefill_32k"),
-                 ("llama3.2-1b", "train_4k")]
+# LAUNCH_S seconds.  (a) the dry run of these combos (arch, shape, perf
+# levers) at pod1 (a fake group of 256 ranks, fake cuda tensors);
+# Llama-3.2-1B x decode_32k's census held to DRYRUN_PIN, and the ring
+# prefill's collective-permutes to DRYRUN_RING_PIN (16 layers x 15
+# hand-offs of k and v, each (2, 2048, 8, 64) bf16, on rank 0), the CPU
+# tests' numbers (tests/test_torch_dryrun.py holds torch on the CPU to
+# them); (b) the census of a real one-device prefill of LAUNCH_PROMPT
+# against the same call's on fake cuda tensors; (c) profile and report
+# over (a).  LAUNCH_S was 60 until the ring combo came (the phase took
+# about 45 s before it)
+LAUNCH_S = 90
+LAUNCH_COMBOS = [("llama3.2-1b", "decode_32k", ()),
+                 ("llama3.2-1b", "prefill_32k", ()),
+                 ("llama3.2-1b", "train_4k", ()),
+                 ("llama3.2-1b", "prefill_32k", ("ring",))]
+DRYRUN_RING_PIN = {"counts": 240.0, "bytes": 2013265920.0}
 DRYRUN_PIN = {"flops": 35596009472.0, "bytes": 34585613816.0,
               "coll": {"bytes": {"all-reduce": 1081344.0,
                                  "all-gather": 8590721024.0},
@@ -3489,6 +3500,34 @@ def _shard_ref(cfg, params, batch, record: bool = False) -> dict:
     return out
 
 
+def _shard_ref_prefill(cfg, params, batch) -> dict:
+    """The one-process kernel path of (g)'s prefill in this process:
+    ``prefill`` once counted and timed, then once more timed, the last
+    logits over the real vocab kept on the card (the ranks read them
+    through CUDA IPC)."""
+    import torch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.training import tree
+    ops = _kernel_ops()
+    p = tree.map_(lambda t: t.cuda(), params)
+    toks = {"tokens": batch["tokens"].cuda()}
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        last, _ = M.prefill(cfg, p, toks)
+        torch.cuda.synchronize()
+        ms = [(time.perf_counter() - t) * 1e3]
+        out = {"last": last[..., :cfg.vocab_size].contiguous(),
+               "launches": {n: ops[n].launch_count(n) for n in ops}}
+        del last
+        out["ms"] = ms + _timed_calls(lambda: M.prefill(cfg, p, toks),
+                                      lambda: None, 1)
+    del p, toks
+    torch.cuda.empty_cache()
+    return out
+
+
 def _shard_ref_steps(cfg, params, batches) -> dict:
     """The one-process kernel path of (c): ``make_train_step`` (AdamW
     SHARD_LR, eps SHARD_EPS) on each batch, counted and timed, the final
@@ -3611,6 +3650,7 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import sharding as S
     from repro_torch.launch.sharding import local_shard
+    from repro_torch.models.transformer import model as M
     from repro_torch.training import (AdamW, loss_and_grads,
                                       make_train_step, tree)
 
@@ -3643,6 +3683,7 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         and ms."""
         _reset_counts()
         before = Counter(mesh_mod.COLLECTIVES)
+        hand = dict(mesh_mod.HAND_OFFS)
         sync()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3656,7 +3697,9 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
                      "comm": {str(k).split(".")[-1]: v for k, v in
                               comm.get_comm_counts().items()},
                      "paths": {f"{k} {p}": v for (k, p), v in paths.items()
-                               if v}, "ms": [ms]}
+                               if v}, "ms": [ms],
+                     "hand_offs": {k: v - hand[k] for k, v in
+                                   mesh_mod.HAND_OFFS.items()}}
 
     def placed(cfg, params, batch):
         specs = S.param_pspecs(cfg, params, mesh)
@@ -3669,7 +3712,7 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
                    for t, s in zip(tree.leaves(tree_), tree.leaves(specs)))
 
     def grads_case(label, cfg, params, batch, ref, act=None, moe=None,
-                   routes=None):
+                   routes=None, ring=None):
         p, specs, b = placed(cfg, params, batch)
         stamp(f"{label} placed")
         a = S.P(*act) if act else None
@@ -3678,7 +3721,7 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         with (_routes_recorded(rec) if rec is not None
               else contextlib.nullcontext()):
             (loss, grads), info = counted(lambda: loss_and_grads(
-                cfg, p, b, act_pspec=a, moe_pspec=m))
+                cfg, p, b, act_pspec=a, moe_pspec=m, ring=ring))
         info.update(loss=loss.item(), leaves=_shard_compare(grads, ref, mesh),
                     placed=same_places(grads, specs))
         if rec is not None:
@@ -3692,13 +3735,40 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         del grads
         if world == 1:          # a second call: cheap on one rank
             info["ms"] += _timed_calls(lambda: loss_and_grads(
-                cfg, p, b, act_pspec=a, moe_pspec=m), sync, 1)
+                cfg, p, b, act_pspec=a, moe_pspec=m, ring=ring), sync, 1)
         del p, b
         torch.cuda.empty_cache()
         stamp(label)
         return info
 
-    cfg, params, batches, ref_b, ref_c = data["llama"]
+    def prefill_case(label, cfg, params, batch, ref, act):
+        """(g)'s prefill with the ring: the last logits over the real
+        vocab gathered and held to the one-process kernel path's, and the
+        cache's k placements."""
+        p, _, b = placed(cfg, params, batch)
+        stamp(f"{label} placed")
+        a = S.P(*act) if act else None
+        ring = (mesh, "model")
+        with torch.no_grad():
+            (last, cache), info = counted(lambda: M.prefill(
+                cfg, p, {"tokens": b["tokens"]}, ring=ring, act_pspec=a))
+            got = S.full(last)[..., :cfg.vocab_size]
+            info.update(err=(got - ref).abs().max().item(),
+                        refmax=ref.abs().max().item(),
+                        finite=bool(torch.isfinite(got).all()),
+                        digest=_digest(got.cpu()), shape=tuple(got.shape),
+                        places=[repr(x) for x in cache["k"].placements])
+            del last, cache, got
+            if world == 1:
+                info["ms"] += _timed_calls(lambda: M.prefill(
+                    cfg, p, {"tokens": b["tokens"]}, ring=ring,
+                    act_pspec=a), sync, 1)
+        del p, b
+        torch.cuda.empty_cache()
+        stamp(label)
+        return info
+
+    cfg, params, batches, ref_b, ref_c, ref_g = data["llama"]
     for act in (None, SHARD_ACT):
         key = f"(b) act_pspec={act}"
         res[key] = grads_case(key, cfg, params, batches[0], ref_b["grads"],
@@ -3740,7 +3810,19 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         cfg, params, batch, ref = data["mamba2"]
         res["(e) mamba2"] = grads_case("(e)", cfg, params, batch,
                                        ref["grads"])
+    # (g): its own peak beside the phase's
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, batches = data["llama"][:3]
+    for act in (None, SHARD_ACT):
+        key = f"(g) prefill act_pspec={act}"
+        res[key] = prefill_case(key, cfg, params, batches[0], ref_g["last"],
+                                act)
+    key = f"(g) loss_and_grads act_pspec={SHARD_ACT}"
+    res[key] = grads_case(key, cfg, params, batches[0], ref_b["grads"],
+                          act=SHARD_ACT, ring=(mesh, "model"))
+    res["g_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["peak_gib"] = max(res["peak_gib"], res["g_peak_gib"])
     res["stamps"] = stamps
     return res
 
@@ -3788,6 +3870,68 @@ def _shard_lines(label, rs, ref, want, card, tol=SHARD_GRAD_REL) -> bool:
         and all(r["launches"] == want for r in rs)
     if tol is not None:
         ok = ok and max(shares) <= 1.0
+    return ok
+
+
+def _ring_shard_lines(gloo, nccl, ref_b, ref_g, card: str) -> bool:
+    """Print (g), ring attention on placed params, on the gloo ranks and
+    the NCCL rank; returns whether it held: the prefill's last logits
+    within LM_LOGIT_TOL["float32"] x max|ref| of the one-process kernel
+    path's, finite and the same on every rank, the gradients as
+    :func:`_shard_lines` holds them; no kernel launched; one hand-off a
+    layer in a prefill and four in ``loss_and_grads`` on a ``model`` axis
+    of 2 (the forward, remat's recompute, the backward's two), none on
+    the NCCL rank's axis of 1."""
+    from statistics import median
+    layers = 16
+    tol = LM_LOGIT_TOL["float32"]
+    none = dict.fromkeys(_kernel_ops(), 0)
+    ok = True
+    for runs in (gloo, nccl):
+        m = SHARD_MESH[1] if len(runs) > 1 else 1
+        who = (f"{len(runs)} gloo ranks, {SHARD_MESH}" if len(runs) > 1
+               else "one NCCL rank, (1, 1)")
+        host = "host" if len(runs) > 1 else "direct"
+        for act in (None, SHARD_ACT):
+            rs = [r[f"(g) prefill act_pspec={act}"] for r in runs]
+            r0 = rs[0]
+            share = max(r["err"] / (tol * r["refmax"]) for r in rs)
+            want = {"direct": 0, "host": 0}
+            want[host] = layers * (m - 1)
+            same = len({r["digest"] for r in rs}) == 1
+            print(f"[shard] (g) {LM_ARCH} 16 layers prefill(ring=(mesh, "
+                  f"'model'), act_pspec={act}), {who}: last logits "
+                  f"{r0['shape']}, worst {share:.3f} of {tol:g} x max|ref| "
+                  f"against the one-process kernel path, finite "
+                  f"{all(r['finite'] for r in rs)}, ranks equal {same}; "
+                  f"hand-offs {r0['hand_offs']} (want {want}); launches "
+                  f"{r0['launches']} (want none: the ring's blocks are "
+                  f"torch); cache k placements {r0['places']}; "
+                  f"collectives (a rank, CommDebugMode) {r0['comm']}, by "
+                  f"path {r0['paths']}")
+            print(f"[shard] (g) prefill act_pspec={act}: ms a call "
+                  f"{median(r['ms'][-1] for r in rs):.1f}"
+                  + (" (the counted call) -- FOUR PROCESSES TIME-SLICED ON "
+                     "ONE CARD, not a multi-device speed" if len(rs) > 1
+                     else f" (a second call; the first {r0['ms'][0]:.1f})")
+                  + f"; one-process kernel path {ref_g['ms'][-1]:.1f} (a "
+                  f"second call; the first {ref_g['ms'][0]:.1f}); on {card}")
+            ok = ok and share <= 1.0 and same \
+                and all(r["finite"] and r["hand_offs"] == want
+                        and r["launches"] == none for r in rs)
+        key = f"(g) loss_and_grads act_pspec={SHARD_ACT}"
+        rs = [r[key] for r in runs]
+        want = {"direct": 0, "host": 0}
+        want[host] = layers * (2 * (m - 1) + m) if m > 1 else 0
+        print(f"[shard] (g) loss_and_grads(ring=(mesh, 'model')) hand-offs "
+              f"{rs[0]['hand_offs']} (want {want})")
+        ok = _shard_lines(f"(g) {LM_ARCH} 16 layers loss_and_grads(ring=("
+                          f"mesh, 'model')), act_pspec={SHARD_ACT}", rs,
+                          ref_b, none, card) and ok \
+            and all(r["hand_offs"] == want for r in rs)
+    peaks = ", ".join(f"{r['g_peak_gib']:.2f}" for r in gloo)
+    print(f"[shard] (g) peak memory a rank within (g): gloo {peaks} GiB, "
+          f"nccl {nccl[0]['g_peak_gib']:.2f} GiB; on {card}")
     return ok
 
 
@@ -3839,12 +3983,13 @@ def run_shard(card: str) -> dict:
     ref_d = _shard_ref(g_cfg, g_params, g_batch, record=True)
     m_batch = _shard_batches(m_cfg, 1)[0]
     ref_e = _shard_ref(m_cfg, m_params, m_batch)
-    print(f"[shard] one-process references (b)-(e) "
+    ref_g = _shard_ref_prefill(cfg, params, batches[0])
+    print(f"[shard] one-process references (b)-(e) and (g)'s prefill "
           f"{time.perf_counter() - t0:.1f} s (the gloo ranks starting "
           f"meanwhile), of which {build_s:.1f} s "
           f"building the models (init_params(cfg, torch.Generator("
           f"device='cuda').manual_seed(0)), copied to the host); on {card}")
-    data = {"llama": (cfg, params, batches, ref_b, ref_c),
+    data = {"llama": (cfg, params, batches, ref_b, ref_c, ref_g),
             "granite": (g_cfg, g_params, g_batch, ref_d),
             "mamba2": (m_cfg, m_params, m_batch, ref_e)}
     for _ in range(SHARD_RANKS):
@@ -3929,6 +4074,7 @@ def run_shard(card: str) -> dict:
         key = f"(b) act_pspec={act}"
         ok = _shard_lines(f"(f) {LM_ARCH} on a (1, 1) mesh, act_pspec={act}",
                           [nccl[0][key]], ref_b, want1, card) and ok
+    ok = _ring_shard_lines(gloo, nccl, ref_b, ref_g, card) and ok
     for r in gloo[:1] + nccl:
         print(f"[shard] {r['backend']} rank {r['coord']} seconds by part: "
               + ", ".join(f"{k} {v:.1f}" for k, v in r["stamps"].items()))
@@ -3941,13 +4087,13 @@ def run_shard(card: str) -> dict:
     for key in nccl[0]:
         if key.startswith("("):
             launches.update(nccl[0][key]["launches"])
-    for ref in (ref_b, ref_c, ref_d, ref_e):
+    for ref in (ref_b, ref_c, ref_d, ref_e, ref_g):
         launches.update(ref["launches"])
     print(f"[shard] peak memory a rank: gloo {peaks} GiB, nccl "
           f"{nccl[0]['peak_gib']:.2f} GiB; launches of the phase's counted "
           f"calls (ranks and one-process references) {dict(launches)}; "
           f"phase wall {time.perf_counter() - t_phase:.1f} s; on {card}")
-    del data, ref_b, ref_c, ref_d, ref_e
+    del data, ref_b, ref_c, ref_d, ref_e, ref_g
     torch.cuda.empty_cache()
     if not ok:
         fail("shard: a phase 9 check failed (see the [shard] lines)")
@@ -6217,22 +6363,36 @@ def run_cnn() -> dict:
     }
 
 
+def _census_calls(out_dir, rec: dict, name: str) -> int:
+    """The calls of ``name`` in a record's saved census."""
+    from pathlib import Path as _P
+    from repro_torch.launch import profile
+    tag = "__" + "+".join(rec["opts"]) if rec["opts"] else ""
+    census = profile.load(_P(out_dir) / f"{rec['arch']}__{rec['shape']}__"
+                          f"pod1{tag}.census.json.gz")
+    return int(census.by_computation.get(name, {}).get("mult", 0))
+
+
 def _launch_records(out_dir, card: str) -> list[dict]:
     """Phase 11 (a): each LAUNCH_COMBOS combo's dry run on fake cuda
     tensors, its roofline terms, memory a device, useful FLOPs and
-    seconds; Llama's decode census against DRYRUN_PIN."""
+    seconds; Llama's decode census against DRYRUN_PIN, the ring
+    prefill's collective-permutes against DRYRUN_RING_PIN."""
     from pathlib import Path as _P
     from repro_torch.launch import dryrun
     recs = []
-    for arch, shape in LAUNCH_COMBOS:
+    for arch, shape, opts in LAUNCH_COMBOS:
         rec = dryrun.run_combo(arch, shape, False, _P(out_dir), force=True,
-                               save_census=True, device="cuda")
+                               save_census=True, device="cuda",
+                               opts={k: True for k in opts})
         if not rec["ok"]:
             print(rec["traceback"], file=sys.stderr)
-            fail(f"launch: dry run of {arch} {shape} failed: "
+            fail(f"launch: dry run of {arch} {shape} {opts} failed: "
                  f"{rec['error']}")
         ro, mem = rec["roofline"], rec["memory"]
-        print(f"[launch] (a) {arch} {shape} pod1 ({rec['n_devices']} fake "
+        print(f"[launch] (a) {arch} {shape} pod1"
+              f"{' --opt ' + ','.join(opts) if opts else ''} "
+              f"({rec['n_devices']} fake "
               f"ranks, {ro['dtype']}): compute {ro['compute_s']:.3e} s, "
               f"memory {ro['memory_s']:.3e} s, collective "
               f"{ro['collective_s']:.3e} s, dominant {ro['dominant']}; a "
@@ -6245,16 +6405,29 @@ def _launch_records(out_dir, card: str) -> list[dict]:
               f"{rec['useful_flops_ratio']:.4f}; wall {rec['wall_s']} s "
               f"(inputs {rec['lower_s']} s, step {rec['compile_s']} s); "
               f"H100 peaks, {card}")
+        if opts == ("ring",):
+            br = ro["coll_breakdown"]
+            got = {k: br[k].get("collective-permute") for k in br}
+            flash = _census_calls(out_dir, rec, "flash_prefill")
+            print(f"[launch] (a) {arch} {shape} --opt ring: "
+                  f"collective-permutes {got} ("
+                  f"{'equal to' if got == DRYRUN_RING_PIN else 'DIFFER from'}"
+                  f" the CPU tests' {DRYRUN_RING_PIN}); flash_prefill "
+                  f"calls {flash} (want 0: the ring's blocks are torch)")
+            if got != DRYRUN_RING_PIN or flash:
+                fail("launch: the ring prefill's collective-permutes "
+                     "differ from the CPU tests', or it called "
+                     "flash_prefill")
         recs.append(rec)
     ro = recs[0]["roofline"]
     got = {"flops": ro["flops"], "bytes": ro["bytes_accessed"],
            "coll": ro["coll_breakdown"]}
-    print(f"[launch] (a) {' '.join(LAUNCH_COMBOS[0])} census, torch "
+    print(f"[launch] (a) {' '.join(LAUNCH_COMBOS[0][:2])} census, torch "
           f"{__import__('torch').__version__}: {got} "
           f"({'equal' if got == DRYRUN_PIN else 'DIFFERS from'} the CPU "
           f"tests' {DRYRUN_PIN})")
     if got != DRYRUN_PIN:
-        fail(f"launch: the census of {LAUNCH_COMBOS[0]} differs from the "
+        fail(f"launch: the census of {LAUNCH_COMBOS[0][:2]} differs from the "
              f"CPU tests'")
     return recs
 
@@ -6355,7 +6528,7 @@ def _launch_tools(out_dir: str) -> None:
     report's two tables over (a)'s records."""
     from pathlib import Path as _P
     from repro_torch.launch import profile, report
-    census = _P(out_dir) / ("__".join(LAUNCH_COMBOS[0]) + "__pod1"
+    census = _P(out_dir) / ("__".join(LAUNCH_COMBOS[0][:2]) + "__pod1"
                             ".census.json.gz")
     for line in profile.listing(profile.load(census), top=5).splitlines():
         print(f"[launch] (c) profile: {line}")

@@ -33,7 +33,12 @@ profile and the report read one schema.
   ``gather_axis`` and ``sharded.combine``, each as its result's bytes
   under the reference's five kinds (a send and its receive are one
   ``collective-permute``, counted at the receive), added to
-  ``hbm_bytes`` too, as the reference adds them.
+  ``hbm_bytes`` too, as the reference adds them.  DTensor's
+  Shard-to-Shard redistribution (``shard_dim_alltoall``) counts as one
+  ``all-to-all`` of its result's bytes, the ops inside it not at all: on
+  a CUDA mesh it is one ``_dtensor.shard_dim_alltoall`` op, on a CPU
+  mesh DTensor falls back to an all-gather and a chunk (gloo has no
+  all-to-all), which would otherwise count as a gather of the whole.
 
 ``by_computation`` holds one entry per op or kernel name: its calls
 (``mult``), FLOPs and collective bytes.  Eager execution has no loop
@@ -173,6 +178,43 @@ def _mark_propagation() -> None:
                            "counted")
 
 
+#: the name an all-to-all redistribution counts under, on either mesh
+ALLTOALL_OP = "_dtensor.shard_dim_alltoall.default"
+_ALLTOALL: list = []
+
+
+def _mark_alltoall() -> None:
+    """Wrap DTensor's ``shard_dim_alltoall`` (where its module and
+    ``placement_types``, which imports it by name, hold it; once a
+    process) so that under a census the call counts as one all-to-all of
+    its result's bytes and the ops inside it are quiet; outside a census
+    it only calls through."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+    if _ALLTOALL:
+        return
+    fn = getattr(_collective_utils, "shard_dim_alltoall", None)
+    if fn is None:
+        raise RuntimeError("Census: DTensor has no shard_dim_alltoall; its "
+                           "all-to-alls would be counted as other ops")
+
+    def counted(*a, **kw):
+        census = _build.CENSUS.items[-1] if _build.CENSUS else None
+        if census is None or in_propagation():
+            return fn(*a, **kw)
+        census.quiet += 1
+        try:
+            out = fn(*a, **kw)
+        finally:
+            census.quiet -= 1
+        if not census.quiet:
+            census._collective(ALLTOALL_OP, "all-to-all", _nbytes(out))
+        return out
+    for mod in (_collective_utils, placement_types):
+        if getattr(mod, "shard_dim_alltoall", None) is fn:
+            mod.shard_dim_alltoall = counted
+    _ALLTOALL.append(counted)
+
+
 def in_propagation() -> bool:
     """Whether this thread is inside DTensor's sharding propagation (once
     a census has marked it: :func:`_mark_propagation`)."""
@@ -195,6 +237,7 @@ class Census(TorchDispatchMode):
             raise RuntimeError("Census: another census is active in this "
                                "thread")
         _mark_propagation()
+        _mark_alltoall()
         _build.CENSUS.items.append(self)
         try:
             return super().__enter__()

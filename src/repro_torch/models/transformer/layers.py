@@ -28,9 +28,9 @@ leaves them to XLA.
 attention over that axis of a ``torch.distributed`` device mesh
 (``ring_attention.py``).  On DTensor inputs (params placed by
 ``launch.sharding``) the attention core runs on each rank's local shards
-(``sharded.py``, which also holds the MoE and Mamba2 layers' boundaries),
-and so does ``attention_decode``'s cache write and kernel on a placed
-cache.
+(``sharded.py``, which also holds the ring's and the MoE and Mamba2
+layers' boundaries), and so does ``attention_decode``'s cache write and
+kernel on a placed cache.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from ...kernels.moe_gemm import ref as moe_ref
 from ...kernels.ssd import ops as ssd_ops
 from ...kernels.ssd import ref as ssd_ref
 from . import sharded
-from .ring_attention import ring_attention, ring_size
+from .ring_attention import ring_size
 
 BACKENDS = ("cuda", "torch")
 
@@ -145,17 +145,23 @@ def attention_prefill(p: AttnParams, x: torch.Tensor, *, n_heads: int,
     multiple of the axis's size, and as :func:`blockwise_causal_attention`
     with ``backend`` otherwise: the reference's rule.  The reference's
     ``ring`` is ``(axis_name, axis_size)`` under an ambient mesh; the
-    port has no ambient mesh, so ``ring`` carries the mesh itself."""
+    port has no ambient mesh, so ``ring`` carries the mesh itself.  On
+    DTensor q, k and v the ring runs on each rank's rows
+    (``sharded.ring_attention``); its mesh must be the params' mesh
+    (``ValueError`` otherwise).  The k/v returned for the cache are the
+    ones the non-ring prefill returns, in the same placements."""
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, n_heads, n_kv, hd)
     pos = torch.arange(S, device=x.device)[None, :]
     q = rope(sharded.split_grad(q.reshape(B, S, n_heads, hd), n_kv, 2), pos,
              rope_theta).reshape(B, S, n_kv, n_heads // n_kv, hd)
     k = rope(k, pos, rope_theta)
-    # x is global and equal on every rank, so every rank takes the same
+    # S is global (a DTensor's shape too), so every rank takes the same
     # branch: none rings while another waits
+    if ring is not None:
+        sharded.check_ring(ring, q)
     if ring is not None and S % ring_size(*ring) == 0:
-        o = ring_attention(q, k, v, *ring, sliding_window=sliding_window)
+        o = sharded.ring_attention(q, k, v, *ring, sliding_window)
     else:
         o = sharded.attention(blockwise_causal_attention, q, k, v,
                               sliding_window, backend)

@@ -439,7 +439,10 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     outside attention on the whole sequence, as the reference's
     activations stay global.  Under remat the backward's recompute runs
     each ring again; every rank runs the same layers in the same order,
-    so the collectives stay matched.
+    so the collectives stay matched.  On placed params the ring's mesh
+    must be the params' (``ValueError`` otherwise) and each layer's ring
+    runs on each rank's rows (``sharded.ring_attention``), with
+    ``act_pspec`` and ``moe_pspec`` as below.
 
     Sharding: on params placed by ``launch.sharding.distribute`` (DTensors,
     the batch placed by ``batch_pspecs``) every rank of the mesh calls
@@ -487,7 +490,8 @@ def prefill(cfg: ArchConfig, params: Params, batch: dict,
     (logits of the last position (B, vocab_padded), a cache holding the
     prompt's k/v, or the Mamba2 conv and ssm states, and a hybrid's
     shared-block k/v at each site).  ``ring=(mesh, axis)`` as in
-    :func:`forward`; every rank returns the whole cache.  ``act_pspec``
+    :func:`forward`; every rank returns the whole cache (on placed params
+    in the placements the prefill without the ring gives).  ``act_pspec``
     and ``moe_pspec`` as in :func:`forward`: on placed params the logits
     and the cache's tensors are DTensors (``len`` a plain tensor)."""
     check_backend(backend)

@@ -22,13 +22,19 @@ statistic, so its products are skipped; its k/v still go round.  The
 reference's last rotation only brings the blocks home: the forward
 skips it (m - 1 hand-offs).
 
-:class:`RingAttention` is differentiable.  Its backward recomputes each
-block's probabilities from the saved row log-sum-exps and runs a second
-ring in which the dk/dv accumulators travel with their k/v block and come
-home (m hand-offs); dq, dk and dv are then gathered, so every rank holds
-the gradient of the global inputs that the one-process path gives.  The
-block update is plain torch: the reference's is a pair of XLA einsums,
-not a Pallas kernel.
+:class:`RingRows` is the ring on this rank's rows, and is
+differentiable: its backward recomputes each block's probabilities from
+the saved row log-sum-exps and runs a second ring in which the dk/dv
+accumulators travel with their k/v block and come home (m hand-offs),
+so each rank ends with its own rows' dq, dk and dv.
+:class:`RingAttention` slices the global inputs' rows, runs
+:class:`RingRows` and gathers the output, and in its backward dq, dk
+and dv, so every rank holds the gradient of the global inputs that the
+one-process path gives.  On DTensor inputs (params placed by
+``launch.sharding.distribute``) ``sharded.ring_attention`` runs
+:class:`RingRows` on each rank's local rows instead, with no gather.
+The block update is plain torch: the reference's is a pair of XLA
+einsums, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -85,24 +91,22 @@ def _block_update(carry, q_blk, k_blk, v_blk, q_pos, k_pos,
     return m_new, l_new, acc_new
 
 
-class RingAttention(torch.autograd.Function):
-    """``RingAttention.apply(q, k, v, group, idx, n, sliding_window)``:
-    the global output of causal attention, q (B, S, K, G, D) and k/v
-    (B, S, K, D) global and equal on every rank of ``group`` (``n``
-    ranks, this one at coordinate ``idx``), S a multiple of ``n``.
-    Saves this rank's rows and block, its output rows (fp32) and their
-    log-sum-exps."""
+class RingRows(torch.autograd.Function):
+    """``RingRows.apply(q_l, k_l, v_l, group, idx, n, sliding_window)``:
+    this rank's rows of causal attention, q_l (B, S/n, K, G, D) and
+    k_l/v_l (B, S/n, K, D) the rows of coordinate ``idx`` of ``group``
+    (``n`` ranks), which hold the sequence's blocks in coordinate order.
+    Returns this rank's output rows in q's dtype; the backward returns
+    this rank's dq_l, dk_l and dv_l, with no gather.  Saves the rank's
+    rows and block, its output rows (fp32) and their log-sum-exps."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group, idx, n, sliding_window):
-        B, S, K, G, D = q.shape
-        rows = S // n
-        mine = slice(idx * rows, (idx + 1) * rows)
-        q_l, k_l, v_l = q[:, mine], k[:, mine], v[:, mine]
-        pos = torch.arange(rows, device=q.device)
-        m_ = torch.full((B, K, G, rows), -math.inf, device=q.device)
-        l_ = torch.zeros((B, K, G, rows), device=q.device)
-        acc = torch.zeros((B, K, G, rows, D), device=q.device)
+    def forward(ctx, q_l, k_l, v_l, group, idx, n, sliding_window):
+        B, rows, K, G, D = q_l.shape
+        pos = torch.arange(rows, device=q_l.device)
+        m_ = torch.full((B, K, G, rows), -math.inf, device=q_l.device)
+        l_ = torch.zeros((B, K, G, rows), device=q_l.device)
+        acc = torch.zeros((B, K, G, rows, D), device=q_l.device)
         k_cur, v_cur = k_l, v_l
         for r in range(n):
             src = (idx - r) % n
@@ -115,16 +119,16 @@ class RingAttention(torch.autograd.Function):
         o_l = (acc / l_.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4)
         ctx.save_for_backward(q_l, k_l, v_l, o_l, m_ + torch.log(l_))
         ctx.ring = (group, idx, n, sliding_window)
-        return gather_axis(o_l.to(q.dtype), group, dim=1)
+        return o_l.to(q_l.dtype)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do_l):
         q_l, k_l, v_l, o_l, lse = ctx.saved_tensors
         group, idx, n, sliding_window = ctx.ring
         rows, D = q_l.shape[1], q_l.shape[-1]
         scale = 1.0 / math.sqrt(D)
         pos = torch.arange(rows, device=q_l.device)
-        do_l = do[:, idx * rows:(idx + 1) * rows].float()
+        do_l = do_l.float()
         qf = q_l.float()
         delta = (do_l * o_l).sum(dim=-1).permute(0, 2, 3, 1)  # (B,K,G,Sq)
         dq = torch.zeros_like(qf)
@@ -150,9 +154,33 @@ class RingAttention(torch.autograd.Function):
                                                   group, idx, n)
             elif n > 1:
                 dk, dv = ring_shift([dk, dv], group, idx, n)
-        return (gather_axis(dq.to(q_l.dtype), group, dim=1),
-                gather_axis(dk.to(k_l.dtype), group, dim=1),
-                gather_axis(dv.to(v_l.dtype), group, dim=1),
+        return (dq.to(q_l.dtype), dk.to(k_l.dtype), dv.to(v_l.dtype),
+                None, None, None, None)
+
+
+class RingAttention(torch.autograd.Function):
+    """``RingAttention.apply(q, k, v, group, idx, n, sliding_window)``:
+    the global output of causal attention, q (B, S, K, G, D) and k/v
+    (B, S, K, D) global and equal on every rank of ``group`` (``n``
+    ranks, this one at coordinate ``idx``), S a multiple of ``n``: this
+    rank's rows through :class:`RingRows`, the output rows gathered, and
+    in the backward dq, dk and dv gathered, so every rank holds the
+    gradient of the global inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, idx, n, sliding_window):
+        rows = q.shape[1] // n
+        mine = slice(idx * rows, (idx + 1) * rows)
+        o_l = RingRows.forward(ctx, q[:, mine], k[:, mine], v[:, mine],
+                               group, idx, n, sliding_window)
+        return gather_axis(o_l, group, dim=1)
+
+    @staticmethod
+    def backward(ctx, do):
+        group, idx, n, _ = ctx.ring
+        rows = do.shape[1] // n
+        grads = RingRows.backward(ctx, do[:, idx * rows:(idx + 1) * rows])
+        return (*(gather_axis(g, group, dim=1) for g in grads[:3]),
                 None, None, None, None)
 
 

@@ -26,6 +26,10 @@ that does not divide its axes is replicated, as the rules replicate it):
 * :func:`attention`: the causal attention core (``FlashPrefill`` and its
   backward kernel on the card), q/k/v/out batch over the data axes and
   kv heads over ``model``;
+* :func:`ring_attention`: the ring (``ring=(mesh, axis)``) on each
+  rank's rows, q/k/v sequence over ``axis`` and batch over the data
+  axes, the ring's hand-offs on the axis's sub-group, the output handed
+  on in the attention core's placements;
 * :func:`moe`: the whole MoE layer (routing, per-sample dispatch, the
   three ``moe_gemm`` products, the combine) on this rank's batch rows and
   slice of ``d_ff``; the output is ``Partial`` over ``model``.  The
@@ -72,6 +76,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ...launch.mesh import batch_axes
+from . import ring_attention as _ring
 
 MODEL_AXIS = "model"
 
@@ -353,6 +358,17 @@ def embed(table, ids):
                 rep))
 
 
+def _core_places(mesh, q) -> tuple:
+    """The attention core's placements of q (B, S, K, G, D) and its
+    output (k/v alike): batch over the data axes and K over ``model``
+    where they divide, else replicated there."""
+    dims = _batch(mesh, q.shape[0])
+    if MODEL_AXIS in mesh.mesh_dim_names:
+        dims[MODEL_AXIS] = Shard(2) if _split(q.shape[2], mesh,
+                                              [MODEL_AXIS]) else Replicate()
+    return _places(mesh, dims, Replicate())
+
+
 def attention(core: Callable, q, k, v, sliding_window: int, backend: str):
     """``core(q, k, v, sliding_window, backend)`` (the causal attention,
     q (B, S, K, G, D), k/v (B, S, K, D)) on each rank's batch rows and kv
@@ -362,13 +378,52 @@ def attention(core: Callable, q, k, v, sliding_window: int, backend: str):
     if not isinstance(q, DTensor):
         return core(q, k, v, sliding_window, backend)
     mesh = q.device_mesh
-    dims = _batch(mesh, q.shape[0])
-    if MODEL_AXIS in mesh.mesh_dim_names:
-        dims[MODEL_AXIS] = Shard(2) if _split(q.shape[2], mesh,
-                                              [MODEL_AXIS]) else Replicate()
-    places = _places(mesh, dims, Replicate())
+    places = _core_places(mesh, q)
     return _local(lambda q, k, v: core(q, k, v, sliding_window, backend),
                   mesh, [(t, places, places) for t in (q, k, v)], places)
+
+
+def check_ring(ring, x) -> None:
+    """``ValueError`` when ``x`` is a DTensor on another mesh than the
+    ring's, ``ring=(mesh, axis)``: the ring's sub-group must be one of the
+    mesh that places the params."""
+    if isinstance(x, DTensor) and x.device_mesh != ring[0]:
+        raise ValueError(f"ring: the ring's mesh {ring[0]} is not the "
+                         f"params' mesh {x.device_mesh}; ring over an axis "
+                         "of the mesh the params are placed on")
+
+
+def ring_attention(q, k, v, mesh, axis: str, sliding_window: int = 0):
+    """Ring attention over ``axis`` of ``mesh`` (q (B, S, K, G, D), k/v
+    (B, S, K, D), S a multiple of the axis's size) on each rank's rows:
+    the sequence split over ``axis``, the batch over the data axes where
+    it divides, every other mesh dim whole; ``RingRows`` on the local
+    rows over the axis's sub-group, at this rank's coordinate there, each
+    data row running a ring of its own.  The gradients of q, k and v come
+    back in those placements (each rank's rows are its own: the dk/dv
+    accumulators come home, so nothing is ``Partial``); the output is
+    redistributed to the attention core's placements (batch over the data
+    axes, K over ``model`` where they divide), as :func:`attention`
+    returns it.  Plain tensors go to ``ring_attention.ring_attention``
+    (global inputs, the output gathered)."""
+    if not isinstance(q, DTensor):
+        return _ring.ring_attention(q, k, v, mesh, axis,
+                                    sliding_window=sliding_window)
+    check_ring((mesh, axis), q)
+    n = _ring.ring_size(mesh, axis)
+    if q.shape[1] % n:
+        raise ValueError(f"ring_attention: sequence length {q.shape[1]} "
+                         f"is no multiple of the {axis!r} axis's {n} ranks")
+    places = _places(mesh, {**_batch(mesh, q.shape[0]), axis: Shard(1)},
+                     Replicate())
+    group, idx = mesh.get_group(axis), mesh.get_local_rank(axis)
+    o = _local(lambda q, k, v: _ring.RingRows.apply(
+        q, k, v, group, idx, n, int(sliding_window)),
+        mesh, [(t, places, places) for t in (q, k, v)], places)
+    # the rest of the layer meets the output as the attention core gives
+    # it: on a sequence split, DTensor's propagation refuses the output
+    # projection (the (B, S) rows merged into a strided shard)
+    return o.redistribute(mesh, _core_places(mesh, q))
 
 
 def pick(logits, labels):

@@ -21,7 +21,8 @@ def loss_and_grads(cfg: ArchConfig, params, batch, unroll: bool = False,
     family; autograd raises if one does not.  The params passed in are
     not changed.  ``ring=(mesh, axis)`` goes to ``loss_fn``: every rank
     of the axis calls this with the same arguments and gets the whole
-    gradient.
+    gradient (on placed params, together with ``act_pspec`` and
+    ``moe_pspec``, each gradient in its param's placements).
 
     On params placed by ``launch.sharding.distribute`` (``act_pspec`` and
     ``moe_pspec`` go to ``loss_fn``) every rank of the mesh calls this;

@@ -546,6 +546,81 @@ def body_cuda_shard(rank, world, cfg, tokens):
     return res
 
 
+# -- ring attention on placed params ------------------------------------------
+
+def body_ring_sharded(rank, world, models, tokens, acts, moe_pspec, extra):
+    """The 4-rank CPU run of ring attention on placed params, a (2, 2)
+    ("data", "model") mesh of host-staged gloo sub-groups
+    (``launch.mesh.HostGloo``) with ``ring=(mesh, "model")``: for each of
+    ``models`` ({name: (cfg, numpy params tree)}) and each of ``acts``
+    ({key: act_pspec entries or None}) ``forward``, ``prefill`` and
+    ``loss_and_grads`` (``moe_pspec`` for an MoE config) on the params
+    placed by ``param_pspecs``, each gathered, the gradients' placements,
+    the ring's hand-offs of the forward and of the gradient call.  On the
+    ``extra`` model: the forward of the first S - 1 tokens (no multiple
+    of the axis: the blockwise path), one ``decode_step`` on the cache of
+    the ring prefill and of the prefill without the ring (grown by one
+    slot), their caches' placements, and the ``ValueError`` of a ring
+    over another mesh."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as S
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer import sharded
+    from repro_torch.training import loss_and_grads
+
+    axes = ("data", "model")
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=axes,
+                            backend_override=mesh_mod.host_staged(axes))
+    ring = (mesh, "model")
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, (cfg, ptree) in models.items():
+        params, specs, batch = _placed_params(cfg, ptree, tokens[name], mesh,
+                                              "cpu")
+        moe = S.P(*moe_pspec) if cfg.is_moe else None
+        toks = {"tokens": batch["tokens"]}
+        for key, act in acts.items():
+            kw = dict(ring=ring, act_pspec=S.P(*act) if act else None,
+                      moe_pspec=moe)
+            before = dict(mesh_mod.HAND_OFFS)
+            with torch.no_grad():
+                logits = M.forward(cfg, params, toks, **kw)
+                fwd = _hand_offs_since(before)
+                last, cache = M.prefill(cfg, params, toks, **kw)
+            before = dict(mesh_mod.HAND_OFFS)
+            loss, grads = loss_and_grads(cfg, params, batch, **kw)
+            out[name, key] = {
+                "logits": S.full(logits).numpy(), "last": S.full(last).numpy(),
+                "cache": {k: S.full(t).numpy() for k, t in cache.items()},
+                "loss": float(loss), "grads": _full(grads),
+                "placed": _placed_as(grads, params, specs, mesh),
+                "hand_offs": fwd, "grad_hand_offs": _hand_offs_since(before)}
+        if name != extra:
+            continue
+        with torch.no_grad():
+            short = {"tokens": toks["tokens"][:, :-1]}
+            before = dict(mesh_mod.HAND_OFFS)
+            res = {"short": S.full(M.forward(cfg, params, short,
+                                             ring=ring)).numpy(),
+                   "short_hand_offs": _hand_offs_since(before)}
+            token = {"token": toks["tokens"][:, -1]}
+            for label, r in (("ring", ring), ("plain", None)):
+                _, cache = M.prefill(cfg, params, toks, ring=r)
+                cache = {k: sharded.grow(t, 2, 1) if k in ("k", "v") else t
+                         for k, t in cache.items()}
+                res[f"{label}_places"] = {
+                    k: [repr(p) for p in t.placements]
+                    for k, t in cache.items() if sharded.placed(t)}
+                step, _ = M.decode_step(cfg, params, cache, token)
+                res[f"{label}_step"] = S.full(step).numpy()
+            line = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+            res["other_mesh"] = _raised(lambda: M.forward(
+                cfg, params, toks, ring=(line, "model")))
+        out[name, "extra"] = res
+    return out
+
+
 # -- sharded decode: decode_step on a placed cache ----------------------------
 
 def body_shard_decode(rank, world, cases, modes, gen):

@@ -111,14 +111,39 @@ def test_prefill_runs_at_the_production_mesh(tmp_path):
 
 
 def test_a_failing_combo_is_recorded(tmp_path):
-    """The ring on placed params has no counterpart in the port yet: the
-    combo is recorded with ``ok`` false, its error and traceback."""
-    rec = dryrun.run_combo("llama3.2-1b", "prefill_32k", False, tmp_path,
+    """A combo that raises inside ``run_combo`` (an arch ``configs.get``
+    does not know) is recorded with ``ok`` false, its error and
+    traceback."""
+    rec = dryrun.run_combo("no-such-arch", "prefill_32k", False, tmp_path,
                            force=True, device="cpu", opts={"ring": True})
     assert rec["ok"] is False
     assert rec["error"] and "Traceback" in rec["traceback"]
     assert rec["opts"] == ["ring"]
-    assert (tmp_path / "llama3.2-1b__prefill_32k__pod1__ring.json").exists()
+    assert (tmp_path / "no-such-arch__prefill_32k__pod1__ring.json").exists()
+
+
+def test_the_ring_prefill_runs_at_the_production_mesh(tmp_path, capsys):
+    """``--opt ring`` on Llama's prefill_32k at 16 x 16 (placed params, a
+    fake group of 256) is ``ok``: each layer's attention rings over
+    ``model`` on each rank's rows, 15 hand-offs of its k/v block a layer
+    (the last rotation skipped): 16 x 15 collective-permutes on rank 0,
+    each k and v of (2, 2048, 8, 64) in bf16, pinned in
+    ``chip_smoke.py::DRYRUN_RING_PIN`` (phase 11 holds the card's torch to
+    it); no ``flash_prefill`` call."""
+    pin = _chip_smoke().DRYRUN_RING_PIN
+    assert pin == {"counts": 16 * 15, "bytes": 16 * 15 * 2 * (
+        2 * 2048 * 8 * 64) * 2}
+    rc = dryrun.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k",
+                      "--opt", "ring", "--device", "cpu", "--save-census",
+                      "--out", str(tmp_path)])
+    assert rc == 0 and "1/1 combos OK" in capsys.readouterr().out
+    path = tmp_path / "llama3.2-1b__prefill_32k__pod1__ring.json"
+    rec = json.loads(path.read_text())
+    assert rec["ok"] and rec["opts"] == ["ring"]
+    coll = rec["roofline"]["coll_breakdown"]
+    assert {k: coll[k]["collective-permute"] for k in coll} == pin
+    census = profile.load(path.with_suffix(".census.json.gz"))
+    assert "flash_prefill" not in census.by_computation
 
 
 def test_main_writes_a_record(tmp_path, capsys):

@@ -5,6 +5,8 @@ collectives, the DTensor trap (a per-device count on a fake 16 x 16
 mesh, cold and warm), and every LM kernel wrapper on fake tensors: no
 launch, the kernel's shapes and dtypes, its ``work(...)`` recorded."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +145,34 @@ def test_collectives_by_kind_on_a_fake_group():
         assert c.coll_bytes == {"all-gather": 2 * 60}
         assert c.coll_ops == [(120, "all-gather", "_c10d_functional."
                                "all_gather_into_tensor.default")]
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["zeros", "fake"])
+def test_a_shard_to_shard_redistribution_counts_one_all_to_all(fake):
+    """DTensor's Shard(0) -> Shard(1) over ``model`` on a CPU mesh falls
+    back to an all-gather and a chunk (gloo has no all-to-all); the census
+    counts it as the all-to-all it stands for: one, of the bytes it counts
+    for ``all_to_all_single`` of the same local tensor, and no gather.  On
+    zeros and on fake tensors (the dry run's)."""
+    import torch.distributed._functional_collectives as funcol
+    with fake_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        with FakeTensorMode() if fake else contextlib.nullcontext():
+            loc = torch.zeros((4, 8))
+            t = DTensor.from_local(loc, mesh, [Replicate(), Shard(0)],
+                                   run_check=False, shape=(8, 8),
+                                   stride=(8, 1))
+            y, c = _census(lambda: t.redistribute(mesh, [Replicate(),
+                                                         Shard(1)]))
+            _, single = _census(lambda: funcol.wait_tensor(
+                funcol.all_to_all_single(loc, None, None,
+                                         mesh.get_group("model"))))
+        assert tuple(y.to_local().shape) == (8, 4)
+        assert single.coll_counts == {"all-to-all": 1}
+        assert c.coll_counts == single.coll_counts
+        assert c.coll_bytes == single.coll_bytes == {"all-to-all": 128}
+        assert c.coll_ops == [(128, "all-to-all", H.ALLTOALL_OP)]
+        assert c.hbm_bytes == 128
 
 
 def test_the_dtensor_trap_counts_one_device():
