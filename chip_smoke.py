@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --examples   # phases 1, 2 and 12 alone, no result
 
 Phases (each exits non-zero on failure; nothing is caught and skipped):
 
@@ -345,10 +346,28 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    card's peak; (c) ``launch.profile``'s listings of (a)'s decode census
    and ``launch.report``'s two tables over (a)'s records; each line
    beside the card's name and power limit;
-12. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
-   launches are those of phases 4b, 4d's abort run, 4e, 4f and 4g's
-   in-process plan CLI, flash_prefill's those of Llama's fp32 generate
-   and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
+12. the examples (``[examples]`` lines): (b) first, each of
+   ``examples/{quickstart,lm_generate,train_tiny,pico_pod_pipeline,
+   serve_pipeline,dist_pipeline}_torch.py`` as a command with no
+   ``--device`` (so on the card), all started together, and
+   ``tools/plan_cli_torch.py`` (plan, then ``--load --validate
+   --execute``) beside them: each must return rc 0 and print its ✓ or
+   ``match`` line, with its wall seconds (taken while the others run);
+   meanwhile (a) the quickstart's steps on InceptionV3 at its published
+   size (299 x 299, scale 1.0) on four Pis are planned
+   (``repro_torch.compile``), and once (b) is done they run on the
+   card: every distinct conv launch of ``dep.run`` held against the
+   plain version at its shape, and timed where its plan is one that
+   phase 3 never held; one seeded frame through ``dep.run`` with the
+   conv's launches counted (reset just before, read just after, the
+   replays in them), ms/frame replayed and eager in turns, the logits
+   within 1e-4 x max|logit| of the monolithic forward and the
+   ``"torch"`` backend, ``simulate(32)``, and the artifact saved and
+   loaded with outputs equal bit for bit;
+13. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+   launches are those of phases 4b, 4d's abort run, 4e, 4f, 4g's
+   in-process plan CLI and 12 (a), flash_prefill's those of Llama's fp32
+   generate and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
    not the one-process run's), ssd_chunk's those of mamba2's fp32
    generate and of phase 6's (b″)-(c‴), moe_gemm's those of granite's
    fp32 generate and of phase 6's (b') and (c'), flash_prefill_bwd's
@@ -584,6 +603,27 @@ DRYRUN_PIN = {"flops": 35596009472.0, "bytes": 34585613816.0,
                                  "all-gather": 8590721024.0},
                        "counts": {"all-reduce": 33.0, "all-gather": 80.0}}}
 LAUNCH_PROMPT = (4, 511)
+# phase 12: the examples.  (a) the quickstart's model at its published size
+# (zoo.inceptionv3: 299 x 299, scale 1.0) on its four Pis at EX_GHZ,
+# EX_REPS timed dep.run calls a turn; (b) each example that computes on a
+# device as a command with no --device, under EX_CMD_S seconds, with the
+# lines its output must hold, and the plan CLI's launcher on EX_CLI_ARGV
+EX_GHZ = [1.5, 1.2, 1.0, 0.8]
+EX_REPS = 10
+EX_CMD_S = 300
+EX_COMMANDS = {
+    "quickstart": ("matches monolithic forward ✓ on cuda",
+                   "is bit-identical ✓"),
+    "lm_generate": ("on cuda; sample", "works across families ✓"),
+    "train_tiny": ("on cuda", "checkpoint saved to"),
+    "pico_pod_pipeline": ("on cuda matches the monolithic forward ✓",),
+    "serve_pipeline": ("served every request on cuda ✓",),
+    "dist_pipeline": ("runs on cuda", "all outputs bit-identical ✓")}
+EX_CLI_ARGV = ["--model", "squeezenet", "--scale", "0.25", "--input", "48",
+               "--devices", "2"]
+# the conv plans (variant, tile, split) phase 3 held; phase 12 (a) times a
+# launch whose plan is none of them
+HELD_CONV_PLANS: set = set()
 
 
 def fail(msg: str) -> None:
@@ -6229,6 +6269,7 @@ def run_cnn() -> dict:
     if bad:
         fail(f"{len(bad)} kernel case(s) disagree with the plain version, "
              f"repeat no bits or ran another variant")
+    HELD_CONV_PLANS.update(tuple(r["plan"]) for r in cases)
 
     # the launches of one single-frame runner call, in order
     by_key = {(r["x"], r["w"], r["stride"], r["pool"], r["dtype"]): r
@@ -6566,7 +6607,311 @@ def run_launch(card: str) -> None:
             fail(f"launch: phase 11 exited with {proc.returncode}")
 
 
-def main() -> None:
+# -- the examples (phase 12) --------------------------------------------------
+
+def _example_commands():
+    """Start phase 12 (b): each example of EX_COMMANDS as a command with no
+    ``--device`` (output to a file of its own), all at once, and in a
+    thread beside them the plan CLI's launcher: plan, then ``--load
+    --validate --execute``.  Returns what :func:`_example_results` waits
+    for."""
+    import threading
+    tmp = ROOT / "build" / "smoke" / "examples"
+    tmp.mkdir(parents=True, exist_ok=True)
+    env = dict(_child_env(), TMPDIR=str(tmp))
+    started = {}
+    for name in EX_COMMANDS:
+        out = open(tmp / f"{name}.out", "w")
+        proc = subprocess.Popen([sys.executable, f"examples/{name}_torch.py"],
+                                cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, out, time.perf_counter())
+    cli: dict[str, tuple] = {}
+
+    def plan_cli():
+        path = tmp / "plan_cli_torch.json"
+        for label, args in (("plan", EX_CLI_ARGV + ["--out", str(path)]),
+                            ("load", ["--load", str(path), "--validate",
+                                      "--execute"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "tools/plan_cli_torch.py", *args], cwd=ROOT,
+                env=env, capture_output=True, text=True, timeout=EX_CMD_S)
+            cli[label] = (args, proc, time.perf_counter() - t0)
+            if proc.returncode != 0:
+                return
+
+    thread = threading.Thread(target=plan_cli, daemon=True)
+    thread.start()
+    return started, thread, cli
+
+
+def _example_results(started, thread, cli, card: str) -> None:
+    """Wait for phase 12 (b) (each command under EX_CMD_S seconds) and
+    print each command's rc, wall seconds and ✓ lines; fails the run if
+    one returned another rc than 0 or lacks a line it must print."""
+    done: dict[str, tuple[int, float]] = {}
+    while len(done) < len(started):
+        for name, (proc, out, t0) in started.items():
+            if name in done:
+                continue
+            if proc.poll() is not None:
+                done[name] = (proc.returncode, time.perf_counter() - t0)
+                out.close()
+            elif time.perf_counter() - t0 > EX_CMD_S:
+                proc.kill()
+                proc.wait()
+                done[name] = (-9, time.perf_counter() - t0)
+                out.close()
+        time.sleep(0.1)
+    thread.join(timeout=2 * EX_CMD_S)
+    bad = []
+    for name, (rc, secs) in done.items():
+        text = (ROOT / "build" / "smoke" / "examples" / f"{name}.out"
+                ).read_text()
+        missing = [want for want in EX_COMMANDS[name] if want not in text]
+        print(f"[examples] (b) $ python examples/{name}_torch.py: rc {rc}, "
+              f"{secs:.1f} s wall (beside the other commands); on {card}")
+        for line in text.splitlines():
+            if "✓" in line or rc != 0 or missing:
+                print(f"[examples]   {line}")
+        if rc != 0 or missing:
+            bad.append(f"{name} (rc {rc}, missing {missing})")
+    for label in ("plan", "load"):
+        if label not in cli:
+            bad.append(f"plan_cli_torch {label}: did not run")
+            continue
+        args, proc, secs = cli[label]
+        print(f"[examples] (b) $ python tools/plan_cli_torch.py "
+              f"{' '.join(args)}: rc {proc.returncode}, {secs:.1f} s wall; "
+              f"on {card}")
+        for line in (proc.stdout + proc.stderr).splitlines():
+            print(f"[examples]   {line}")
+        if proc.returncode != 0:
+            bad.append(f"plan_cli_torch {label} (rc {proc.returncode})")
+    text = cli["load"][1].stdout if "load" in cli else ""
+    if "execute: pipelined outputs match monolithic forward ✓ on cuda" \
+            not in text:
+        bad.append("plan_cli_torch: no execute line on cuda")
+    if bad:
+        fail(f"examples: {'; '.join(bad)}")
+
+
+def _example_conv_checks(launched: dict, card: str) -> None:
+    """Phase 12 (a)'s distinct conv launches (``launched``: launch key ->
+    [the plan it took, launches a call]), each held against the plain
+    version at its shape under that plan; a launch whose plan is none of
+    HELD_CONV_PLANS is also a timed case, as in phase 3."""
+    import torch
+    from repro_torch.kernels.conv2d import ops, ref
+
+    worst, worst_key = 0.0, None
+    for key, (p, _) in launched.items():
+        xs, ws, st, pool, relu, bias, dt = key
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dtype = getattr(torch, dt)
+        x = torch.randn(xs, generator=g, device="cuda").to(dtype)
+        w = (torch.randn(ws, generator=g, device="cuda")
+             / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+        b = (0.1 * torch.randn((ws[3],), generator=g, device="cuda")
+             ).to(dtype) if bias else None
+        before = dict(ops.variant_counts)
+        y = ops.conv2d_fused(x, w, b, stride=st, relu=relu, pool=pool,
+                             tile=p.tile, split=p.split)
+        ran = [v for v in ops.VARIANTS if ops.variant_counts[v] != before[v]]
+        y_ref = ref.conv2d_fused_ref(x, w, b, stride=st, relu=relu,
+                                     pool=pool)
+        err, of_limit, ok = check_close(y, y_ref, dtype)
+        if not ok or ran != [p.variant]:
+            fail(f"examples: conv x{xs} w{ws} s{st} p{pool} under "
+                 f"{_plan_text(p)} (ran {ran}): error {err:.3g}, "
+                 f"{of_limit:.2f} of its limit")
+        if of_limit >= worst:
+            worst, worst_key = of_limit, key
+    print(f"[examples] (a) {len(launched)} distinct conv launches of "
+          f"dep.run, each against the plain version at its shape under "
+          f"the plan it took: all ok, worst {worst:.3f} of its limit "
+          f"(x{worst_key[0]} w{worst_key[1]}); on {card}")
+
+    plans = {tuple(p): key for key, (p, _) in launched.items()}
+    new = [plan for plan in plans if plan not in HELD_CONV_PLANS]
+    print(f"[examples] (a) plans taken {sorted(plans)}; none that phase 3 "
+          f"held: {new}")
+    for plan in new:
+        xs, ws, st, pool, relu, bias, dt = plans[plan]
+        r = conv_case(xs, ws, st, pool, dt, relu=relu, bias=bias)
+        print(f"  {'ok ' if r['ok'] else 'BAD'} x{r['x']} w{r['w']} "
+              f"s{r['stride']} p{r['pool']} {r['dtype']} "
+              f"{_plan_text(r['plan'])} (ran {'/'.join(r['ran'])}) | "
+              f"{r['err']:.3g} ({r['of_limit']:.2f} of limit)"
+              f"{'' if r['same'] else ' NOT BIT-REPRODUCIBLE'} | "
+              f"{r['ms']:.4f} / {r['plain_ms']:.4f} / {r['library_ms']:.4f}"
+              f" / {r['bound_ms']:.4f} ({r['bound_by']}) | device "
+              f"{r['dev_ms']:.4f} / {r['library_dev_ms']:.4f}")
+        if not r["ok"] or tuple(r["plan"]) != plan:
+            fail(f"examples: the timed case of plan {plan} failed or took "
+                 f"{tuple(r['plan'])}")
+
+
+def run_examples(card: str) -> int:
+    """Phase 12: (b) the examples as commands, started first; (a) the
+    quickstart's steps on InceptionV3 at its published size, planned
+    while (b) runs and run on the card once it is done.  Returns the
+    conv kernel's launches of (a)'s counted ``dep.run`` calls."""
+    import dataclasses
+    import torch
+    import repro_torch
+    from repro_torch.api.specs import ExecSpec
+    from repro_torch.core import make_pi_cluster
+    from repro_torch.exec import graph
+    from repro_torch.exec.cache import clear_cache
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.models.cnn import zoo
+
+    t_phase = time.perf_counter()
+    commands = _example_commands()
+    model = zoo.inceptionv3()
+    dep = repro_torch.compile(model, make_pi_cluster(EX_GHZ))
+    plan_s = time.perf_counter() - t_phase
+    _example_results(*commands, card)
+    print(f"[examples] (b) done {time.perf_counter() - t_phase:.1f} s into "
+          f"the phase")
+
+    # -- (a) the plan ---------------------------------------------------
+    print(f"[examples] (a) {model.name} {model.input_size} scale 1.0, "
+          f"{len(model.graph.layers)} vertices, width "
+          f"{model.graph.width()}, on {len(EX_GHZ)} Pis at {EX_GHZ} GHz: "
+          f"planned in {plan_s:.1f} s (beside (b)); "
+          f"{len(dep.partition.pieces)} pieces (worst redundancy {dep.partition.objective:.3g} FLOPs), "
+          f"{len(dep.pipeline.stages)} stages, period "
+          f"{dep.period * 1e3:.2f} ms, latency {dep.latency * 1e3:.2f} ms "
+          f"(modeled)")
+    for line in dep.describe().splitlines()[1:]:
+        print(f"[examples]   {line}")
+    dep.load_params(torch.Generator().manual_seed(0))
+    w, h = model.input_size
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frame = torch.randn((1, h, w, model.in_channels), generator=g,
+                        device="cuda")
+    planned = sum(
+        sum(model.graph.layers[n].kind == "conv" for n in ex.nodes)
+        for ex in dep.runner.stages for tp in ex.plans if not tp.empty)
+
+    # the launches dep.run makes, one eager call with a recording wrapper
+    # (not counted), each with the plan it takes
+    launched: dict[tuple, list] = {}
+    real = ops.conv2d_fused
+
+    def recording(x, w, b=None, *, stride=(1, 1), relu=False, pool=None,
+                  **over):
+        st = ops.normalize_stride(stride)
+        pl = None if pool is None else tuple(pool)
+        p = ops.plan(*x.shape, w.shape[0], w.shape[1], w.shape[3], st, pl,
+                     x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                     None if over.get("tile") is None
+                     else tuple(over["tile"]), over.get("split"))
+        key = (tuple(x.shape), tuple(w.shape), st, pl, relu, b is not None,
+               str(x.dtype).removeprefix("torch."))
+        launched.setdefault(key, [p, 0])[1] += 1
+        return real(x, w, b, stride=stride, relu=relu, pool=pool, **over)
+
+    ops.conv2d_fused = recording
+    try:
+        with graph.eager():
+            dep.run(frame)
+    finally:
+        ops.conv2d_fused = real
+    torch.cuda.synchronize()
+    per_call = sum(n for _, n in launched.values())
+    print(f"[examples] (a) {per_call} conv launches a dep.run call (plan: "
+          f"{planned}), {len(launched)} distinct")
+    if per_call != planned:
+        fail(f"examples: dep.run launched {per_call} convs, plan says "
+             f"{planned}")
+    _example_conv_checks(launched, card)
+
+    # -- (a) the main path, counted: the first call captures the stages'
+    # graphs, then EX_REPS calls a turn, eager and replayed in turns
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dep.run(frame)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        with graph.eager() if mode == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EX_REPS):
+                dep.run(frame)
+            torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) / EX_REPS * 1e3)
+    launches = ops.launch_count()
+    calls = 1 + 4 * EX_REPS
+    print(f"[examples] (a) conv2d_fused launches {launches} (plan: {planned}"
+          f" x {calls} dep.run calls); dep.run(frame) ms/frame replayed "
+          + " / ".join(f"{t:.3f}" for t in times["graph"]) + ", eager "
+          + " / ".join(f"{t:.3f}" for t in times["eager"])
+          + f" (mean of {EX_REPS} calls a turn, turns eager, graph, graph, "
+          f"eager; host clock around synchronized calls); the first call, "
+          f"which captures the graphs, {first_ms:.1f} ms; on {card}")
+    if launches <= 0 or launches != planned * calls:
+        fail(f"examples: conv launches {launches} != {planned} x {calls}")
+
+    # -- (a) the outputs ------------------------------------------------
+    sink = model.graph.sinks()[0]
+    logits = out[sink]
+    with graph.eager():
+        ref_m = model.forward(dep.params, frame)[sink]
+        dep_t = dataclasses.replace(dep, exec_spec=ExecSpec(backend="torch"),
+                                    _runner=None)
+        ref_t = dep_t.run(frame)[sink]
+    torch.cuda.synchronize()
+    scale = ref_t.abs().max().item()
+    tol = LOGIT_TOL * scale
+    d_t = (logits - ref_t).abs().max().item()
+    d_m = (logits - ref_m).abs().max().item()
+    excess = (((logits - ref_m).abs() - 1e-5 - 1e-5 * ref_m.abs())
+              .max().item())
+    print(f"[examples] (a) logits {tuple(logits.shape)} "
+          f"{'finite' if bool(torch.isfinite(logits).all()) else 'NOT FINITE'}"
+          f"; max |diff| vs torch backend {d_t:.3g}, vs monolithic forward "
+          f"{d_m:.3g} (limit {tol:.3g} = {LOGIT_TOL:g} x max |logit| "
+          f"{scale:.3g}); the quickstart's rtol = atol = 1e-5 against the "
+          f"monolithic forward: {'held' if excess <= 0 else 'MISSED'} "
+          f"(worst excess {excess:.3g})")
+    if tuple(logits.shape[-1:]) != (1000,) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"examples: logits {tuple(logits.shape)} not finite or not "
+             f"1000 classes")
+    if not (d_t <= tol and d_m <= tol):
+        fail("examples: InceptionV3's logits disagree")
+
+    rep = dep.simulate(frames=32)
+    print(f"[examples] (a) simulate(32): throughput "
+          f"{rep.throughput_per_min:.1f}/min, avg util "
+          f"{rep.avg_utilization:.2f}, avg redundancy "
+          f"{rep.avg_redundancy:.3f}, avg mem {rep.avg_memory / 1e6:.1f} MB "
+          f"(modeled on the Pis)")
+
+    # -- (a) the artifact, saved and loaded -----------------------------
+    path = dep.save(ROOT / "build" / "smoke" / "inceptionv3_4pi_plan.json")
+    dep2 = repro_torch.Deployment.load(path)
+    out2 = dep2.run(frame)
+    torch.cuda.synchronize()
+    same = sorted(out) == sorted(out2) and all(
+        torch.equal(out[k], out2[k]) for k in out)
+    print(f"[examples] (a) saved ({path}) and loaded: outputs "
+          f"{'equal' if same else 'DIFFERENT'} bit for bit")
+    if not same:
+        fail("examples: the loaded deployment's outputs differ")
+    del dep, dep_t, dep2
+    clear_cache()
+    return launches
+
+
+def main(only_examples: bool = False) -> None:
     # the port's package comes from this checkout; alone, the script
     # stops here with an ImportError and prints nothing
     import torch
@@ -6588,6 +6933,12 @@ def main() -> None:
     # -- 2. build --------------------------------------------------------
     lm_sources = {mod.SOURCES[n] for n, mod in _kernel_ops().items()}
     build_all([conv_ops.SOURCE, *sorted(lm_sources)])
+
+    if only_examples:
+        t0 = time.perf_counter()
+        print(f"[examples] conv2d_fused launches of (a): {run_examples(card)}")
+        print(f"[time] examples phase {time.perf_counter() - t0:.1f} s")
+        return
 
     # -- 3./4./5. the CNN path, then each LM path ------------------------
     t0 = time.perf_counter()
@@ -6636,6 +6987,12 @@ def main() -> None:
     t0 = time.perf_counter()
     run_launch(card)
     print(f"[time] launch tooling phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ex_launches = run_examples(card)
+    kernels[0]["launches"] += ex_launches
+    print(f"[time] examples phase {time.perf_counter() - t0:.1f} s")
+    print(f"[kernels] conv2d_fused: also phase 12 (a)'s {ex_launches} "
+          f"launches (InceptionV3's counted dep.run calls)")
     print(f"[kernels] ssd_chunk: library_ms null: no single PyTorch call "
           f"computes the intra-chunk SSD; its launches mamba2's fp32 "
           f"generate's and phase 6's {ssd_train} (mamba2's and zamba2's "
@@ -6659,7 +7016,7 @@ def main() -> None:
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 
-    # -- 12. result lines ------------------------------------------------
+    # -- 13. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6671,4 +7028,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--launch-tools"]:
         launch_phase(*sys.argv[2:4])
     else:
-        main()
+        main(only_examples=sys.argv[1:2] == ["--examples"])

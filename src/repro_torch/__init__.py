@@ -28,6 +28,7 @@ from .api._compat import lazy_exports
 _LAZY = {
     "compile": ("repro_torch.api.deployment", "compile"),
     "Deployment": ("repro_torch.api.deployment", "Deployment"),
+    "require_device": ("repro_torch.api.deployment", "require_device"),
     "PlanSpec": ("repro_torch.api.specs", "PlanSpec"),
     "ExecSpec": ("repro_torch.api.specs", "ExecSpec"),
     "DeploySpec": ("repro_torch.api.specs", "DeploySpec"),
@@ -46,9 +47,9 @@ _LAZY = {
     "dist": ("repro_torch.dist", None),
 }
 
-__all__ = ["compile", "Deployment", "PlanSpec", "ExecSpec", "DeploySpec",
-           "FleetSpec", "DistSpec", "DistLauncher", "ObjectiveSpec",
-           "OBJECTIVE_PRESETS", "plan_front", "ParetoFront", "PlanRegistry",
-           "FleetRouter", "api", "obs", "fleet", "dist"]
+__all__ = ["compile", "Deployment", "require_device", "PlanSpec",
+           "ExecSpec", "DeploySpec", "FleetSpec", "DistSpec", "DistLauncher",
+           "ObjectiveSpec", "OBJECTIVE_PRESETS", "plan_front", "ParetoFront",
+           "PlanRegistry", "FleetRouter", "api", "obs", "fleet", "dist"]
 
 __getattr__, __dir__ = lazy_exports(__name__, globals(), _LAZY)

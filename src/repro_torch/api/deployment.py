@@ -49,6 +49,18 @@ from . import artifacts
 from .specs import DeploySpec, ExecSpec, PlanSpec
 
 
+def require_device(device: str | torch.device) -> torch.device:
+    """``device`` as a :class:`torch.device`, for a command-line entry
+    point (the examples): a CUDA device on a machine without one stops
+    the program with a message (``SystemExit``) rather than run on the
+    CPU instead."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run the "
+                         "plain versions on the CPU")
+    return device
+
+
 def compile(model, cluster: Cluster,
             plan_spec: PlanSpec | None = None,
             exec_spec: ExecSpec | None = None, *,

@@ -27,6 +27,7 @@ import time
 import torch
 
 from .. import configs
+from ..api.deployment import require_device
 from ..models.transformer import model as M
 from ..serving.lm import generate
 
@@ -54,10 +55,7 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
                          f"for its serve_step: python -m "
                          f"repro_torch.launch.dryrun --arch {args.arch} "
                          f"--shape decode_32k")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run the "
-                         "plain versions on the CPU")
+    device = require_device(args.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"arch {cfg.name}: {cfg.param_count()/1e6:.1f} M params, "

@@ -72,15 +72,6 @@ def _build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _device(args):
-    import torch
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run the "
-                         "plain versions on the CPU")
-    return device
-
-
 def _make_cluster(args):
     from ..core import make_pi_cluster
     freqs = ([float(f) for f in args.freqs.split(",")] if args.freqs
@@ -177,14 +168,15 @@ def _cmd_load(args, device) -> int:
 
 
 def main(argv=None) -> int:
+    from ..api.deployment import require_device
     args = _build_parser().parse_args(argv)
     if args.load:
-        return _cmd_load(args, _device(args))
+        return _cmd_load(args, require_device(args.device))
     if not args.model:
         print("error: need --model to plan or --load to reload",
               file=sys.stderr)
         return 2
-    return _cmd_plan(args, _device(args))
+    return _cmd_plan(args, require_device(args.device))
 
 
 if __name__ == "__main__":

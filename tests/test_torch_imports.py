@@ -1,6 +1,7 @@
 """The port (``src/repro_torch``), ``chip_smoke.py``,
-``tools/kernel_times.py`` and ``tools/gloo_cuda_check.py`` stand alone:
-they import neither ``jax`` nor the JAX package ``repro``."""
+``tools/kernel_times.py``, ``tools/gloo_cuda_check.py``, the ``_torch``
+examples and ``tools/plan_cli_torch.py`` stand alone: they import
+neither ``jax`` nor the JAX package ``repro``."""
 
 import os
 import re
@@ -15,9 +16,16 @@ from repro_torch.api.specs import ExecSpec, PlanSpec
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "tools" / "kernel_times.py",
-                                     ROOT / "tools" / "gloo_cuda_check.py"]
+# the examples' counterparts in the port, one beside each of the JAX
+# package's, and the plan CLI's launcher
+EXAMPLES = ("quickstart", "lm_generate", "train_tiny", "pico_pod_pipeline",
+            "dist_pipeline", "fleet_routing", "nasnet_dnc", "runtime_churn",
+            "serve_pipeline", "serving_multitenant")
+FILES = (sorted(PORT.rglob("*.py"))
+         + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_times.py",
+            ROOT / "tools" / "gloo_cuda_check.py",
+            ROOT / "tools" / "plan_cli_torch.py"]
+         + [ROOT / "examples" / f"{name}_torch.py" for name in EXAMPLES])
 # modules the subprocess import must reach by name (the walk finds the
 # rest): the mesh builders, the pipeline over them, the sharding rules and
 # the local-shard boundaries
@@ -60,6 +68,17 @@ def test_import_loads_neither_jax_nor_repro():
 def test_source_has_no_jax_or_repro_import(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path}: {hits}"
+
+
+def test_every_example_has_its_counterpart():
+    """Each of the JAX package's examples has a ``_torch`` file beside it,
+    and every ``_torch`` example is scanned."""
+    ref = {p.stem for p in (ROOT / "examples").glob("*.py")
+           if not p.stem.endswith("_torch")}
+    ported = {p.stem for p in (ROOT / "examples").glob("*_torch.py")}
+    assert ref == set(EXAMPLES)
+    assert ported == {f"{name}_torch" for name in EXAMPLES}
+    assert (ROOT / "tools" / "plan_cli.py").exists()
 
 
 def test_forbidden_pattern_catches_what_it_should():
