@@ -245,7 +245,7 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    max|ref| of the one-process kernel path that rank 0 runs after its
    ring calls (16 ``flash_prefill`` launches a call).  (c) one NCCL rank
    (a ring of one: no hand-off) of (b)'s forward, held the same way.
-   Printed: ms a call (median of 3) beside the one-process kernel path,
+   Printed: ms of one timed call beside the one-process kernel path,
    hand-offs by path, one k/v hand-off's and one layer's ``all_gather``'s
    ms alone, each rank's peak memory, the phase's wall time, each beside
    the card's name and power limit;
@@ -285,7 +285,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    full width; the elements past the reduced test's 1e-5 counted),
    every returned leaf in its spec's placements.  Printed: the
    collectives of each counted call by kind (``CommDebugMode``) and by
-   path, the ms of the gloo ranks' counted call (one call a case: three,
+   path; (b)'s and (c)'s all-gather bytes (host-staged, their results'
+   bytes) and peak memory a rank beside the parent's (``SHARD_PARENT``:
+   the loss on the gathered vocab, the MLP on DTensor's own
+   propagation), (b) at act_pspec None and each (c) step gathering only
+   the vocab slices' log-sum-exps, B_loc S m x 4 bytes; the ms of the gloo
+   ranks' counted call (one call a case: three,
    as in phases 7 and 8, would add about 100 s, each call moving
    gigabytes of gradients through the host, and the script must end
    within 1200 s) beside the one-process kernel path's and the NCCL
@@ -330,13 +335,17 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    (``CommDebugMode``) and path, ms a step beside the one-process path,
    each rank's peak memory, seconds by part, the phase's wall, each
    beside the card's name and power limit;
-11. the launch tooling, in a subprocess under 60 s (``--launch-tools``):
+11. the launch tooling, in a subprocess under 90 s (``--launch-tools``):
    (a) ``launch.dryrun.run_combo`` of Llama-3.2-1B x decode_32k,
    prefill_32k and train_4k at pod1, each on fake cuda tensors over a
    fake process group of 256 ranks, printing its roofline terms at the
    H100's peaks, dominant term, memory a device, useful-FLOPs ratio and
    seconds; decode_32k's census (FLOPs, bytes, collectives by kind)
    equal to ``DRYRUN_PIN``, the CPU tests' numbers under another torch;
+   train_4k's equal to ``DRYRUN_TRAIN_PIN``, the CPU dry run's under
+   the card's torch, and its step built again and watched
+   (``launch.hlo_analysis.Largest``): no output on rank 0 with the
+   whole padded vocab as a dim;
    (b) the census of a real one-device Llama-3.2-1B prefill at (4, 511),
    fp32 and bf16, kernels, against the same call's census on fake cuda
    tensors: FLOPs, bytes and calls by entry equal, ``flash_prefill``'s
@@ -344,8 +353,9 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    inputs), the call's device ms (``torch.profiler``) beside the
    census's roofline bound, and the fake run's temp bytes beside the
    card's peak; (c) ``launch.profile``'s listings of (a)'s decode census
-   and ``launch.report``'s two tables over (a)'s records; each line
-   beside the card's name and power limit;
+   and ``launch.report``'s two tables over (a)'s records, then
+   ``tools/gen_experiments_torch.py`` over them: rc 0 and a row for each
+   of (a)'s combos; each line beside the card's name and power limit;
 12. the examples (``[examples]`` lines): (b) first, each of
    ``examples/{quickstart,lm_generate,train_tiny,pico_pod_pipeline,
    serve_pipeline,dist_pipeline}_torch.py`` as a command with no
@@ -519,9 +529,11 @@ PIPE_HAND_REPS, PIPE_TIMEOUT_S = 10, 300
 # width, all 16 layers, fp32, one (1, RING_Q[1]) prompt from numpy seed
 # RING_SEED; (c) the NCCL rank's forward.  One counted call (the warm-up)
 # and RING_CALLS timed ones a case, RING_HAND_REPS hand-offs and gathers
-# timed alone, each run of ranks under PIPE_TIMEOUT_S
+# timed alone, each run of ranks under PIPE_TIMEOUT_S.  One timed call a
+# case, as phase 9 takes: with three the script took 1127 s of its 1200
+# on an H100 80GB HBM3 machine whose host ran every phase 10-26% slower
 RING_RANKS, RING_Q, RING_WINDOWS = 4, (1, 8192, 8, 4, 64), (0, 4096)
-RING_CALLS, RING_SEED, RING_HAND_REPS = 3, 0, 10
+RING_CALLS, RING_SEED, RING_HAND_REPS = 1, 0, 10
 # phase 9: the sharding rules as DTensor placements (launch/sharding.py,
 # models/transformer/sharded.py), SHARD_RANKS gloo ranks on cuda:0 as a
 # SHARD_MESH ("data", "model") mesh, then one NCCL rank on a (1, 1) mesh.
@@ -548,6 +560,12 @@ SHARD_BATCH, SHARD_COLL_MIB = (4, 512), 16
 SHARD_ACT = (("data",), "model", None)
 SHARD_MOE = (("data",), None, None, None)
 SHARD_STEPS, SHARD_STEP_LAYERS, SHARD_LR, SHARD_EPS = 3, 4, 1e-3, 1e-6
+# (b) at act_pspec None and a (c) step on the parent's path (the loss on
+# the vocab gathered over "model", the dense MLP on DTensor's own
+# propagation): all-gather bytes and peak memory a gloo rank, H100 80GB
+# HBM3 at 700.00 W, torch 2.11 (PERF.md section 6)
+SHARD_PARENT = {"(b) gathered": 526385152, "(b) peak_gib": 8.44,
+                "(c) gathered": 526385152, "(c) peak_gib": 12.06}
 SHARD_MOE_LAYERS = 8
 SHARD_LOSS_REL, SHARD_GRAD_REL = 1e-6, 5e-5
 SHARD_STEP_ATOL, SHARD_PARAM_BAND = 1e-4, 1e-5
@@ -602,6 +620,15 @@ DRYRUN_PIN = {"flops": 35596009472.0, "bytes": 34585613816.0,
               "coll": {"bytes": {"all-reduce": 1081344.0,
                                  "all-gather": 8590721024.0},
                        "counts": {"all-reduce": 33.0, "all-gather": 80.0}}}
+# Llama-3.2-1B x train_4k's census at pod1, as the dry run gives it on
+# fake CPU tensors under torch 2.11 (python -m repro_torch.launch.dryrun
+# --arch llama3.2-1b --shape train_4k --device cpu on the card's host;
+# torch 2.13's CPU differs in aten.mm, ROADMAP Queue 3)
+DRYRUN_TRAIN_PIN = {"flops": 123585536458752.0, "bytes": 1928882574368.0,
+                    "coll": {"bytes": {"all-reduce": 62367481896.0,
+                                       "all-gather": 34363932672.0},
+                             "counts": {"all-reduce": 141.0,
+                                        "all-gather": 113.0}}}
 LAUNCH_PROMPT = (4, 511)
 # phase 12: the examples.  (a) the quickstart's model at its published size
 # (zoo.inceptionv3: 299 x 299, scale 1.0) on its four Pis at EX_GHZ,
@@ -3670,6 +3697,13 @@ def _shard_transport(mesh, sync) -> dict:
     return out
 
 
+def _gathered_bytes(mesh_mod) -> int:
+    """The bytes the host-staged sub-groups' all-gathers returned in this
+    process so far (``launch.mesh.COLLECTIVE_BYTES``)."""
+    return (mesh_mod.COLLECTIVE_BYTES["all_gather_into_tensor"]
+            + mesh_mod.COLLECTIVE_BYTES["all_gather"])
+
+
 def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
     """A phase 9 rank: under gloo (world SHARD_RANKS, mesh SHARD_MESH)
     (a) the transport, then (b)-(e); under NCCL (one rank, mesh (1, 1))
@@ -3695,6 +3729,12 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
                                       make_train_step, tree)
 
     torch.cuda.reset_peak_memory_stats()
+    phase_peak = [0]
+
+    def peak_mark():
+        """Fold the peak so far into the phase's and start a new one."""
+        phase_peak[0] = max(phase_peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
     stamps = {"entered": time.time() - spawned}
     t_last = [time.perf_counter()]
 
@@ -3720,10 +3760,12 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
 
     def counted(fn):
         """fn() once, counted: its launches, collectives by kind and path,
-        and ms."""
+        the host-staged all-gathers' bytes, the peak memory and ms."""
         _reset_counts()
         before = Counter(mesh_mod.COLLECTIVES)
+        gathered = _gathered_bytes(mesh_mod)
         hand = dict(mesh_mod.HAND_OFFS)
+        peak_mark()
         sync()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3734,6 +3776,8 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         paths = Counter(mesh_mod.COLLECTIVES)
         paths.subtract(before)
         return out, {"launches": {n: ops[n].launch_count(n) for n in ops},
+                     "gathered": _gathered_bytes(mesh_mod) - gathered,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                      "comm": {str(k).split(".")[-1]: v for k, v in
                               comm.get_comm_counts().items()},
                      "paths": {f"{k} {p}": v for (k, p), v in paths.items()
@@ -3820,6 +3864,8 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         state, step = opt.init(p), make_train_step(cfg4, opt)
         losses, ms = [], []
         _reset_counts()
+        gathered = _gathered_bytes(mesh_mod)
+        peak_mark()
         for batch in batches[1:]:
             b = S.distribute(batch, S.batch_pspecs(cfg4, batch, mesh,
                                                    ("data",)), mesh)
@@ -3832,6 +3878,8 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
             losses.append(loss.item())
         res["(c) steps"] = {
             "launches": {n: ops[n].launch_count(n) for n in ops},
+            "gathered": _gathered_bytes(mesh_mod) - gathered,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "losses": losses, "ms": ms,
             "leaves": _shard_compare(p, ref_c["params"], mesh),
             "placed": all(same_places(t, specs)
@@ -3851,8 +3899,8 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
         res["(e) mamba2"] = grads_case("(e)", cfg, params, batch,
                                        ref["grads"])
     # (g): its own peak beside the phase's
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    torch.cuda.reset_peak_memory_stats()
+    peak_mark()
+    res["peak_gib"] = phase_peak[0] / 2 ** 30
     cfg, params, batches = data["llama"][:3]
     for act in (None, SHARD_ACT):
         key = f"(g) prefill act_pspec={act}"
@@ -3861,8 +3909,10 @@ def _shard_rank_body(rank, world, backend, out_dir, data, spawned) -> dict:
     key = f"(g) loss_and_grads act_pspec={SHARD_ACT}"
     res[key] = grads_case(key, cfg, params, batches[0], ref_b["grads"],
                           act=SHARD_ACT, ring=(mesh, "model"))
-    res["g_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    res["peak_gib"] = max(res["peak_gib"], res["g_peak_gib"])
+    res["g_peak_gib"] = max(res[k]["peak_gib"] for k in res
+                            if k.startswith("(g)"))
+    peak_mark()
+    res["peak_gib"] = max(res["peak_gib"], phase_peak[0] / 2 ** 30)
     res["stamps"] = stamps
     return res
 
@@ -3975,6 +4025,37 @@ def _ring_shard_lines(gloo, nccl, ref_b, ref_g, card: str) -> bool:
     return ok
 
 
+def _shard_memory_lines(cfg, gloo, card: str) -> bool:
+    """Print (b)'s and (c)'s all-gather bytes and peak memory a rank on
+    the gloo ranks beside the parent's (SHARD_PARENT); whether (b) at
+    act_pspec None and each (c) step gathered only the vocab slices'
+    log-sum-exps, B_loc S m x 4 bytes a rank, where the parent gathered
+    the logits, B_loc S V_padded x 4 bytes, besides."""
+    b_loc = SHARD_BATCH[0] // SHARD_MESH[0]
+    m = SHARD_MESH[1]
+    want = b_loc * SHARD_BATCH[1] * m * 4
+    logits = b_loc * SHARD_BATCH[1] * cfg.vocab_padded * 4
+    rs = [r["(b) act_pspec=None"] for r in gloo]
+    sq = [r[f"(b) act_pspec={SHARD_ACT}"] for r in gloo]
+    cs = [r["(c) steps"] for r in gloo]
+    print(f"[shard] (b) act_pspec=None loss_and_grads, 16 layers: "
+          f"all-gather bytes a rank {[r['gathered'] for r in rs]} (want "
+          f"{want}, the vocab slices' log-sum-exps; the parent "
+          f"{SHARD_PARENT['(b) gathered']}, with the logits' {logits}); "
+          f"act_pspec={SHARD_ACT} {[r['gathered'] for r in sq]}; peak "
+          f"memory a rank {[round(r['peak_gib'], 2) for r in rs]} GiB, "
+          f"act_pspec={SHARD_ACT} {[round(r['peak_gib'], 2) for r in sq]} "
+          f"GiB, the parent {SHARD_PARENT['(b) peak_gib']} GiB; on {card}")
+    print(f"[shard] (c) {SHARD_STEPS} steps at {SHARD_STEP_LAYERS} layers: "
+          f"all-gather bytes a rank a step "
+          f"{[r['gathered'] // SHARD_STEPS for r in cs]} (want {want}; the "
+          f"parent {SHARD_PARENT['(c) gathered']}); peak memory a rank "
+          f"{[round(r['peak_gib'], 2) for r in cs]} GiB, the parent "
+          f"{SHARD_PARENT['(c) peak_gib']} GiB; on {card}")
+    return all(r["gathered"] == want for r in rs) and all(
+        r["gathered"] == SHARD_STEPS * want for r in cs)
+
+
 def run_shard(card: str) -> dict:
     """Phase 9: the sharding rules as DTensor placements (``[shard]``
     lines).  The one-process kernel path of each case first, in this
@@ -4072,6 +4153,7 @@ def run_shard(card: str) -> dict:
         ok = _shard_lines(f"(b) {LM_ARCH} 16 layers loss_and_grads, "
                           f"act_pspec={act}", [r[key] for r in gloo], ref_b,
                           want1, card) and ok
+    ok = _shard_memory_lines(cfg, gloo, card) and ok
     print(f"[shard] (c) {LM_ARCH} at {SHARD_STEP_LAYERS} of 16 layers, "
           f"{SHARD_STEPS} make_train_step steps (AdamW lr {SHARD_LR:g}, eps "
           f"{SHARD_EPS:g}): losses "
@@ -6414,11 +6496,62 @@ def _census_calls(out_dir, rec: dict, name: str) -> int:
     return int(census.by_computation.get(name, {}).get("mult", 0))
 
 
+def _launch_train_checks(out_dir, arch: str, rec: dict) -> None:
+    """Phase 11 (a), the train_4k combo: its census against
+    DRYRUN_TRAIN_PIN, with the FLOPs of its largest entries; then the
+    CPU test's check (tests/test_torch_dryrun.py::test_the_sharded_train_
+    step_holds_no_whole_vocab) on the same step built again on fake cuda
+    tensors over a fake group of 256 ranks: no output on rank 0 has the
+    whole padded vocab as a dim."""
+    import torch
+    from pathlib import Path as _P
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun, profile
+    from repro_torch.launch.hlo_analysis import Census, Largest
+    from repro_torch.launch.mesh import make_production_mesh
+    ro = rec["roofline"]
+    got = {"flops": ro["flops"], "bytes": ro["bytes_accessed"],
+           "coll": ro["coll_breakdown"]}
+    census = profile.load(_P(out_dir) / f"{arch}__train_4k__pod1"
+                          ".census.json.gz")
+    top = sorted(census.by_computation.items(),
+                 key=lambda kv: -kv[1]["flops"])[:4]
+    print(f"[launch] (a) {arch} train_4k census, torch {torch.__version__}: "
+          f"{got} ({'equal' if got == DRYRUN_TRAIN_PIN else 'DIFFERS from'}"
+          f" the CPU dry run's {DRYRUN_TRAIN_PIN}); FLOPs by entry "
+          + ", ".join(f"{k} {e['mult']} calls {e['flops']:.4g}"
+                      for k, e in top))
+    if got != DRYRUN_TRAIN_PIN:
+        fail(f"launch: the census of {arch} train_4k differs from the CPU "
+             f"dry run's")
+    t0 = time.perf_counter()
+    cfg = configs.get(arch)
+    watch = Largest(cfg.vocab_padded)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(multi_pod=False, device_type="cuda")
+        mode = FakeTensorMode()
+        fn, args, _ = dryrun.build_step(cfg, SHAPES["train_4k"], mesh, {},
+                                        "cuda", mode)
+        with mode, Census(), watch:
+            fn(*args)
+    print(f"[launch] (a) {arch} train_4k: outputs with the whole padded "
+          f"vocab ({watch.vocab}) as a dim on rank 0: "
+          f"{len(watch.vocab_rows)} (want 0) {watch.vocab_rows[:3]}; the "
+          f"largest local output {watch.most} elements; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if watch.vocab_rows:
+        fail(f"launch: the {arch} train_4k step made tensors of the whole "
+             f"padded vocab: {watch.vocab_rows[:3]}")
+
+
 def _launch_records(out_dir, card: str) -> list[dict]:
     """Phase 11 (a): each LAUNCH_COMBOS combo's dry run on fake cuda
     tensors, its roofline terms, memory a device, useful FLOPs and
     seconds; Llama's decode census against DRYRUN_PIN, the ring
-    prefill's collective-permutes against DRYRUN_RING_PIN."""
+    prefill's collective-permutes against DRYRUN_RING_PIN, and the
+    train step's checks (:func:`_launch_train_checks`)."""
     from pathlib import Path as _P
     from repro_torch.launch import dryrun
     recs = []
@@ -6446,6 +6579,8 @@ def _launch_records(out_dir, card: str) -> list[dict]:
               f"{rec['useful_flops_ratio']:.4f}; wall {rec['wall_s']} s "
               f"(inputs {rec['lower_s']} s, step {rec['compile_s']} s); "
               f"H100 peaks, {card}")
+        if shape == "train_4k":
+            _launch_train_checks(out_dir, arch, rec)
         if opts == ("ring",):
             br = ro["coll_breakdown"]
             got = {k: br[k].get("collective-permute") for k in br}
@@ -6564,9 +6699,43 @@ def _launch_census(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _launch_doc(out_dir: str) -> None:
+    """Phase 11 (c): ``tools/gen_experiments_torch.py``'s ``main`` over
+    (a)'s records into the run's directory, in this process (a command
+    of its own would import the port again); it must return and the
+    document hold a row for each of (a)'s combos (the baselines in the
+    §Dry-run table, a lever record in the sweep)."""
+    import importlib.util
+    from pathlib import Path as _P
+    doc = _P(out_dir) / "EXPERIMENTS_torch.md"
+    spec = importlib.util.spec_from_file_location(
+        "gen_experiments_torch", ROOT / "tools" / "gen_experiments_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    figures = tool.main(["--dir", out_dir, "--out", str(doc)])
+    print(f"[launch] (c) gen_experiments_torch: {figures['n_ok']}/"
+          f"{figures['n_base']} baselines, {figures['opt_rows']} sweep rows, "
+          f"{time.perf_counter() - t0:.2f} s")
+    text = doc.read_text()
+    missing = []
+    for arch, shape, opts in LAUNCH_COMBOS:
+        row = f"| {arch} | {shape} | 16x16 |" + (f" {'+'.join(opts)} |"
+                                                 if opts else "")
+        hits = [ln for ln in text.splitlines() if ln.startswith(row)]
+        print(f"[launch] (c) document row of {arch} {shape} {opts}: "
+              f"{hits[0] if hits else 'MISSING'}")
+        if not hits:
+            missing.append((arch, shape, opts))
+    print(f"[launch] (c) document: {len(text.splitlines())} lines, "
+          f"{'no TPU' if 'TPU' not in text else 'A TPU'} figure")
+    if missing or "TPU" in text:
+        fail(f"launch: the document lacks rows of {missing} or names a TPU")
+
+
 def _launch_tools(out_dir: str) -> None:
     """Phase 11 (c): profile's listings of (a)'s decode census and the
-    report's two tables over (a)'s records."""
+    report's two tables over (a)'s records, then the document."""
     from pathlib import Path as _P
     from repro_torch.launch import profile, report
     census = _P(out_dir) / ("__".join(LAUNCH_COMBOS[0][:2]) + "__pod1"
@@ -6578,6 +6747,7 @@ def _launch_tools(out_dir: str) -> None:
                         ("dryrun", report.dryrun_table(recs))):
         for line in table.splitlines():
             print(f"[launch] (c) report {kind}: {line}")
+    _launch_doc(out_dir)
 
 
 def launch_phase(out_dir: str, card: str) -> None:

@@ -21,10 +21,11 @@ live as long as the graph that reads them.
 A census of a call (``repro_torch.launch.hlo_analysis``) counts each
 kernel's work, not its launch: a wrapper passes the FLOPs and bytes of
 its call to :func:`record_work`, and the census takes them while it is
-active in this thread (on fake tensors the wrappers launch nothing and
-record the same).  What a wrapper runs in torch around its kernel (its
-allocations, ``ssd_chunk_bwd``'s finish) is covered by that work, so
-the census leaves it out (:func:`quiet`).
+active in this process, from any thread: on cuda tensors autograd runs
+a backward on a device thread of its own (on fake tensors the wrappers
+launch nothing and record the same).  What a wrapper runs in torch around its kernel (its allocations,
+``ssd_chunk_bwd``'s finish) is covered by that work, so the census
+leaves it out (:func:`quiet`).
 
 Thread workers (``repro_torch.dist`` in thread mode) launch kernels and
 capture graphs in one process at once.  So the stack of scratch tables
@@ -81,8 +82,9 @@ class _ThreadStack(threading.local):
 
 #: the scratch tables of the graphs this thread is building, innermost last
 _OWNED = _ThreadStack()
-#: the censuses active in this thread, innermost last
-CENSUS = _ThreadStack()
+#: the census active in this process, if any (at most one), shared by
+#: every thread
+CENSUS: list = []
 #: seconds each library took to build in this process (0.0 = reused),
 #: and the compiler's output (``-Xptxas -v``: registers, spills, smem)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -245,17 +247,18 @@ def scratch(device: torch.device, name: str, numel: int,
 
 def record_work(name: str, work: tuple[float, float]) -> None:
     """Count one call of kernel ``name`` doing ``work`` (FLOPs, bytes) in
-    the census active in this thread; nothing without one."""
-    if CENSUS:
-        CENSUS.items[-1].kernel(name, *work)
+    the census active in this process; nothing without one."""
+    with COUNT_LOCK:
+        if CENSUS:
+            CENSUS[-1].kernel(name, *work)
 
 
 @contextlib.contextmanager
 def quiet():
-    """Within the block, the census active in this thread (if any) counts
+    """Within the block, the census active in this process (if any) counts
     no torch op: a kernel wrapper's own allocations and finish, which its
     :func:`record_work` covers."""
-    census = CENSUS.items[-1] if CENSUS else None
+    census = CENSUS[-1] if CENSUS else None
     if census is not None:
         census.quiet += 1
     try:

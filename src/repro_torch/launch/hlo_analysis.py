@@ -198,7 +198,7 @@ def _mark_alltoall() -> None:
                            "all-to-alls would be counted as other ops")
 
     def counted(*a, **kw):
-        census = _build.CENSUS.items[-1] if _build.CENSUS else None
+        census = _build.CENSUS[-1] if _build.CENSUS else None
         if census is None or in_propagation():
             return fn(*a, **kw)
         census.quiet += 1
@@ -225,7 +225,10 @@ class Census(TorchDispatchMode):
     """Counts what a call dispatches on this rank (see the module
     docstring); ``with Census() as c: fn(...)``, then ``c.census`` is the
     :class:`HloCensus`.  Enter it inside any ``FakeTensorMode`` of the
-    call's tensors.  One census a thread at a time."""
+    call's tensors.  One census a process at a time: a backward that
+    autograd runs on a device thread of its own counts in it too (the
+    dispatch mode follows the backward there, and so must the kernels'
+    work, ``_build.record_work``)."""
 
     def __init__(self):
         super().__init__()
@@ -233,23 +236,24 @@ class Census(TorchDispatchMode):
         self.quiet = 0
 
     def __enter__(self):
-        if _build.CENSUS:
-            raise RuntimeError("Census: another census is active in this "
-                               "thread")
         _mark_propagation()
         _mark_alltoall()
-        _build.CENSUS.items.append(self)
+        with _build.COUNT_LOCK:
+            if _build.CENSUS:
+                raise RuntimeError("Census: another census is active in "
+                                   "this process")
+            _build.CENSUS.append(self)
         try:
             return super().__enter__()
         except BaseException:
-            _build.CENSUS.items.pop()
+            _build.CENSUS.pop()
             raise
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
-            _build.CENSUS.items.remove(self)
+            _build.CENSUS.remove(self)
 
     def _entry(self, name: str) -> dict:
         return self.census.by_computation.setdefault(
@@ -320,6 +324,35 @@ class Census(TorchDispatchMode):
                 _nbytes(t) for t in _tensors(out) if id(t) not in seen)
             e["hbm_bytes"] += nbytes
             self.census.hbm_bytes += nbytes
+        return out
+
+
+class Largest(TorchDispatchMode):
+    """Watches the sizes of what a call dispatches on this rank: ``most``,
+    the most elements of any op's output, and ``vocab_rows``, each output
+    (op, shape) that holds whole rows of a vocab of ``vocab`` entries (a
+    dim of that size and more than ``vocab`` elements; the one (V,) mask
+    of padded slots, which every rank computes alike, is not such a row).
+    Enter it inside a :class:`Census`, which marks DTensor's sharding
+    propagation: its global-shape metadata ops are no rank's work."""
+
+    def __init__(self, vocab: int | None = None):
+        super().__init__()
+        self.most = 0
+        self.vocab = vocab
+        self.vocab_rows: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if in_propagation():
+            return out
+        for t in _tensors(out):
+            self.most = max(self.most, t.numel())
+            if self.vocab and self.vocab in t.shape \
+                    and t.numel() > self.vocab:
+                self.vocab_rows.append((str(func), tuple(t.shape)))
         return out
 
 

@@ -126,6 +126,8 @@ def stages_on_host(group, x: torch.Tensor) -> bool:
 #: started, by (kind, path): ``"host"`` copied CUDA tensors to the host and
 #: back, ``"direct"`` handed host tensors to gloo as they were
 COLLECTIVES: Counter = Counter()
+#: the bytes of those collectives' outputs, by kind
+COLLECTIVE_BYTES: Counter = Counter()
 
 
 def _done(result):
@@ -174,6 +176,8 @@ class HostGloo(dist.ProcessGroup):
             if t.is_cuda:
                 t.copy_(copies[id(t)])
         COLLECTIVES[(kind, "host" if host else "direct")] += 1
+        COLLECTIVE_BYTES[kind] += sum(t.numel() * t.element_size()
+                                      for t in outs)
         return _done(outs)
 
     def allreduce(self, tensors, opts=None):

@@ -313,12 +313,13 @@ def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, backend: str,
     """The attention block's second half: MoE or SwiGLU MLP on the
     normed residual (the MoE aux loss is dropped, as in the reference's
     forward and serving path; on DTensors the MoE layer runs on local
-    shards, ``sharded.moe``)."""
+    shards, ``sharded.moe``, and the MLP on its ``d_ff`` slices,
+    ``sharded.mlp``)."""
     xn = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
         return sharded.moe(moe, lp["moe"], xn, cfg.moe_top_k,
                            cfg.capacity_factor, backend, moe_pspec)
-    return mlp(lp["mlp"], xn)
+    return sharded.mlp(mlp, lp["mlp"], xn)
 
 
 def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
@@ -383,8 +384,8 @@ def _layers(cfg: ArchConfig, params: Params, x: torch.Tensor,
             shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
             **_attn_dims(cfg), backend=backend)
         x = sharded.rows(x + h)
-        return x + mlp(shared["mlp"],
-                       rms_norm(x, shared["ln2"], cfg.norm_eps)), kv
+        return x + sharded.mlp(mlp, shared["mlp"],
+                               rms_norm(x, shared["ln2"], cfg.norm_eps)), kv
 
     def run(fn, *args):
         """fn(*args)[0] under checkpoint where ``remat`` asks for it,
@@ -471,16 +472,15 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: dict,
     remat, as the reference's) against ``batch['labels']`` (B, S), in
     fp32; a 0-d tensor.  ``unroll`` does nothing; ``ring``, ``act_pspec``
     and ``moe_pspec`` go to :func:`forward`.  On placed params the
-    logits' vocab dim is gathered before the loss (``logsumexp`` and the
-    label's ``gather`` then run on whole rows) and the loss is a 0-d
-    DTensor, replicated: every rank holds the value."""
+    logits keep their vocab split over ``model`` (``sharded.token_nll``:
+    each slice's log-sum-exp, gathered and combined, and the label's
+    logit picked where it lies) and the loss is a 0-d DTensor,
+    replicated: every rank holds the value."""
     logits = forward(cfg, params, batch, unroll=unroll, backend=backend,
                      ring=ring, act_pspec=act_pspec,
                      moe_pspec=moe_pspec).float()
-    logits = sharded.replicate_dim(logits, -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = sharded.pick(logits, batch["labels"].long())
-    return sharded.replicated((lse - picked).mean())
+    return sharded.replicated(
+        sharded.token_nll(logits, batch["labels"].long()).mean())
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: dict,
@@ -566,8 +566,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache, inputs: dict,
                 sharded.layer(cache["shared_k"], ai),
                 sharded.layer(cache["shared_v"], ai)))
             x = sharded.rows(x)
-            x = x + sharded.rows(mlp(shared["mlp"],
-                                     rms_norm(x, shared["ln2"], cfg.norm_eps)))
+            x = x + sharded.rows(sharded.mlp(
+                mlp, shared["mlp"], rms_norm(x, shared["ln2"], cfg.norm_eps)))
     x = rms_norm(sharded.rows(x), params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, (x @ head)[:, 0])
     return logits, {**cache, "len": cache_len + 1}

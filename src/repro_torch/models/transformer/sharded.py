@@ -35,10 +35,18 @@ that does not divide its axes is replicated, as the rules replicate it):
   slice of ``d_ff``; the output is ``Partial`` over ``model``.  The
   dispatch stays per sample, as the reference's, so the buffer is
   batch-sharded whether ``moe_pspec`` is given or not;
+* :func:`mlp`: the dense SwiGLU MLP (the layers' and the hybrid's
+  shared block's) as :func:`moe` places its experts: batch rows and a
+  slice of ``d_ff``, the output and x's gradient ``Partial`` over
+  ``model``;
 * :func:`mamba2`: the Mamba2 layer on this rank's batch rows with its
   params gathered over ``model`` (the rules shard ``w_in`` over the
   concatenation of z, x, B, C and dt, which no local split follows; GSPMD
-  gathers there as well).
+  gathers there as well);
+* :func:`token_nll`: the loss's per-token cross entropy on the logits'
+  vocab slices over ``model`` (each slice's log-sum-exp gathered, B S m
+  values, and combined; the label's logit picked where it lies), so no
+  rank holds a tensor with the whole vocab as a dim.
 
 ``decode_step`` on a cache placed by ``cache_pspecs`` (either mode) has
 two more, each taking a layer's slice of the cache (:func:`layer`, a
@@ -271,6 +279,11 @@ def _split(n: int, mesh, axes) -> bool:
     return bool(axes) and n % math.prod(sizes[a] for a in axes) == 0
 
 
+def _model_split(mesh, n: int) -> bool:
+    """Whether a dim of ``n`` splits over the mesh's ``model`` axis."""
+    return MODEL_AXIS in mesh.mesh_dim_names and _split(n, mesh, [MODEL_AXIS])
+
+
 def _places(mesh, dims: dict, other) -> tuple:
     """A placement for each mesh dim: ``dims[axis]`` where the axis is a
     key, else ``other``."""
@@ -337,8 +350,7 @@ def embed(table, ids):
     mesh = table.device_mesh
     ids = like(ids, table) if not isinstance(ids, DTensor) else ids
     rows_ = _batch(mesh, ids.shape[0])
-    split = MODEL_AXIS in mesh.mesh_dim_names \
-        and _split(table.shape[0], mesh, [MODEL_AXIS])
+    split = _model_split(mesh, table.shape[0])
     rep = Replicate()
     vocab = {MODEL_AXIS: Shard(0) if split else rep}
 
@@ -426,28 +438,6 @@ def ring_attention(q, k, v, mesh, axis: str, sliding_window: int = 0):
     return o.redistribute(mesh, _core_places(mesh, q))
 
 
-def pick(logits, labels):
-    """``logits.gather(-1, labels[..., None])[..., 0]`` (logits (B, S, V),
-    labels (B, S)) on each rank's local shards, V whole (``loss_fn``
-    gathers it first): the labels taken to the logits' placements, the
-    output and the logits' gradient in them too.  DTensor's own gather
-    backward zeros a tensor of the logits' global shape, replicated, on
-    every rank (``aten.new_zeros`` of the global size) before its
-    scatter; this one zeros the local shard."""
-    if not isinstance(logits, DTensor):
-        return logits.gather(-1, labels[..., None])[..., 0]
-    mesh, places = logits.device_mesh, tuple(logits.placements)
-    if any(p == Shard(logits.dim() - 1) or isinstance(p, Partial)
-           for p in places):
-        raise ValueError("pick: the logits' vocab dim must be whole and "
-                         f"summed on every rank; placements {places}")
-    labels = like(labels, logits) if not isinstance(labels, DTensor) \
-        else labels
-    return _local(lambda lg, lb: lg.gather(-1, lb[..., None])[..., 0],
-                  mesh, [(logits, places, places), (labels, places, places)],
-                  places)
-
-
 def check_moe_pspec(moe_pspec, mesh) -> None:
     """``ValueError`` unless ``moe_pspec`` (the (B, E, C, d) dispatch
     buffer's spec) is ``None`` or names the mesh's data axes on dim 0 and
@@ -481,8 +471,7 @@ def moe(layer: Callable, p, x, top_k: int, capacity_factor: float,
     mesh = x.device_mesh
     check_moe_pspec(moe_pspec, mesh)
     rows = _batch(mesh, x.shape[0])
-    split = MODEL_AXIS in mesh.mesh_dim_names \
-        and _split(p.w1.shape[-1], mesh, [MODEL_AXIS])
+    split = _model_split(mesh, p.w1.shape[-1])
     rep = Replicate()
     partial_rows = _partial_rows(rows)
     part = Partial() if split else rep
@@ -510,6 +499,82 @@ def moe(layer: Callable, p, x, top_k: int, capacity_factor: float,
          (p.w2, w_places(nd - 2), w_grads(nd - 2)),
          (x, x_in, x_grad)],
         out)
+
+
+def mlp(layer: Callable, p, x):
+    """``layer(p, x)`` (the SwiGLU MLP, w1/w3 (d, ff), w2 (ff, d)) on each
+    rank's batch rows and slice of ``d_ff``, as :func:`moe` places its
+    experts: x batch over the data axes and whole over ``model``, w1/w3
+    over ``model`` on ``d_ff`` (their last dim) and w2 on its first
+    (replicated where ``d_ff`` does not divide).  Each rank's output sums
+    only its ``d_ff`` slice: ``Partial`` over ``model``.  Gradients: x's
+    ``Partial`` over ``model`` (each slice's share), the weights'
+    ``Partial`` over the data axes (each rank's rows' share).  Both
+    backward products (``dh = dy w2ᵀ``, ``dw2 = hᵀ dy``) run on the
+    rank's own slice, so w2 is never gathered (DTensor's propagation
+    gathers it there, to meet a gradient that arrives ``Partial``)."""
+    if not isinstance(x, DTensor):
+        return layer(p, x)
+    mesh = x.device_mesh
+    rows = _batch(mesh, x.shape[0])
+    split = _model_split(mesh, p.w1.shape[-1])
+    rep = Replicate()
+    part = Partial() if split else rep
+
+    def w(dim, grads):
+        return _places(mesh, {**(_partial_rows(rows) if grads else {}),
+                              MODEL_AXIS: Shard(dim) if split else rep}, rep)
+    return _local(
+        lambda w1, w3, w2, xl: layer(type(p)(w1=w1, w3=w3, w2=w2), xl), mesh,
+        [(p.w1, w(1, False), w(1, True)), (p.w3, w(1, False), w(1, True)),
+         (p.w2, w(0, False), w(0, True)),
+         (x, _places(mesh, rows, rep),
+          _places(mesh, {**rows, MODEL_AXIS: part}, rep))],
+        _places(mesh, {**rows, MODEL_AXIS: part}, rep))
+
+
+def token_nll(logits, labels):
+    """The per-token cross entropy ``logsumexp(logits) - logits[label]``
+    (logits (B, S, V) in fp32, labels (B, S)): ``loss_fn``'s terms before
+    the mean.  Plain tensors: exactly that expression.
+
+    On a DTensor the vocab stays split over ``model`` (where V divides),
+    so no tensor on any rank has the whole V as a dim: each rank takes
+    ``logsumexp`` over its own vocab slice, the (B, S) slice results are
+    gathered over ``model`` (B S m values, not B S V) and combined by one
+    more ``logsumexp``; the label's logit is picked on the rank whose
+    slice holds it (zeros elsewhere, ``Partial`` over ``model``, summed).
+    The backward forms each rank's slice of softmax minus one-hot only.
+    A slice that is all padding (``_mask_padded_vocab``'s -1e30) has lse
+    about -1e30 and weighs 0, as in :func:`combine`.  The result is batch
+    over the data axes and whole over ``model``."""
+    if not isinstance(logits, DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels[..., None])[..., 0]
+        return lse - picked
+    mesh = logits.device_mesh
+    split = _model_split(mesh, logits.shape[-1])
+    rep = Replicate()
+    batch = _batch(mesh, logits.shape[0])
+    places = _places(mesh, {**batch, MODEL_AXIS: Shard(2) if split else rep},
+                     rep)
+    rows = _places(mesh, batch, rep)
+    labels = like(labels, logits) if not isinstance(labels, DTensor) \
+        else labels
+
+    def body(lg, lb):
+        v = lg.shape[-1]
+        at = lb - mesh.get_local_rank(MODEL_AXIS) * v if split else lb
+        own = (at >= 0) & (at < v)
+        picked = lg.gather(-1, at.clamp(0, v - 1)[..., None])[..., 0]
+        return (torch.logsumexp(lg, dim=-1)[..., None],
+                picked * own.to(lg.dtype))
+    slices, picked = _local(
+        body, mesh, [(logits, places, places), (labels, rows, rows)],
+        (places, _places(mesh, {**batch, MODEL_AXIS: Partial() if split
+                                else rep}, rep)))
+    lse = torch.logsumexp(slices.redistribute(mesh, rows), dim=-1)
+    return lse - picked.redistribute(mesh, rows)
 
 
 def mamba2(layer: Callable, p, x, **kw):

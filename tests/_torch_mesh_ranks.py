@@ -508,6 +508,60 @@ def body_shard_grads(rank, world, models, tokens, act_pspec, moe_pspec):
     return out
 
 
+def body_sharded_loss(rank, world, cases, tokens):
+    """The 4-rank CPU run of ``tests/test_torch_sharded_loss.py`` on a
+    (2, 2) ("data", "model") gloo mesh: for each of ``cases`` ({name:
+    (arch, vocab or None, numpy params tree)}, the arch reduced to 2
+    layers of d 128), on the params placed by ``param_pspecs``,
+    ``loss_and_grads`` (the loss, the gradients gathered, whether they
+    have their params' placements, and how often ``sharded.mlp`` met
+    placed inputs), then ``sharded.token_nll`` of the placed logits
+    against the plain expression on the same logits gathered, and the
+    placements of both.  The configs are built here from names: a
+    config's class imports the port when a rank unpickles it, and the
+    parent's hand-over of the next rank's arguments waits on that."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer import sharded
+    from repro_torch.training import loss_and_grads
+
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    calls = {"mlp": 0}
+    inner = sharded.mlp
+
+    def counted(layer, p, x):
+        calls["mlp"] += sharded.placed(x)
+        return inner(layer, p, x)
+    sharded.mlp = counted           # model.py calls it through the module
+    out = {}
+    for name, (arch, vocab, ptree) in cases.items():
+        cfg = configs.get(arch).reduced(n_layers=2, d_model=128)
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab)
+        params, specs, batch = _placed_params(cfg, ptree, tokens[name], mesh,
+                                              "cpu")
+        calls["mlp"] = 0
+        loss, grads = loss_and_grads(cfg, params, batch)
+        out[name] = {"loss": float(loss), "grads": _full(grads),
+                     "placed": _placed_as(grads, params, specs, mesh),
+                     "mlp_calls": calls["mlp"]}
+        with torch.no_grad():
+            logits = M.forward(cfg, params,
+                               {"tokens": batch["tokens"]}).float()
+            labels = batch["labels"].long()
+            nll = sharded.token_nll(logits, labels)
+            plain = sharded.token_nll(S.full(logits), S.full(labels))
+        out[name].update(nll=S.full(nll).numpy(), plain=plain.numpy(),
+                         places={k: [repr(p) for p in t.placements]
+                                 for k, t in (("logits", logits),
+                                              ("nll", nll))})
+    return out
+
+
 def body_cuda_shard(rank, world, cfg, tokens):
     """Gloo ranks on ``cuda:0``, a (1, world) ("data", "model") mesh: the
     reduced Llama's ``loss_and_grads`` through the kernels (attention and

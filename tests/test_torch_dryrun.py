@@ -8,6 +8,7 @@ on a fake (2, 2) mesh).  Also the sharded-path faults the dry run found
 at the production mesh: 8 kv heads over a ``model`` axis of 16, the
 FFN's input after attention, and the loss's label gather."""
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -21,14 +22,13 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as ref_configs
 from repro.configs import shapes as ref_shapes
 from repro_torch import configs
 from repro_torch.configs import shapes
 from repro_torch.launch import dryrun, profile, report
-from repro_torch.launch.hlo_analysis import Census, in_propagation
+from repro_torch.launch.hlo_analysis import Census, Largest
 from repro_torch.launch.mesh import make_mesh, make_test_mesh
 from repro_torch.models.transformer import sharded
 from repro_torch.training import tree
@@ -233,34 +233,12 @@ def test_heads_are_whole_where_the_kv_heads_do_not_divide():
                 == (2, 3, 2, 32)
 
 
-class _Largest(TorchDispatchMode):
-    """The most elements any local op's output has (inside a census, which
-    marks DTensor's sharding propagation, whose global-shape metadata ops
-    no rank runs)."""
-
-    def __init__(self):
-        super().__init__()
-        self.most = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented
-        out = func(*args, **(kwargs or {}))
-        if in_propagation():
-            return out
-        for t in tree.leaves(out if isinstance(out, (list, tuple))
-                             else [out]):
-            if isinstance(t, torch.Tensor):
-                self.most = max(self.most, t.numel())
-        return out
-
-
 def test_the_sharded_loss_zeros_no_global_logits():
     """The loss's label gather on placed params runs on local shards
-    (``sharded.pick``): its backward zeros this rank's logits, never a
-    replicated tensor of the global (B, S, V) (DTensor's own gather
+    (``sharded.token_nll``): its backward zeros this rank's logits, never
+    a replicated tensor of the global (B, S, V) (DTensor's own gather
     backward does, which at 16 x 16 is 539 GB a rank for Llama's
-    train_4k)."""
+    train_4k).  ``Largest`` is ``launch.hlo_analysis``'s watcher."""
     cfg = configs.get("llama3.2-1b").reduced(n_layers=1, d_model=64)
     B, S = 4, 16
     with dryrun.fake_group(4):
@@ -269,10 +247,70 @@ def test_the_sharded_loss_zeros_no_global_logits():
         fn, (params, _, batch), _ = dryrun.build_step(
             cfg, shapes.InputShape("t", S, B, "train"), mesh, {}, "cpu",
             mode)
-        largest = _Largest()
+        largest = Largest()
         with mode, Census(), largest:
             loss_and_grads(cfg, params, batch)
     assert largest.most < B * S * cfg.vocab_padded
+
+
+def test_the_sharded_train_step_holds_no_whole_vocab():
+    """The reduced train step (``make_train_step``: the loss, its
+    gradients and AdamW) on (data 2, model 2): no dispatch on rank 0
+    makes a tensor with the whole padded vocab as a dim (the loss keeps
+    the logits' vocab split, ``sharded.token_nll``; only the (V,) mask of
+    padded slots is whole), and none has more elements than this rank's
+    logits, B_loc S V / m (B_loc S = d here, so the embedding's and the
+    head's slices are that size too)."""
+    cfg = dataclasses.replace(configs.get("llama3.2-1b").reduced(
+        n_layers=1, d_model=64), vocab_size=1000)
+    B, S, m = 4, 32, 2
+    assert cfg.vocab_padded > cfg.vocab_size
+    with dryrun.fake_group(4):
+        mesh = make_test_mesh(4, device_type="cpu")
+        mode = FakeTensorMode()
+        fn, args, _ = dryrun.build_step(
+            cfg, shapes.InputShape("t", S, B, "train"), mesh, {}, "cpu",
+            mode)
+        watch = Largest(cfg.vocab_padded)
+        with mode, Census(), watch:
+            fn(*args)
+    assert watch.vocab_rows == []
+    assert 0 < watch.most <= (B // 2) * S * cfg.vocab_padded // m
+
+
+def test_the_step_all_gathers_fall_by_the_logits_gather():
+    """The logits' all-gather is gone: on (data 2, model 2), rank 0's
+    all-gathers in ``sharded.token_nll``'s forward and backward on
+    placed (B, S, V) fp32 logits are the vocab slices' log-sum-exps
+    alone, B_loc S m 4 bytes, where the parent gathered the logits,
+    B_loc S V 4 bytes (the census counts an all-gather at its result's
+    bytes); and the whole ``loss_and_grads`` of the reduced Llama
+    all-gathers less than that gather of the logits alone."""
+    cfg = configs.get("llama3.2-1b").reduced(n_layers=1, d_model=64)
+    B, S, m = 4, 16, 2
+    rows, V = (B // 2) * S, cfg.vocab_padded
+    with dryrun.fake_group(4):
+        mesh = make_test_mesh(4, device_type="cpu")
+        mode = FakeTensorMode()
+        _, (params, _, batch), _ = dryrun.build_step(
+            cfg, shapes.InputShape("t", S, B, "train"), mesh, {}, "cpu",
+            mode)
+        with mode:
+            logits = DTensor.from_local(
+                torch.empty(B // 2, S, V // m, requires_grad=True), mesh,
+                [Shard(0), Shard(2)], run_check=False, shape=(B, S, V),
+                stride=(S * V, V, 1))
+            labels = DTensor.from_local(
+                torch.zeros(B // 2, S, dtype=torch.long), mesh,
+                [Shard(0), Replicate()], run_check=False, shape=(B, S),
+                stride=(S, 1))
+        with mode, Census() as loss:
+            sharded.token_nll(logits, labels).sum().backward()
+        with mode, Census() as step:
+            loss_and_grads(cfg, params, batch)
+    assert [(n, k) for n, k, _ in loss.census.coll_ops
+            if k == "all-gather"] == [(rows * m * 4, "all-gather")]
+    assert step.census.coll_bytes["all-gather"] < rows * V * 4
 
 
 def test_report_renders_records_of_either_package(decode_rec):
@@ -428,17 +466,14 @@ def test_train_flops_match_the_reference_but_for_the_named_terms(parity):
       kernels count their causal pairs: 2 x 2 products forward and in the
       recompute (``flash_prefill``) and 5 in the backward
       (``flash_prefill_bwd``);
-    * the MLP's down projection in the backward: its gradient arrives
-      ``Partial`` over ``model``, and DTensor gathers w2 there rather than
-      reduce the gradient, so both of its backward products run on the
-      whole d_ff: 2 x 2 T d d_ff (1 - 1/m) more a layer than the
-      reference's;
     * what is left, within 5%: XLA keeps some of the forward's
       projections for the backward where eager remat runs them again
       (about 4% here).
 
-    The dense config has neither the Mamba2 gathers nor the vocab gather
-    of ROADMAP Queue 3's sharding notes."""
+    The MLP runs on its ``d_ff`` slices (``sharded.mlp``), so its
+    backward products are the reference's: no term for a gathered w2.
+    The dense config has no Mamba2 gathers, and the loss keeps the vocab
+    split (``sharded.token_nll``)."""
     ref, port, cfg = parity
     census = port["train"][1]
     L, S, B, m = cfg.n_layers, 64, 4 // 2, 2
@@ -450,9 +485,6 @@ def test_train_flops_match_the_reference_but_for_the_named_terms(parity):
                for n in ("flash_prefill", "flash_prefill_bwd")}
     assert kernels == {"flash_prefill": L * 4 * pair * causal,
                        "flash_prefill_bwd": L * 5 * pair * causal}
-    T, d, ff = B * S, cfg.d_model, cfg.d_ff
-    w2_gathered = L * 2 * 2.0 * T * d * ff * (1 - 1 / m)
     port_mm = census.flops - sum(kernels.values())
     ref_mm = ref["train"]["flops"] - ref["train"]["attention_flops"]
-    assert abs(port_mm - w2_gathered - ref_mm) <= 0.05 * ref_mm, \
-        (port_mm, w2_gathered, ref_mm)
+    assert abs(port_mm - ref_mm) <= 0.05 * ref_mm, (port_mm, ref_mm)

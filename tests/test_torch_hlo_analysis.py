@@ -6,6 +6,7 @@ mesh, cold and warm), and every LM kernel wrapper on fake tensors: no
 launch, the kernel's shapes and dtypes, its ``work(...)`` recorded."""
 
 import contextlib
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro.launch.hlo_analysis import analyze_hlo
+from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.moe_gemm import ops as moe_ops
@@ -121,6 +123,20 @@ def test_census_roundtrip_and_refuses_nesting():
         with pytest.raises(RuntimeError, match="another census"):
             with H.Census():
                 pass
+
+
+def test_kernel_work_from_another_thread_counts():
+    """On cuda tensors autograd runs a backward on a device thread of its
+    own: a kernel's work recorded in another thread belongs to the census
+    of the call."""
+    with H.Census() as c:
+        t = threading.Thread(target=_build.record_work,
+                             args=("k", (10.0, 4.0)))
+        t.start()
+        t.join()
+    assert c.census.by_computation == {"k": {"mult": 1, "flops": 10.0,
+                                             "coll_bytes": 0.0,
+                                             "hbm_bytes": 4.0}}
 
 
 # -- collectives and the per-device count ------------------------------------

@@ -24,7 +24,8 @@ EXAMPLES = ("quickstart", "lm_generate", "train_tiny", "pico_pod_pipeline",
 FILES = (sorted(PORT.rglob("*.py"))
          + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_times.py",
             ROOT / "tools" / "gloo_cuda_check.py",
-            ROOT / "tools" / "plan_cli_torch.py"]
+            ROOT / "tools" / "plan_cli_torch.py",
+            ROOT / "tools" / "gen_experiments_torch.py"]
          + [ROOT / "examples" / f"{name}_torch.py" for name in EXAMPLES])
 # modules the subprocess import must reach by name (the walk finds the
 # rest): the mesh builders, the pipeline over them, the sharding rules and
