@@ -162,26 +162,30 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    finite losses, step ms from step 2 on, tokens/s and peak memory, then
    one profiled step (device time by kernel, the backward kernel's
    share).  Then granite-moe-3b-a800m at full width in fp32: (a')
-   ``moe_gemm``'s backward, ``MoeGemm``'s dx = dy wᵀ and dw = xᵀ dy
-   (two more launches of the kernel, on transposed copies) against
-   autograd of the plain version at granite's training shapes (x (40,
-   512, 1536) against w (40, 1536, 512), and the w2 twin), at C = 12,
-   C = 10 (no multiple of 4), C = 4 and mixtral's experts at C = 64,
-   each within FP32_TOL x max(1, max|ref|) and called twice for the
-   same bits, with each launch's variant, ms, device ms, plain ms, the
-   library's (``torch.bmm`` on transposed views, no copies) and the
-   bound; (b') ``loss_and_grads`` at full depth (32 layers) against
-   ``backend="torch"`` as in (b): 384 ``moe_gemm`` (3 a layer forward,
-   3 in remat's recompute, 6 backward), 64 ``flash_prefill`` and 32
+   ``moe_gemm``'s backward kernel, ``moe_gemm_bwd``: ``MoeGemm``'s
+   dx = dy wᵀ and dw = xᵀ dy (one launch each, on x, w and dy where
+   they lie) against autograd of the plain version at granite's
+   training shapes (x (40, 512, 1536) against w (40, 1536, 512), and
+   the w2 twin), at C = 12, C = 10 (no multiple of 4), C = 4,
+   mixtral's experts at C = 64 and D = 30, F = 12 (4-byte loads), each
+   within FP32_TOL x max(1, max|ref|), called twice for the same bits
+   and on the plans it printed, with ms and device ms of the kernel, the
+   plain version and the library's pair (``torch.bmm`` on transposed
+   views, no copies) and the bound; (b') ``loss_and_grads`` at full
+   depth (32 layers) against ``backend="torch"`` as in (b): 192
+   ``moe_gemm`` (3 a layer forward, 3 in remat's recompute) and 192
+   ``moe_gemm_bwd`` (6 a layer), 64 ``flash_prefill`` and 32
    ``flash_prefill_bwd`` launches, the routing decisions that differ
    between the two paths counted, peak memory; (c') five steps of
    ``training.loop.train`` at 16 of the 32 layers (the functional
    AdamW holds about 8 copies of the params, so full depth needs about
-   108 GB), counted: 960 ``moe_gemm``, each in the variant of its own
-   shape, 160 ``flash_prefill`` and 80 ``flash_prefill_bwd``; finite
-   losses, step ms, tokens/s and peak memory, then one profiled step
-   with ``moe_gemm``'s device time in the forward, the recompute and
-   the backward, and the transposed copies' share.  Then mamba2-370m
+   108 GB), counted: 480 ``moe_gemm``, each in the variant of its own
+   shape, 480 ``moe_gemm_bwd``, each on the plan of its own shape, 160
+   ``flash_prefill`` and 80 ``flash_prefill_bwd``; finite losses, step
+   ms, tokens/s and peak memory, then one profiled step with
+   ``moe_gemm``'s device time in the forward and the recompute and
+   ``moe_gemm_bwd``'s, beside the earlier backward's products and
+   transposed copies; no copy right before a backward launch.  Then mamba2-370m
    and zamba2-2.7b at full width in fp32: (a″) ``ssd_chunk``'s backward
    kernel (``ssd_chunk_bwd``), ``SsdChunk``'s dx, ddt, dA, dB and dC
    against autograd of the plain version at mamba2's and zamba2's
@@ -277,9 +281,10 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    one-process run counted; the gradients held where none differs, else
    printed.  (e) mamba2-370m at full depth.  (f) the NCCL rank's (b).
    Held: launches of every rank's counted call (32 flash_prefill and 16
-   flash_prefill_bwd for (b); 24 and 12 for (c); 16, 8 and 96 moe_gemm
-   for (d); 96 ssd_chunk and 48 ssd_chunk_bwd for (e)), the loss within
-   1e-6 relative and every gradient leaf within 5e-5 x max|ref| of the
+   flash_prefill_bwd for (b); 24 and 12 for (c); 16, 8, 48 moe_gemm and
+   48 moe_gemm_bwd for (d); 96 ssd_chunk and 48 ssd_chunk_bwd for (e)),
+   the loss within 1e-6 relative and every gradient leaf within 5e-5 x
+   max|ref| of the
    one-process kernel path (``tests/test_torch_training.py``'s LOSS_REL
    and GRAD_REL), (c)'s params within 1e-4 (Adam's first-step noise at
    full width; the elements past the reduced test's 1e-5 counted),
@@ -374,7 +379,7 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    within 1e-4 x max|logit| of the monolithic forward and the
    ``"torch"`` backend, ``simulate(32)``, and the artifact saved and
    loaded with outputs equal bit for bit;
-13. one ``{"kernels": [...]}`` JSON line (seven kernels; conv2d_fused's
+13. one ``{"kernels": [...]}`` JSON line (eight kernels; conv2d_fused's
    launches are those of phases 4b, 4d's abort run, 4e, 4f, 4g's
    in-process plan CLI and 12 (a), flash_prefill's those of Llama's fp32
    generate and of phase 7's pipeline runs (the gloo ranks' and the NCCL rank's,
@@ -382,10 +387,12 @@ Phases (each exits non-zero on failure; nothing is caught and skipped):
    generate and of phase 6's (b″)-(c‴), moe_gemm's those of granite's
    fp32 generate and of phase 6's (b') and (c'), flash_prefill_bwd's
    those of the five Llama training steps and of phase 8's one-process
-   references, ssd_chunk_bwd's phase 6's; flash_prefill's also phase 8's
+   references, ssd_chunk_bwd's and moe_gemm_bwd's phase 6's;
+   flash_prefill's also phase 8's
    one-process references: (a)'s here, (b)'s in gloo rank 0 and (c)'s in
    the NCCL rank; the ring itself runs no kernel; flash_prefill,
-   flash_prefill_bwd, moe_gemm, ssd_chunk and ssd_chunk_bwd also phase
+   flash_prefill_bwd, moe_gemm, moe_gemm_bwd, ssd_chunk and ssd_chunk_bwd
+   also phase
    9's counted calls, every rank's and the one-process references', and
    decode_attention, moe_gemm, flash_prefill, flash_prefill_bwd and
    ssd_chunk phase 10's the same way),
@@ -432,7 +439,10 @@ REPLACES = {"conv2d_fused": "src/repro/kernels/conv2d/conv2d.py:110",
                                  "(blockwise_causal_attention) in XLA",
             "ssd_chunk_bwd": "none: the reference differentiates "
                              "src/repro/models/transformer/layers.py:314 "
-                             "(ssd_chunked) in XLA"}
+                             "(ssd_chunked) in XLA",
+            "moe_gemm_bwd": "none: the reference differentiates "
+                            "src/repro/models/transformer/layers.py:267-269 "
+                            "(moe's einsums) in XLA"}
 CLUSTER_GHZ = [1.5, 1.5, 1.2, 1.2, 1.0, 1.0, 0.8, 0.8]
 # LMs, all at full width (src/repro_torch/configs/): each arch's serving
 # path and the kernels it launches.  Llama-3.2-1B's attention kernels
@@ -494,12 +504,18 @@ BWD_CASES = [((4, 512, 8, 4, 64), 0), ((2, 256, 16, 1, 64), 0),
 # then granite (MOE_ARCH) in fp32.  MoeGemm's backward at x (E, C, D)
 # against w (E, D, F): granite's training products (C = 4 x 128 slots,
 # w1/w3 and the w2 twin), C = 12, C = 10 (dw's depth no multiple of 4),
-# C = 4 and mixtral's experts at a small C.  The train steps run at 16
-# of granite's 32 layers: the functional AdamW holds about 8 copies of
-# the params (8 x 13.5 GB at full depth, past one card's 80 GB)
+# C = 4, mixtral's experts at a small C (dx's 64-row tile), and D and F
+# no multiples of 4 (4-byte loads).  The train steps run at 16 of
+# granite's 32 layers: the functional AdamW holds about 8 copies of the
+# params (8 x 13.5 GB at full depth, past one card's 80 GB).  The
+# earlier backward (the forward kernel on contiguous copies of wT and
+# xT) in the same profiled 16-layer step, on an NVIDIA H100 80GB HBM3
+# at 700 W: its products' and its copies' device ms, which the step's
+# split prints beside the kernel's
 MOE_BWD_CASES = [(40, 512, 1536, 512), (40, 512, 512, 1536),
                  (4, 12, 1024, 256), (4, 10, 1024, 256), (40, 4, 1536, 512),
-                 (8, 64, 4096, 14336)]
+                 (8, 64, 4096, 14336), (2, 24, 30, 12)]
+MOE_BWD_COPIES_MS = (81.624, 21.445)
 MOE_TRAIN_LAYERS = 16
 # then mamba2 (SSM_ARCH) and zamba2 (HYBRID_ARCH) in fp32.  SsdChunk's
 # backward (the ssd_chunk_bwd kernel) at (BC, Q, H, P, N): mamba2's and
@@ -1057,7 +1073,7 @@ def _kernel_ops() -> dict:
     from repro_torch.kernels.ssd import ops as ssd
     return {"flash_prefill": attn, "flash_prefill_bwd": attn,
             "decode_attention": attn, "ssd_chunk": ssd,
-            "ssd_chunk_bwd": ssd, "moe_gemm": moe}
+            "ssd_chunk_bwd": ssd, "moe_gemm": moe, "moe_gemm_bwd": moe}
 
 
 def _reset_counts() -> None:
@@ -2045,13 +2061,14 @@ def bwd_case(shape, window, seed=0) -> dict:
 
 def moe_bwd_case(shape, seed=0) -> dict:
     """MoeGemm's backward (fp32) at x (E, C, D), w (E, D, F): dx and dw
-    of one ``MoeGemm.apply`` (two wrapper launches on transposed copies,
-    each in the variant of its own shape, which it must take) against
-    autograd of ``moe_gemm_ref`` on the same x, w and dy, each within
-    FP32_TOL x max(1, max|ref|); two calls the same bits.  The library
-    calls are ``torch.bmm(dy, wᵀ)`` and ``torch.bmm(xᵀ, dy)`` on
-    transposed views, no copies.  The bound counts 4 E C D F FLOP at the
-    fp32 peak, or x, w and dy read and dx and dw written once."""
+    of one ``MoeGemm.apply`` (two ``moe_gemm_bwd`` launches, dx = dy wᵀ
+    and dw = xᵀ dy on x, w and dy where they lie, each on the plan of its
+    own shape, which it must take) against autograd of ``moe_gemm_ref``
+    on the same x, w and dy, each within FP32_TOL x max(1, max|ref|); two
+    calls the same bits.  The library calls are ``torch.bmm(dy, wᵀ)`` and
+    ``torch.bmm(xᵀ, dy)`` on transposed views, no copies.  The bound
+    counts 4 E C D F FLOP at the fp32 peak, or x, w and dy read and dx
+    and dw written once."""
     import torch
     from repro_torch.kernels.moe_gemm import ops, ref
 
@@ -2066,11 +2083,14 @@ def moe_bwd_case(shape, seed=0) -> dict:
     def kernel():
         return torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
-    plans = [ops._plan(e, c, f, d, torch.float32, True)[0],     # dx
-             ops._plan(e, d, c, f, torch.float32, True)[0]]     # dw
-    before = dict(ops.variant_counts)
+    plans = [ops.bwd_plan("nt", e, c, d, f).name,           # dx
+             ops.bwd_plan("tn", e, d, f, c).name]           # dw
+    before = dict(ops.bwd_plan_counts)
+    launched = ops.launch_count("moe_gemm_bwd")
     got = kernel()
-    took = {v: ops.variant_counts[v] - before[v] for v in ops.VARIANTS}
+    launched = ops.launch_count("moe_gemm_bwd") - launched
+    took = {p: n - before[p] for p, n in ops.bwd_plan_counts.items()
+            if n != before[p]}
     again = kernel()
     plain_leaves = [t.clone().requires_grad_() for t in (x, w)]
     y_ref = ref.moe_gemm_ref(*plain_leaves)
@@ -2083,7 +2103,8 @@ def moe_bwd_case(shape, seed=0) -> dict:
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     checks = [check_close(a, b, torch.float32) for a, b in zip(got, want)]
-    as_planned = took == {v: plans.count(v) for v in ops.VARIANTS}
+    as_planned = launched == 2 and took == {p: plans.count(p)
+                                            for p in set(plans)}
     xt, wt = x.transpose(1, 2), w.transpose(1, 2)
 
     def library():
@@ -2092,17 +2113,17 @@ def moe_bwd_case(shape, seed=0) -> dict:
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
-    dev = (device_ms(kernel), device_ms(library))
+    dev = (device_ms(kernel), device_ms(library), device_ms(plain))
     del y, y_ref, got, again, want
-    return dict(kernel="moe_gemm", desc=f"backward x{tuple(shape[:3])} "
-                f"F{f} dx {plans[0]}, dw {plans[1]}"
+    return dict(kernel="moe_gemm_bwd", desc=f"x{tuple(shape[:3])} F{f} dx "
+                f"{plans[0]}, dw {plans[1]}"
                 + ("" if same else " NOT BIT-REPRODUCIBLE")
-                + ("" if as_planned else f" TOOK {took}"),
+                + ("" if as_planned else f" TOOK {took} in {launched}"),
                 dtype="float32", err=max(r[0] for r in checks),
                 of_limit=max(r[1] for r in checks),
                 ok=all(r[2] for r in checks) and same and as_planned,
                 per_call=0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                dev_ms=dev[0], library_dev_ms=dev[1],
+                dev_ms=dev[0], library_dev_ms=dev[1], plain_dev_ms=dev[2],
                 **bound(*ops.bwd_work(e, c, d, f), "float32"))
 
 
@@ -2363,9 +2384,10 @@ def _train_launches(cfg, steps: int) -> dict:
     """Each kernel's launches in ``steps`` train steps (or one
     ``loss_and_grads`` for 1), remat on: per attention (a layer, or a
     shared-block site of a hybrid) two flash_prefill (the forward and
-    remat's recompute) and one flash_prefill_bwd; with MoE 12 moe_gemm a
-    layer (3 forward, 3 recomputed, 6 backward: dx and dw of each
-    product); per Mamba2 layer two ssd_chunk and one ssd_chunk_bwd."""
+    remat's recompute) and one flash_prefill_bwd; with MoE 6 moe_gemm a
+    layer (3 forward, 3 recomputed) and 6 moe_gemm_bwd (dx and dw of
+    each product); per Mamba2 layer two ssd_chunk and one
+    ssd_chunk_bwd."""
     from repro_torch.models.transformer import model as M
 
     L = cfg.n_layers
@@ -2375,7 +2397,7 @@ def _train_launches(cfg, steps: int) -> dict:
     want["flash_prefill"] = steps * 2 * attn
     want["flash_prefill_bwd"] = steps * attn
     if cfg.is_moe:
-        want["moe_gemm"] = steps * 12 * L
+        want["moe_gemm"] = want["moe_gemm_bwd"] = steps * 6 * L
     if cfg.is_ssm:
         want["ssd_chunk"] = steps * 2 * L
         want["ssd_chunk_bwd"] = steps * L
@@ -2414,28 +2436,30 @@ def _train_counted(cfg, rep, label: str) -> dict:
 
 
 def _moe_step_split(cfg, prof, busy: float) -> None:
-    """moe_gemm's device time in one profiled MoE train step, by part,
-    from the order of the kernels on the stream: the 3 L forward
-    launches come first; then each layer's backward, last layer first,
-    runs remat's recompute (3 launches) before its 6 backward ones.  The
-    kernel just before each backward launch is the copy of its
-    transposed operand (wᵀ for dx, xᵀ for dw)."""
+    """moe_gemm's and moe_gemm_bwd's device time in one profiled MoE
+    train step, from the order of the kernels on the stream: the first
+    3 L moe_gemm launches are the forward, the other 3 L remat's
+    recompute; the 6 L moe_gemm_bwd launches the backward.  The backward
+    is printed beside the earlier one's (MOE_BWD_COPIES_MS: its products
+    and the transposed copies before them).  Fails if the kernel right before a
+    backward launch is a copy: x, w and dy reach the backward contiguous
+    on this path, so a copy there would be of a transposed operand."""
     import torch
 
     dev = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
-    at = [i for i, e in enumerate(dev) if "moe_gemm" in e.name]
+    bwd = [i for i, e in enumerate(dev) if "moe_gemm_bwd" in e.name]
+    fwd = [i for i, e in enumerate(dev)
+           if "moe_gemm" in e.name and "moe_gemm_bwd" not in e.name]
     L = cfg.n_layers
-    if len(at) != 12 * L:
+    if len(fwd) != 6 * L or len(bwd) != 6 * L:
         print(f"[train] moe_gemm by part: not measured (the profiler saw "
-              f"{len(at)} of the step's {12 * L} launches)")
+              f"{len(fwd)} moe_gemm and {len(bwd)} moe_gemm_bwd of the "
+              f"step's {6 * L} and {6 * L} launches)")
         return
-    rest = at[3 * L:]
-    parts = {"forward": at[:3 * L],
-             "recompute": [i for j, i in enumerate(rest) if j % 9 < 3],
-             "backward": [i for j, i in enumerate(rest) if j % 9 >= 3]}
-    copies = [i - 1 for i in parts["backward"]]
+    parts = {"forward": fwd[:3 * L], "recompute": fwd[3 * L:],
+             "backward (moe_gemm_bwd)": bwd}
 
     def ms(idx):
         return sum(dev[i].time_range.elapsed_us() for i in idx) / 1e3
@@ -2443,26 +2467,29 @@ def _moe_step_split(cfg, prof, busy: float) -> None:
     print(f"[train] moe_gemm device ms of the profiled step: " + ", ".join(
         f"{k} {ms(v):.3f} ({len(v)} launches, {ms(v) / len(v):.4f} each)"
         for k, v in parts.items())
-          + f"; {100 * ms(at) / busy:.1f}% of the device time")
-    if all("copy" in dev[i].name for i in copies):
-        print(f"[train] the backward's transposed copies (wᵀ, xᵀ): "
-              f"{ms(copies):.3f} ms device, {len(copies)} copies, "
-              f"{100 * ms(copies) / busy:.2f}% of the step's device time, "
-              f"{100 * ms(copies) / ms(parts['backward']):.1f}% of the "
-              f"backward products'")
-    else:
-        print(f"[train] the backward's transposed copies: not measured "
-              f"(a kernel before a backward launch is not a copy: "
-              f"{sorted({dev[i].name[:60] for i in copies})})")
+          + f"; {100 * (ms(fwd) + ms(bwd)) / busy:.1f}% of the device time")
+    products, copies = MOE_BWD_COPIES_MS
+    print(f"[train] the backward's products: {ms(bwd):.3f} ms device in "
+          f"{len(bwd)} launches against the earlier backward's {products} "
+          f"ms of products plus {copies} ms of transposed copies "
+          f"({products + copies:.3f}, MOE_BWD_COPIES_MS), "
+          f"{100 * ms(bwd) / (products + copies):.1f}% of it")
+    before = [dev[i - 1].name for i in bwd]
+    kinds = sorted({n[:60] for n in before})
+    print(f"[train] kernels right before a backward launch: {kinds}")
+    if any("copy" in n.lower() for n in before):
+        fail(f"a copy runs right before a moe_gemm_bwd launch: {kinds}")
 
 
-def run_train_moe() -> int:
+def run_train_moe() -> tuple[int, dict]:
     """Phase 6 (a')-(c'), granite-moe-3b-a800m in fp32: (a') MoeGemm's
-    backward against autograd of the plain version; (b') loss_fn's
-    gradients at full depth, kernel path against backend="torch"; (c')
-    five steps of ``training.loop.train`` at MOE_TRAIN_LAYERS layers,
-    counted, then one profiled step.  Returns the moe_gemm launches of
-    (b') and (c')."""
+    backward (``moe_gemm_bwd``) against autograd of the plain version;
+    (b') loss_fn's gradients at full depth, kernel path against
+    backend="torch"; (c') five steps of ``training.loop.train`` at
+    MOE_TRAIN_LAYERS layers, counted, then one profiled step.  Returns
+    the moe_gemm launches of (b') and (c') and the kernels entry of
+    ``moe_gemm_bwd`` (its times summed over one (c') step at the path's
+    shapes, its launches those of (b') and (c'))."""
     import dataclasses
 
     import torch
@@ -2479,16 +2506,24 @@ def run_train_moe() -> int:
 
     # -- (a') MoeGemm's backward against autograd of the plain version -----
     cases = [moe_bwd_case(shape) for shape in MOE_BWD_CASES]
-    print(f"[train] moe_gemm backward (MoeGemm: dx = dy wT, dw = xT dy, "
-          f"transposed copies): {len(cases)} cases | max_abs_err (worst of "
+    print(f"[train] moe_gemm_bwd (MoeGemm's backward: dx = dy wT, dw = xT "
+          f"dy, read in place): {len(cases)} cases | max_abs_err (worst of "
           f"dx, dw over {FP32_TOL:g} x max(1, max|ref|)) | ms kernel / plain "
           f"autograd / torch.bmm pair / bound | device ms kernel / "
           f"torch.bmm pair")
     _print_cases(cases)
+    for shape, r in zip(MOE_BWD_CASES, cases):
+        print(f"[train]   x (E, C, D) {shape[:3]} F {shape[3]}: device ms "
+              f"kernel {r['dev_ms']:.4f}, plain {r['plain_dev_ms']:.4f}, "
+              f"torch.bmm pair {r['library_dev_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({100 * r['bound_ms'] / r['dev_ms']:.1f}"
+              f"% of the kernel's time, "
+              f"{100 * r['bound_ms'] / r['library_dev_ms']:.1f}% of the "
+              f"pair's)")
     torch.cuda.empty_cache()
     if any(not r["ok"] for r in cases):
         fail("MoeGemm's backward disagrees with autograd of the plain "
-             "version, is not bit-repeatable or took another variant")
+             "version, is not bit-repeatable or took another plan")
 
     # -- (b') gradients at full depth: kernel path against backend="torch"
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -2507,27 +2542,53 @@ def run_train_moe() -> int:
     rep = train(small, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 lr=3e-3, seed=0, log_every=10, warmup=10, device="cuda")
     variants = dict(moe.variant_counts)
-    _train_counted(small, rep, f"training.loop.train at "
-                   f"{MOE_TRAIN_LAYERS} of {cfg.n_layers} layers "
-                   f"({small.param_count() / 1e9:.2f} G params)")
+    plans = {p: k for p, k in moe.bwd_plan_counts.items() if k}
+    got = _train_counted(small, rep, f"training.loop.train at "
+                         f"{MOE_TRAIN_LAYERS} of {cfg.n_layers} layers "
+                         f"({small.param_count() / 1e9:.2f} G params)")
     e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
     c = TRAIN_BATCH * max(1, int(cfg.capacity_factor * cfg.moe_top_k
                                  * TRAIN_SEQ / e))
-    # a layer's products, forward (run twice with remat) then dx and dw
-    fwd = [(e, c, d, ff), (e, c, d, ff), (e, c, ff, d)]
-    bwd = [s for (e_, c_, d_, f_) in fwd
-           for s in ((e_, c_, f_, d_), (e_, d_, c_, f_))]
+    # a layer's products (run twice with remat), then dx and dw of each
+    n = TRAIN_STEPS * small.n_layers
     want_v = dict.fromkeys(moe.VARIANTS, 0)
-    for shape, n in [(s, 2) for s in fwd] + [(s, 1) for s in bwd]:
-        want_v[moe._plan(*shape, torch.float32, True)[0]] += \
-            n * TRAIN_STEPS * small.n_layers
+    want_p: dict[str, int] = {}
+    for (e_, c_, d_, f_) in [(e, c, d, ff), (e, c, d, ff), (e, c, ff, d)]:
+        want_v[moe._plan(e_, c_, d_, f_, torch.float32, True)[0]] += 2 * n
+        for p in (moe.bwd_plan("nt", e_, c_, d_, f_),
+                  moe.bwd_plan("tn", e_, d_, f_, c_)):
+            want_p[p.name] = want_p.get(p.name, 0) + n
     print(f"[train] moe_gemm variants: " + ", ".join(
-        f"{v} {n}" for v, n in variants.items()) + f" (want {want_v})")
-    if variants != want_v:
-        fail(f"training's moe_gemm variants {variants}, want {want_v}")
+        f"{v} {k}" for v, k in variants.items()) + f" (want {want_v}); "
+          f"moe_gemm_bwd plans {plans} (want {want_p})")
+    if variants != want_v or plans != want_p:
+        fail(f"training's moe_gemm variants {variants} or moe_gemm_bwd "
+             f"plans {plans}, want {want_v} and {want_p}")
     _train_step_profile(small, batch)
     torch.cuda.empty_cache()
-    return want["moe_gemm"] + _train_launches(small, TRAIN_STEPS)["moe_gemm"]
+
+    # the entry: one (c') step's products, two of the first case a layer
+    # (w1, w3) and one of the second (w2)
+    per = {0: 2 * small.n_layers, 1: small.n_layers}
+    t_ops = sum(cases[i]["t_ops_ms"] * k for i, k in per.items())
+    t_bytes = sum(cases[i]["t_bytes_ms"] * k for i, k in per.items())
+    entry = {"name": "moe_gemm_bwd", "route": "cuda",
+             "source": str(moe.SOURCES["moe_gemm_bwd"].relative_to(ROOT)),
+             "replaces": REPLACES["moe_gemm_bwd"],
+             "launches": want["moe_gemm_bwd"] + got["moe_gemm_bwd"],
+             "max_abs_err": max(cases[i]["err"] for i in per),
+             **{key: sum(cases[i][key] * k for i, k in per.items())
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    dev = sum(cases[i]["dev_ms"] * k for i, k in per.items())
+    lib = sum(cases[i]["library_dev_ms"] * k for i, k in per.items())
+    print(f"[kernels] moe_gemm_bwd: ms, plain_ms, bound_ms and library_ms "
+          f"summed over one {MOE_TRAIN_LAYERS}-layer {cfg.name} train "
+          f"step's {6 * small.n_layers} launches ({per[0]} pairs at x "
+          f"{MOE_BWD_CASES[0][:3]} F {MOE_BWD_CASES[0][3]}, {per[1]} at "
+          f"the w2 twin); device {dev:.3f} ms, the torch.bmm pairs "
+          f"{lib:.3f}; launches: phase 6's {entry['launches']}")
+    return want["moe_gemm"] + got["moe_gemm"], entry
 
 
 def run_train_ssm() -> tuple[int, dict]:
@@ -2649,8 +2710,8 @@ def run_train() -> tuple[int, int, list[dict]]:
     mamba2 and zamba2 (:func:`run_train_ssm`).  Returns the moe_gemm
     launches of granite's counted runs, the ssd_chunk launches of
     mamba2's and zamba2's, and the kernels entries of
-    ``flash_prefill_bwd`` (summed over one Llama train step) and
-    ``ssd_chunk_bwd``."""
+    ``flash_prefill_bwd`` (summed over one Llama train step),
+    ``moe_gemm_bwd`` and ``ssd_chunk_bwd``."""
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
@@ -2698,7 +2759,7 @@ def run_train() -> tuple[int, int, list[dict]]:
     torch.cuda.empty_cache()
 
     # -- (a')-(c') granite: moe_gemm's backward, then training ----------
-    moe_launches = run_train_moe()
+    moe_launches, moe_entry = run_train_moe()
 
     # -- (a″)-(c‴) mamba2 and zamba2: ssd_chunk's backward, training ------
     ssd_launches, ssd_entry = run_train_ssm()
@@ -2714,7 +2775,7 @@ def run_train() -> tuple[int, int, list[dict]]:
              **{key: path[key] * n
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    return moe_launches, ssd_launches, [entry, ssd_entry]
+    return moe_launches, ssd_launches, [entry, moe_entry, ssd_entry]
 
 
 # -- the GPipe microbatch pipeline (phase 7) ---------------------------------
@@ -7170,6 +7231,8 @@ def main(only_examples: bool = False) -> None:
           f"fp32 generate's, library_ms torch.bmm on the same (E, C, D) x "
           f"(E, D, F), its launches that generate's and phase 6's "
           f"{moe_train} (granite's gradients and train steps); "
+          f"moe_gemm_bwd: one 16-layer granite train step's 96 launches at "
+          f"the path's shapes, library_ms the torch.bmm pairs on views; "
           f"flash_prefill_bwd: one train step's 16 launches at the path's "
           f"shape, library_ms SDPA's backward; ssd_chunk_bwd: one mamba2 "
           f"train step's 48 launches at the path's shape, library_ms null "
@@ -7179,10 +7242,10 @@ def main(only_examples: bool = False) -> None:
           f"{ring_fwd} (the one-process references of the ring); "
           f"flash_prefill_bwd: also phase 8's {ring_bwd}; and phase 9's "
           f"counted calls (every rank's and the one-process references') "
-          f"of flash_prefill, flash_prefill_bwd, moe_gemm, ssd_chunk and "
-          f"ssd_chunk_bwd: {shard}; and phase 10's counted calls (decode "
-          f"steps, generate, the launcher's steps and their one-process "
-          f"references): {sdec}")
+          f"of flash_prefill, flash_prefill_bwd, moe_gemm, moe_gemm_bwd, "
+          f"ssd_chunk and ssd_chunk_bwd: {shard}; and phase 10's counted "
+          f"calls (decode steps, generate, the launcher's steps and their "
+          f"one-process references): {sdec}")
     print(f"[profile] device-ms readings from CUDA events because "
           f"torch.profiler recorded no kernel: {_PROFILER['fallbacks']}")
 

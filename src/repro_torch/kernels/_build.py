@@ -59,7 +59,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOADED: dict[Path, ctypes.CDLL] = {}
 #: every table of launch counts in the process, in registration order
 #: (each :class:`Launchers`' counts, the variant counts of conv2d_fused
-#: and moe_gemm)
+#: and moe_gemm, the plan counts of moe_gemm_bwd)
 COUNT_TABLES: list[dict[str, int]] = []
 #: scratch tensors of launches outside a capture, per (device, stream)
 _SCRATCH: dict[tuple, dict[str, torch.Tensor]] = {}

@@ -2,15 +2,18 @@
 Hopper counterpart of ``src/repro/kernels/moe_gemm/``.
 
 * ``csrc/moe_gemm.cu`` — the CUDA kernel (``sm_90a``);
-* :mod:`.ops` — the wrapper (checks, launch, launch counter) and
-  ``MoeGemm``, the product under autograd (its backward two more
-  launches of the kernel);
-* :mod:`.ref` — the plain PyTorch version (oracle, CPU path).
+* ``csrc/moe_gemm_bwd.cu`` — its backward's two products, dy wᵀ and
+  xᵀ dy, read in place;
+* :mod:`.ops` — the wrappers (checks, plans, launch, launch counters) and
+  ``MoeGemm``, the product under autograd (its backward one
+  ``moe_gemm_bwd`` launch for each input that needs a gradient);
+* :mod:`.ref` — the plain PyTorch versions (oracles, CPU path).
 """
 
-from .ops import (MoeGemm, launch_count, moe_gemm, reset_launches,
-                  variant_counts)
-from .ref import moe_gemm_ref
+from .ops import (MoeGemm, launch_count, moe_gemm, moe_gemm_nt, moe_gemm_tn,
+                  reset_launches, variant_counts)
+from .ref import moe_gemm_nt_ref, moe_gemm_ref, moe_gemm_tn_ref
 
-__all__ = ["MoeGemm", "launch_count", "moe_gemm", "moe_gemm_ref",
-           "reset_launches", "variant_counts"]
+__all__ = ["MoeGemm", "launch_count", "moe_gemm", "moe_gemm_nt",
+           "moe_gemm_nt_ref", "moe_gemm_ref", "moe_gemm_tn",
+           "moe_gemm_tn_ref", "reset_launches", "variant_counts"]

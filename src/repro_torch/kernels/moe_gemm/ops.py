@@ -1,4 +1,5 @@
-"""Public wrapper of the Hopper grouped expert GEMM (``csrc/moe_gemm.cu``).
+"""Public wrappers of the Hopper grouped expert GEMM (``csrc/moe_gemm.cu``)
+and of its backward's two products (``csrc/moe_gemm_bwd.cu``).
 
 Counterpart of ``src/repro/kernels/moe_gemm/``.  For tensors on the GPU
 the wrapper launches the kernel or raises; for tensors on the CPU it
@@ -14,14 +15,18 @@ note of ``csrc/moe_gemm.cu``); :func:`variant` chooses one from the shape
 and dtype alone (and 16-byte alignment, which every tensor the model
 makes has), and the C side refuses a variant that the shape does not fit.
 
-:class:`MoeGemm` is the product under autograd: its backward is two more
-launches of the same kernel, on transposed operands.
+:class:`MoeGemm` is the product under autograd.  Its backward is the
+``moe_gemm_bwd`` kernel, one launch for each input that needs a
+gradient: :func:`moe_gemm_nt` (dx = dy wᵀ) and :func:`moe_gemm_tn`
+(dw = xᵀ dy), each reading its operands where they lie, no transposed
+copies.  Their tile, chosen from the shape in :func:`bwd_plan`, is
+counted in :data:`bwd_plan_counts`.
 
 :func:`work` is one call's FLOPs and bytes (and :func:`bwd_work` the
-backward pair's), what ``chip_smoke.py`` bounds the kernel by and what a
-census (``launch/hlo_analysis.py``) counts for each call.  On fake
-tensors the wrapper refuses what the kernel refuses, launches nothing
-and returns an empty output of the kernel's shape and dtype, its work
+backward pair's), what ``chip_smoke.py`` bounds the kernels by and what
+a census (``launch/hlo_analysis.py``) counts for each call.  On fake
+tensors the wrappers refuse what the kernels refuse, launch nothing and
+return an empty output of the kernel's shape and dtype, its work
 recorded (``_build.fake_call``).
 """
 
@@ -31,6 +36,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -38,16 +44,20 @@ from torch._subclasses.fake_tensor import is_fake
 
 from .._build import (DTYPE_CODES, Launchers, bump, count_table, fake_call,
                       quiet, record_work, refuse_grad, scratch)
-from .ref import moe_gemm_ref
+from .ref import moe_gemm_nt_ref, moe_gemm_ref, moe_gemm_tn_ref
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"moe_gemm": CSRC / "moe_gemm.cu"}
+SOURCES = {"moe_gemm": CSRC / "moe_gemm.cu",
+           "moe_gemm_bwd": CSRC / "moe_gemm_bwd.cu"}
 #: ctypes signatures of the ``extern "C"`` launchers, one for one
 ARGTYPES = {
     # dtype; x, w, y; e, c, d, f, variant, split_rows; workspace,
     # counters; stream
     "moe_gemm": ([ctypes.c_int] + [ctypes.c_void_p] * 3
                  + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3),
+    # dtype; a, b, out; e, m, n, k, layout, rows, vec; stream
+    "moe_gemm_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
 }
 #: the variants, in the order of the code ``moe_gemm_launch`` takes
 VARIANTS = ("general", "wgmma", "simt", "stream")
@@ -64,6 +74,25 @@ STREAM_BLOCKS = 2 * 132
 STREAM_SLAB = 32 * 4
 BF16_GRAD = ("moe_gemm: no bf16 backward (training runs in fp32, as the "
              "reference's; bf16 training is later kernel work)")
+#: the backward kernel's layouts, in the order of the code
+#: ``moe_gemm_bwd_launch`` takes: NT out = a bᵀ (dx), TN out = aᵀ b (dw)
+BWD_LAYOUTS = ("nt", "tn")
+#: the output rows of its block tiles; the smaller where the output has
+#: at most that many rows
+BWD_ROWS = (64, 128)
+
+
+class BwdPlan(NamedTuple):
+    """One launch of ``moe_gemm_bwd``: layout, output rows a block (64 or
+    128, by 128 columns) and 16-byte (``vec``) or 4-byte loads."""
+    layout: str
+    rows: int
+    vec: bool
+
+    @property
+    def name(self) -> str:
+        """Its key in :data:`bwd_plan_counts`: ``nt128``, ``tn64_b4``..."""
+        return f"{self.layout}{self.rows}" + ("" if self.vec else "_b4")
 
 _KERNELS = Launchers(SOURCES, ARGTYPES)
 #: launches of kernel ``name`` (a key of :data:`SOURCES`) since process
@@ -72,12 +101,18 @@ launch_count = _KERNELS.launch_count
 #: launches of each variant (a key of :data:`VARIANTS`) since process
 #: start or :func:`reset_launches`
 variant_counts = count_table(dict.fromkeys(VARIANTS, 0))
+#: launches of ``moe_gemm_bwd`` by plan (:attr:`BwdPlan.name`) since
+#: process start or :func:`reset_launches`
+bwd_plan_counts = count_table(dict.fromkeys(
+    (BwdPlan(lay, r, v).name for lay in BWD_LAYOUTS for r in BWD_ROWS
+     for v in (True, False)), 0))
 
 
 def reset_launches() -> None:
     _KERNELS.reset()
-    for name in variant_counts:
-        variant_counts[name] = 0
+    for table in (variant_counts, bwd_plan_counts):
+        for name in table:
+            table[name] = 0
 
 
 def work(e: int, c: int, d: int, f: int, esz: int) -> tuple[float, int]:
@@ -89,8 +124,8 @@ def work(e: int, c: int, d: int, f: int, esz: int) -> tuple[float, int]:
 def bwd_work(e: int, c: int, d: int, f: int) -> tuple[float, int]:
     """(FLOPs, bytes) of :class:`MoeGemm`'s backward pair (fp32) at the
     forward's x (E, C, D), w (E, D, F): dx and dw, each 2 E C D F; x, w
-    (and the transposed copies the launches read), dy read and dx, dw
-    written, dy counted once."""
+    and dy read where they lie (no transposed copies) and dx, dw
+    written, dy counted once (each launch's :func:`work` counts it)."""
     return 4.0 * e * c * d * f, 4 * (2 * e * c * d + 2 * e * d * f
                                      + e * c * f)
 
@@ -217,16 +252,116 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(layout: str, e: int, m: int, n: int, k: int,
+             aligned: bool = True) -> BwdPlan:
+    """The ``moe_gemm_bwd`` launch of one product, out (e, m, n) summed
+    over k, in ``layout`` (:data:`BWD_LAYOUTS`): 64-row tiles where
+    m <= 64 (dx at C <= 64: a 128-row tile would be half empty), else
+    128; 16-byte loads where every row length (a's, b's and out's: k, k,
+    n for NT; m, n, n for TN) is a multiple of 4 and the pointers are
+    16-byte ``aligned``, else 4-byte ones.  Raises ``ValueError`` past
+    the kernel's grid (at most 65535 experts and 65535 row tiles).
+    Kept: the same few shapes come back every step."""
+    if layout not in BWD_LAYOUTS:
+        raise ValueError(f"moe_gemm_bwd: layout {layout!r} not in "
+                         f"{BWD_LAYOUTS}")
+    rows = BWD_ROWS[0] if m <= BWD_ROWS[0] else BWD_ROWS[1]
+    if e > MAX_GRID_Y or -(-m // rows) > MAX_GRID_Y:
+        raise ValueError(f"moe_gemm_bwd: {e} experts x {m} rows is past "
+                         f"the grid of {rows}-row tiles")
+    lengths = (k, k, n) if layout == "nt" else (m, n, n)
+    vec = aligned and all(r % 4 == 0 for r in lengths)
+    return BwdPlan(layout, rows, vec)
+
+
+def _bwd_shapes(layout: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(e, m, n, k) of ``layout``'s product of a and b; raises on shapes
+    that do not meet."""
+    nt = layout == "nt"
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2 if nt else 1] != b.shape[2 if nt else 1]:
+        want = "a (E,M,K), b (E,N,K)" if nt else "a (E,K,M), b (E,K,N)"
+        raise ValueError(f"moe_gemm_{layout}: want {want}; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    e = a.shape[0]
+    return (e, a.shape[1], b.shape[1], a.shape[2]) if nt \
+        else (e, a.shape[2], b.shape[2], a.shape[1])
+
+
+def _check_bwd(layout: str, a: torch.Tensor, b: torch.Tensor,
+               shape: tuple, aligned=None) -> BwdPlan:
+    """Raise on what the backward kernel does not take; return the
+    call's :func:`bwd_plan` (``aligned`` None: read from the pointers)."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"moe_gemm_{layout}: the kernel takes float32 "
+                         f"(got {a.dtype}, {b.dtype}); {BF16_GRAD}")
+    if b.device != a.device:
+        raise ValueError(f"moe_gemm_{layout}: b on {b.device}, a on "
+                         f"{a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"moe_gemm_{layout}: inputs must be contiguous")
+    return bwd_plan(layout, *shape,
+                    _aligned(a, b) if aligned is None else aligned)
+
+
+def _launch_bwd(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                shape: tuple, plan: BwdPlan) -> None:
+    """One ``moe_gemm_bwd`` launch of ``plan`` into ``out``, counted."""
+    _KERNELS.launch("moe_gemm_bwd", a, a.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), *shape, BWD_LAYOUTS.index(plan.layout),
+                    plan.rows, int(plan.vec))
+    bump(bwd_plan_counts, plan.name)
+    e, m, n, k = shape
+    record_work("moe_gemm_bwd", work(e, m, k, n, 4))
+
+
+def _bwd(layout: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    shape = _bwd_shapes(layout, a, b)
+    e, m, n, k = shape
+    why = "no double backward through MoeGemm"
+    if is_fake(a):
+        refuse_grad("moe_gemm_bwd", why, a, b)
+        _check_bwd(layout, a, b, shape, aligned=True)
+        return fake_call("moe_gemm_bwd", work(e, m, k, n, 4),
+                         a.new_empty((e, m, n)))
+    if a.device.type == "cpu":
+        return (moe_gemm_nt_ref if layout == "nt" else moe_gemm_tn_ref)(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"moe_gemm_{layout}: no kernel for device "
+                         f"{a.device}")
+    refuse_grad("moe_gemm_bwd", why, a, b)
+    plan = _check_bwd(layout, a, b, shape)
+    out = a.new_empty((e, m, n))
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    _launch_bwd(a, b, out, shape, plan)
+    return out
+
+
+def moe_gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a: (E, M, K); b: (E, N, K) -> (E, M, N): out[e] = a[e] @ b[e]ᵀ,
+    b read in place.  :class:`MoeGemm`'s dx = ``moe_gemm_nt(dy, w)``:
+    dy (E, C, F) against w (E, D, F).  fp32 on the GPU."""
+    return _bwd("nt", a, b)
+
+
+def moe_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a: (E, K, M); b: (E, K, N) -> (E, M, N): out[e] = a[e]ᵀ @ b[e],
+    a read in place.  :class:`MoeGemm`'s dw = ``moe_gemm_tn(x, dy)``:
+    x (E, C, D) against dy (E, C, F).  fp32 on the GPU."""
+    return _bwd("tn", a, b)
+
+
 class MoeGemm(torch.autograd.Function):
     """:func:`moe_gemm` with its backward: ``MoeGemm.apply(x, w)``.  Saves
-    x and w.  The backward is two more calls of :func:`moe_gemm`, each
-    only where ``ctx.needs_input_grad`` asks for it: dx = dy wᵀ (dy
-    (E, C, F) against wᵀ (E, F, D)) and dw = xᵀ dy (xᵀ (E, D, C) against
-    dy (E, C, F)), each call's variant chosen from its own shape
-    (:func:`variant`).  The transposes are contiguous copies: layout
-    only, the products are the kernel's.  Kernels on CUDA tensors, the
-    plain version on CPU tensors.  A bf16 input that needs a gradient
-    raises ``NotImplementedError`` (fp32 training only); under
+    x and w.  The backward is one call for each input that
+    ``ctx.needs_input_grad`` asks for, on x, w and dy as saved:
+    dx = :func:`moe_gemm_nt` (dy, w) = dy wᵀ and dw = :func:`moe_gemm_tn`
+    (x, dy) = xᵀ dy, each one ``moe_gemm_bwd`` launch that reads its
+    operands where they lie (no transposed copies).  Kernels on CUDA
+    tensors, the plain versions on CPU tensors.  A bf16 input that needs
+    a gradient raises ``NotImplementedError`` (fp32 training only); under
     ``torch.no_grad`` it runs."""
 
     @classmethod
@@ -246,10 +381,7 @@ class MoeGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = moe_gemm(dy, w.transpose(1, 2).contiguous())
-        if ctx.needs_input_grad[1]:
-            dw = moe_gemm(x.transpose(1, 2).contiguous(), dy)
+        dy = dy.contiguous()       # a copy only for a dy that comes strided
+        dx = moe_gemm_nt(dy, w) if ctx.needs_input_grad[0] else None
+        dw = moe_gemm_tn(x, dy) if ctx.needs_input_grad[1] else None
         return dx, dw

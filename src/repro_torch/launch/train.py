@@ -36,9 +36,10 @@ failure.
 Weights are random from ``--seed``.  On the card every family the
 launcher takes trains: the dense archs (llama, qwen, command-r) through
 the attention kernels and their backward, the MoE archs (granite,
-mixtral) through those and ``moe_gemm`` with its backward, Mamba2
-(mamba2) through ``ssd_chunk`` and its backward kernel
-``ssd_chunk_bwd``, and the hybrid (zamba2) through all of them.  The
+mixtral) through those and ``moe_gemm`` with its backward kernel
+``moe_gemm_bwd``, Mamba2 (mamba2) through ``ssd_chunk`` and its
+backward kernel ``ssd_chunk_bwd``, and the hybrid (zamba2) through all
+of them.  The
 archs that take embeddings (llava, musicgen) stop as the reference's
 launcher stops them.
 

@@ -9,7 +9,7 @@ JAX package's ``models/transformer/layers.py``.
 * ``mlp`` — SwiGLU;
 * ``moe`` — top-k routed experts with per-sample capacity dispatch; the
   three expert products are the Hopper ``moe_gemm`` kernel, differentiated
-  by two more launches of it (``MoeGemm``);
+  by the ``moe_gemm_bwd`` kernel (``MoeGemm``);
 * ``mamba2_prefill`` / ``mamba2_decode`` — Mamba2 (SSD): chunked
   prefill, whose intra-chunk step (:func:`ssd_chunked`) is the Hopper
   ``ssd_chunk`` kernel, and the O(1) recurrent decode (plain torch, as
@@ -251,8 +251,8 @@ def moe(p: MoeParams, x: torch.Tensor, top_k: int,
     residual covers them).  The expert buffers are laid out (E, B·cap, d),
     the reference's (B, E, cap, d) with the batch folded into the rows
     (exact: every row meets the same ``w[e]``), so each expert product
-    is one ``moe_gemm`` launch (``MoeGemm``: under autograd, two more in
-    the backward).
+    is one ``moe_gemm`` launch (``MoeGemm``: under autograd, two
+    ``moe_gemm_bwd`` launches in the backward).
 
     Dispatch and combine use no atomic adds, so a run repeats bit for
     bit: the kept assignments, whose (expert, slot) pairs are unique,

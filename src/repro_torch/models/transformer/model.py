@@ -28,8 +28,8 @@ captures into one CUDA graph.
 versions on CPU tensors) or ``backend="torch"`` (the plain versions on
 any device).  ``loss_fn`` is differentiable on both: attention through
 ``FlashPrefill`` and its backward kernel on the card, the MoE expert
-products through ``MoeGemm`` (its backward two more ``moe_gemm``
-launches), the SSD intra-chunk step through ``SsdChunk`` (its backward
+products through ``MoeGemm`` (its backward the ``moe_gemm_bwd``
+kernel), the SSD intra-chunk step through ``SsdChunk`` (its backward
 the ``ssd_chunk_bwd`` kernel), so every family trains on the card, and
 on the CPU through the plain versions.  zamba2 at full depth needs
 about 8 x 9.7 GB with the functional optimizer, so one 80 GB card

@@ -1073,34 +1073,119 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
 def test_moe_gemm_function_differentiates_through_the_kernel(shape, cuda):
     """``MoeGemm.apply`` on the card at granite's training shapes (the
     w1/w3 product and its w2 twin, C = 4 x 128 slots) and at a C that is
-    no multiple of 4 (dw's depth then takes the general variant): one
-    launch forward, two backward, each in the variant of its own shape;
-    dx and dw bit-equal to direct wrapper calls on the transposed
-    copies, and within 1e-4 x max(1, max|g|) of autograd of the plain
-    version."""
+    no multiple of 4 (dx's 64-row tile; dw's depth, with a k tail): one
+    ``moe_gemm`` launch forward,
+    two ``moe_gemm_bwd`` launches backward, each on the plan of its own
+    shape; dx and dw bit-equal to direct ``moe_gemm_nt(dy, w)`` and
+    ``moe_gemm_tn(x, dy)`` calls, and within 1e-4 x max(1, max|g|) of
+    autograd of the plain version."""
     e, c, d, f = shape
     x, w = (_t(a, cuda) for a in moe_gemm_inputs(e, c, d, f))
     dy = torch.tensor(np.random.default_rng(9).standard_normal((e, c, f)),
                       dtype=torch.float32, device=cuda)
     leaves = [t.clone().requires_grad_() for t in (x, w)]
     y = moe_ops.MoeGemm.apply(*leaves)
-    before = moe_ops.launch_count("moe_gemm")
-    variants = dict(moe_ops.variant_counts)
+    before = (moe_ops.launch_count("moe_gemm"),
+              moe_ops.launch_count("moe_gemm_bwd"))
+    plans = dict(moe_ops.bwd_plan_counts)
     got = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
-    assert moe_ops.launch_count("moe_gemm") == before + 2
-    for plan in (moe_ops._plan(e, c, f, d, torch.float32, True),
-                 moe_ops._plan(e, d, c, f, torch.float32, True)):
-        variants[plan[0]] += 1
-    assert moe_ops.variant_counts == variants
-    direct = (moe_ops.moe_gemm(dy, w.transpose(1, 2).contiguous()),
-              moe_ops.moe_gemm(x.transpose(1, 2).contiguous(), dy))
+    assert (moe_ops.launch_count("moe_gemm"),
+            moe_ops.launch_count("moe_gemm_bwd")) == (before[0],
+                                                      before[1] + 2)
+    for plan in (moe_ops.bwd_plan("nt", e, c, d, f),
+                 moe_ops.bwd_plan("tn", e, d, f, c)):
+        plans[plan.name] += 1
+    assert moe_ops.bwd_plan_counts == plans
+    direct = (moe_ops.moe_gemm_nt(dy, w), moe_ops.moe_gemm_tn(x, dy))
     plain = [t.clone().requires_grad_() for t in (x, w)]
     want = torch.autograd.grad(moe_ref.moe_gemm_ref(*plain), plain, dy)
     for g, dg, p in zip(got, direct, want):
         assert torch.equal(g, dg)
         limit = 1e-4 * max(1.0, p.abs().max().item())
         assert (g - p).abs().max().item() <= limit
+
+
+MOE_BWD_SHAPES = sorted(MOE_GEMM_CASES) + ["granite", "granite_w2"]
+
+
+def _moe_bwd_shape(case):
+    return {"granite": (40, 512, 1536, 512),
+            "granite_w2": (40, 512, 512, 1536)}.get(case) \
+        or MOE_GEMM_CASES[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+@pytest.mark.parametrize("case", MOE_BWD_SHAPES)
+def test_moe_gemm_bwd_kernel_matches_plain_version(case, layout, cuda):
+    """``moe_gemm_nt(dy, w)`` (dx) and ``moe_gemm_tn(x, dy)`` (dw) at each
+    ``MOE_GEMM_CASES`` shape (64- and 128-row tiles, rows that are no
+    multiple of 4) and granite's training products: one launch on the
+    plan of its shape, within 1e-4 x max(1, max|ref|) of the plain
+    version, and the same bits twice (no atomics, no split across
+    blocks)."""
+    e, c, d, f = _moe_bwd_shape(case)
+    x, w = (_t(a, cuda) for a in moe_gemm_inputs(e, c, d, f))
+    dy = torch.tensor(np.random.default_rng(3).standard_normal((e, c, f)),
+                      dtype=torch.float32, device=cuda)
+    if layout == "nt":
+        call, plain, args, plan = (moe_ops.moe_gemm_nt, moe_ref.moe_gemm_nt_ref,
+                                   (dy, w), moe_ops.bwd_plan("nt", e, c, d, f))
+    else:
+        call, plain, args, plan = (moe_ops.moe_gemm_tn, moe_ref.moe_gemm_tn_ref,
+                                   (x, dy), moe_ops.bwd_plan("tn", e, d, f, c))
+    before = moe_ops.launch_count("moe_gemm_bwd")
+    plans = dict(moe_ops.bwd_plan_counts)
+    got = call(*args)
+    torch.cuda.synchronize()
+    assert moe_ops.launch_count("moe_gemm_bwd") == before + 1
+    plans[plan.name] += 1
+    assert moe_ops.bwd_plan_counts == plans
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    limit = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= limit
+    assert torch.equal(got, call(*args))
+
+
+@pytest.mark.cuda
+def test_moe_gemm_bwd_refuses_a_misaligned_pointer(cuda):
+    """A view 4 bytes off 16-byte alignment: the wrapper plans 4-byte
+    loads and runs right; the C side refuses a 16-byte plan on it (the
+    launch raises)."""
+    e, c, d, f = 2, 24, 32, 16
+    dy = torch.randn(e * c * f + 1, device=cuda)[1:].view(e, c, f)
+    w = torch.randn(e, d, f, device=cuda)
+    assert dy.data_ptr() % 16 and dy.is_contiguous()
+    got = moe_ops.moe_gemm_nt(dy, w)
+    want = moe_ref.moe_gemm_nt_ref(dy, w)
+    assert (got - want).abs().max().item() <= 1e-4 * max(
+        1.0, want.abs().max().item())
+    plan = moe_ops.bwd_plan("nt", e, c, d, f, True)
+    assert plan.vec and not moe_ops.bwd_plan("nt", e, c, d, f, False).vec
+    with pytest.raises(RuntimeError, match="moe_gemm_bwd launch failed"):
+        moe_ops._launch_bwd(dy, w, torch.empty(e, c, d, device=cuda),
+                            (e, c, d, f), plan)
+
+
+@pytest.mark.cuda
+def test_moe_gemm_bwd_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """bf16 (no bf16 backward), operands on two devices, a strided
+    operand, and a product that needs a gradient (no double backward):
+    ``ValueError`` and ``NotImplementedError``; nothing launches."""
+    x, w = (_t(a, cuda) for a in moe_gemm_inputs(*MOE_GEMM_CASES["e4"]))
+    dy = torch.ones(x.shape[0], x.shape[1], w.shape[2], device=cuda)
+    before = moe_ops.launch_count("moe_gemm_bwd")
+    for call, args in [(moe_ops.moe_gemm_nt, (dy.bfloat16(), w.bfloat16())),
+                       (moe_ops.moe_gemm_nt, (dy, w.cpu())),
+                       (moe_ops.moe_gemm_tn, (x.transpose(1, 2).contiguous()
+                                              .transpose(1, 2), dy))]:
+        with pytest.raises(ValueError):
+            call(*args)
+    with pytest.raises(NotImplementedError, match="moe_gemm_bwd"):
+        moe_ops.moe_gemm_tn(x.clone().requires_grad_(), dy)
+    assert moe_ops.launch_count("moe_gemm_bwd") == before
 
 
 @pytest.mark.cuda
@@ -1111,8 +1196,8 @@ def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
     """Reduced Llama (tokens), musicgen (the ``embeds`` mode), granite and
     mixtral (MoE), mamba2 (SSM) and zamba2 (hybrid) on the card:
     ``loss_and_grads`` through the kernels (remat: two flash_prefill an
-    attention, one flash_prefill_bwd; MoE: 12 moe_gemm a layer, 3
-    forward, 3 in the recompute, 6 backward; Mamba2: two ssd_chunk a
+    attention, one flash_prefill_bwd; MoE: 6 moe_gemm a layer, 3
+    forward and 3 in the recompute, and 6 moe_gemm_bwd; Mamba2: two ssd_chunk a
     layer, one ssd_chunk_bwd) against ``backend="torch"``: loss within
     1e-5 relative, each leaf within 1e-3 x max|g| of its leaf."""
     cfg = configs.get(arch).reduced(n_layers=2, d_model=128)
@@ -1133,7 +1218,9 @@ def test_loss_gradients_on_the_card_match_the_torch_backend(arch, cuda):
         else 0 if cfg.is_ssm else L
     assert (attn_ops.launch_count("flash_prefill"),
             attn_ops.launch_count("flash_prefill_bwd")) == (2 * attn, attn)
-    assert moe_ops.launch_count("moe_gemm") == (12 * L if cfg.is_moe else 0)
+    assert (moe_ops.launch_count("moe_gemm"),
+            moe_ops.launch_count("moe_gemm_bwd")) == \
+        ((6 * L, 6 * L) if cfg.is_moe else (0, 0))
     mamba = L if cfg.is_ssm else 0
     assert (ssd_ops.launch_count("ssd_chunk"),
             ssd_ops.launch_count("ssd_chunk_bwd")) == (2 * mamba, mamba)

@@ -321,6 +321,11 @@ def test_fake_tensors_are_refused_where_the_kernel_refuses():
     w = _fake(mode, _real((2, 8, 4)).double())
     with pytest.raises(ValueError, match="not supported"):
         moe_ops.moe_gemm(x, w)
+    with pytest.raises(ValueError, match="takes float32"):
+        moe_ops.moe_gemm_nt(x, x)
+    with pytest.raises(ValueError, match="past the grid"):
+        moe_ops.moe_gemm_tn(_fake(mode, torch.empty(65536, 1, 1)),
+                            _fake(mode, torch.empty(65536, 1, 1)))
 
 
 @pytest.mark.parametrize("lse", [False, True])
@@ -365,8 +370,10 @@ def test_moe_gemm_on_fake_tensors(dtype, launches):
 
 
 def test_moe_gemm_backward_on_fake_tensors(launches):
-    """``MoeGemm``'s backward: two ``moe_gemm`` calls on the transposed
-    shapes, each with its own work; their FLOPs are ``bwd_work``'s."""
+    """``MoeGemm``'s backward: two ``moe_gemm_bwd`` calls (dx = dy wᵀ,
+    dw = xᵀ dy) on x, w and dy as they lie, each with its own work; their
+    FLOPs are ``bwd_work``'s; the census holds no transpose or copy of an
+    operand; nothing launches."""
     e, cc, d, f = 3, 10, 16, 24
     x = _real((e, cc, d)).requires_grad_(True)
     w = _real((e, d, f), seed=1).requires_grad_(True)
@@ -382,14 +389,17 @@ def test_moe_gemm_backward_on_fake_tensors(launches):
     grads, c = _census(step)
     for got, want in zip(grads, plain):
         _same_meta(got, want)
-    fwd = moe_ops.work(e, cc, d, f, 4)
-    dx = moe_ops.work(e, cc, f, d, 4)
-    dw = moe_ops.work(e, d, cc, f, 4)
-    entry = c.by_computation["moe_gemm"]
-    assert entry["mult"] == 3
-    assert entry["flops"] == fwd[0] + dx[0] + dw[0]
-    assert entry["hbm_bytes"] == fwd[1] + dx[1] + dw[1]
-    assert dx[0] + dw[0] == moe_ops.bwd_work(e, cc, d, f)[0]
+    _kernel_entry(c, "moe_gemm", moe_ops.work(e, cc, d, f, 4))
+    dx = moe_ops.work(e, cc, f, d, 4)       # (E, C, F) x (E, F, D)
+    dw = moe_ops.work(e, d, cc, f, 4)       # (E, D, C) x (E, C, F)
+    entry = c.by_computation["moe_gemm_bwd"]
+    assert entry["mult"] == 2
+    assert entry["flops"] == dx[0] + dw[0] == moe_ops.bwd_work(e, cc, d, f)[0]
+    assert entry["hbm_bytes"] == dx[1] + dw[1]
+    moved = [k for k in c.by_computation
+             if k.startswith(("aten.clone", "aten.copy", "aten.transpose",
+                              "aten.contiguous", "aten.permute"))]
+    assert moved == []
 
 
 SSD = [((3, 64, 4, 16, 32), torch.float32), ((2, 40, 2, 8, 16),

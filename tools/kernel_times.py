@@ -1,19 +1,24 @@
 """Time one of the port's kernels on the card, per shape and dtype.
 
 Each case runs the case function of ``chip_smoke.py`` of the tree at
-``--root`` (``ssd_case`` or ``prefill_case``: the kernel against its
-plain version, two calls the same bits, CUDA-event ms) with the
-kernel's device ms from ``torch.profiler``; a ``flash_prefill`` case
-also gives SDPA's device ms and the bound.  ``--g`` forces
-``ssd_chunk``'s heads a y block (2 or 4) in place of ``ops.plan``'s
-choice, to hold the plan against the other G; it needs a tree whose
-``kernels/ssd/ops.py`` has ``plan``.  To compare two trees on one card,
+``--root`` (``ssd_case``, ``prefill_case`` or ``moe_bwd_case``: the
+kernel against its plain version, two calls the same bits, CUDA-event
+ms) with the kernel's device ms from ``torch.profiler``; a
+``flash_prefill`` case also gives SDPA's device ms and the bound, a
+``moe_gemm_bwd`` case (``MoeGemm``'s backward, dx and dw of one
+``autograd.grad``: in the parent tree the forward kernel on transposed
+copies, copies included) the ``torch.bmm`` pair's device ms and the
+bound.  ``--g`` forces ``ssd_chunk``'s heads a y block (2 or 4) in
+place of ``ops.plan``'s choice, to hold the plan against the other G;
+it needs a tree whose ``kernels/ssd/ops.py`` has ``plan``.  To compare two trees on one card,
 run the script once per tree in turns (parent, change, change, parent):
 
     python3 tools/kernel_times.py --kernel ssd_chunk --root <tree> \\
         [--g 2 4] [--shapes edges]
     python3 tools/kernel_times.py --kernel flash_prefill --root <tree> \\
         [--shapes all] [--dtypes float32 bfloat16]
+    python3 tools/kernel_times.py --kernel moe_gemm_bwd --root <tree> \\
+        [--shapes all]
 
 Prints one line a case: tree tag, shape (and plan where the tree has
 one), dtype, ok, max error, ms (events) and device ms.  Needs a CUDA
@@ -43,6 +48,13 @@ PREFILL_EDGES = [((2, 37, 8, 4, 64), 0), ((2, 200, 8, 4, 64), 32),
                  ((2, 256, 16, 1, 64), 0), ((1, 256, 8, 8, 128), 0),
                  ((2, 300, 8, 4, 8), 0), ((2, 300, 8, 4, 40), 0),
                  ((1, 130, 2, 64, 32), 0), ((4, 511, 16, 1, 64), 0)]
+# MoeGemm's backward, x (E, C, D) against w (E, D, F), fp32: granite's
+# training products (w1/w3 and the w2 twin) and mixtral's experts at
+# C 64, then the edges chip_smoke.py runs
+MOE_BWD_PATH = [(40, 512, 1536, 512), (40, 512, 512, 1536),
+                (8, 64, 4096, 14336)]
+MOE_BWD_EDGES = [(4, 12, 1024, 256), (4, 10, 1024, 256), (40, 4, 1536, 512),
+                 (2, 24, 30, 12)]
 
 
 def _ssd_inputs(shape, dtype):
@@ -110,9 +122,22 @@ def prefill_times(cs, tag, cases, dtypes) -> None:
                   f"({share})", flush=True)
 
 
+def moe_bwd_times(cs, tag, shapes) -> None:
+    for shape in shapes:
+        r = cs.moe_bwd_case(shape)
+        share = (f"{100 * r['bound_ms'] / r['dev_ms']:.1f}%"
+                 if r["dev_ms"] else "-")
+        print(f"{tag} x{shape[:3]} F{shape[3]} ({r['desc']}) float32 "
+              f"{'ok' if r['ok'] else 'FAIL'} err {r['err']:.3g} ms "
+              f"{r['ms']:.4f} device {r['dev_ms']:.4f} bmm pair "
+              f"{r['library_dev_ms']:.4f} bound {r['bound_ms']:.5f} "
+              f"({share})", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["ssd_chunk", "flash_prefill"],
+    ap.add_argument("--kernel", choices=["ssd_chunk", "flash_prefill",
+                                         "moe_gemm_bwd"],
                     default="ssd_chunk")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default=None, help="printed first on each line")
@@ -142,9 +167,12 @@ def main() -> None:
         shapes = SSD_PATH * pick[0] + SSD_EDGES * pick[1]
         ssd_times(cs, tag, shapes, args.g,
                   args.dtypes or ["float32", "bfloat16"])
-    else:
+    elif args.kernel == "flash_prefill":
         cases = PREFILL_PATH * pick[0] + PREFILL_EDGES * pick[1]
         prefill_times(cs, tag, cases, args.dtypes or ["float32"])
+    else:
+        moe_bwd_times(cs, tag, MOE_BWD_PATH * pick[0]
+                      + MOE_BWD_EDGES * pick[1])
 
 
 if __name__ == "__main__":
